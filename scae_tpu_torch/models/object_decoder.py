@@ -1,0 +1,310 @@
+"""OCAE decoder: per-object-capsule votes + capsule likelihood (counterpart
+of scae_tpu/models/object_decoder.py).
+
+CapsuleLayer: two StackedMLP banks (one batched matmul per layer over the
+O capsules), output split into OPR-dynamic / OVR / presences / scales,
+cpr = transform(static + dynamic) with an l2 reg on the dynamic part,
+vote = OVR @ OPR on the six affine coefficients, softplus vote scale.
+When not deterministic, capsule dropout and presence-logit noise draw from
+an explicit ``torch.Generator``; the eval and serving path is
+deterministic. capsule_likelihood: Gaussian vote pdf, dummy component at
+log(0.01), posterior mixing, hard winner by argmax + gather, soft winner.
+Sparsity losses: l2, entropy and kl.
+"""
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from scae_tpu_torch.models.layers import StackedMLP
+from scae_tpu_torch.models.results import (
+    CapsuleLayerResult,
+    CapsuleLikelihoodResult,
+    ObjectDecoderResult,
+)
+from scae_tpu_torch.ops.geometry import (
+    affine_to_matrix,
+    compose_affines,
+    geometric_transform,
+)
+from scae_tpu_torch.ops.gmm import normal_log_prob
+from scae_tpu_torch.ops.math_ops import (
+    cross_entropy_safe,
+    l2_loss,
+    log_safe,
+    normalize,
+)
+
+_LOG_001 = math.log(0.01)  # dummy log-prob / mixing logit constant
+
+
+class CapsuleLayer(nn.Module):
+    """Predicts per-object-capsule candidate part poses ("votes")."""
+
+    def __init__(self, n_caps: int, dim_feature: int, n_votes: int,
+                 dim_caps: int, hidden_sizes: Sequence[int] = (128,),
+                 caps_dropout_rate: float = 0.0,
+                 learn_vote_scale: bool = False,
+                 allow_deformations: bool = True,
+                 noise_type: Optional[str] = None, noise_scale: float = 0.0,
+                 similarity_transform: bool = True,
+                 n_transform_params: int = 6):
+        super().__init__()
+        O, V, P = n_caps, n_votes, n_transform_params
+        self.n_caps = O
+        self.n_votes = V
+        self.n_transform_params = P
+        self.caps_dropout_rate = caps_dropout_rate
+        self.learn_vote_scale = learn_vote_scale
+        self.allow_deformations = allow_deformations
+        self.noise_type = noise_type
+        self.noise_scale = noise_scale
+        self.similarity_transform = similarity_transform
+        self.output_shapes = (
+            (V, P),   # OPR-dynamic
+            (1, P),   # OVR
+            (1,),     # per-object presence logit
+            (V,),     # per-vote presence logit
+            (V,),     # per-vote scale
+        )
+        self.splits = [math.prod(s) for s in self.output_shapes]
+        hidden = list(hidden_sizes)
+        self.mlps = StackedMLP(O, (dim_feature, *hidden, dim_caps))
+        # bias-free bank so static and dynamic OP parts stay separable
+        self.caps_mlps = StackedMLP(O, (dim_caps + 1, *hidden,
+                                        sum(self.splits)), use_bias=False)
+        self.cpr_static = nn.Parameter(torch.empty(1, O, V, P))
+        for i, s in enumerate(self.output_shapes[1:]):
+            self.register_parameter(f"caps_bias_{i}",
+                                    nn.Parameter(torch.empty(1, O, *s)))
+
+    def init_own_parameters(self, generator):
+        with torch.no_grad():
+            self.cpr_static.zero_()
+            for i in range(len(self.output_shapes) - 1):
+                getattr(self, f"caps_bias_{i}").zero_()
+
+    def _transform(self, params):
+        return geometric_transform(params, self.similarity_transform,
+                                   nonlinear=True, as_matrix=False)
+
+    def forward(self, feature, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """feature: (B, O, F) object encodings."""
+        B = feature.shape[0]
+        O = self.n_caps
+        raw_caps_param = self.mlps(feature)                   # (B, O, D)
+
+        if self.caps_dropout_rate == 0.0:
+            caps_exist = torch.ones_like(raw_caps_param[..., :1])
+        else:
+            keep = torch.full((B, O, 1), 1.0 - self.caps_dropout_rate,
+                              dtype=raw_caps_param.dtype,
+                              device=raw_caps_param.device)
+            caps_exist = torch.bernoulli(keep, generator=generator)
+        caps_param = torch.cat([raw_caps_param, caps_exist], dim=-1)
+        all_param = self.caps_mlps(caps_param)               # (B, O, A)
+
+        chunks = [c.reshape(B, O, *s) for c, s in zip(
+            torch.split(all_param, self.splits, dim=-1), self.output_shapes)]
+
+        cpr_dynamic = chunks[0]                               # (B, O, V, P)
+        if not self.allow_deformations:
+            cpr_dynamic = torch.zeros_like(cpr_dynamic)
+        cpr_dynamic_reg_loss = l2_loss(cpr_dynamic) / B
+        cpr = self._transform(cpr_dynamic + self.cpr_static)  # (B, O, V, 6)
+
+        cvr = chunks[1] + self.caps_bias_0                    # (B, O, 1, P)
+        presence_logit_per_caps = chunks[2] + self.caps_bias_1
+        presence_logit_per_vote = chunks[3] + self.caps_bias_2
+        scale_per_vote = chunks[4] + self.caps_bias_3
+        cvr = self._transform(cvr)                            # (B, O, 1, 6)
+        vote = affine_to_matrix(compose_affines(cvr, cpr))    # (B, O, V, 3, 3)
+
+        if self.caps_dropout_rate > 0.0:
+            presence_logit_per_caps = (presence_logit_per_caps
+                                       + log_safe(caps_exist))
+
+        def add_noise(t):
+            if deterministic or not self.noise_type:
+                return t
+            if self.noise_type == "uniform":
+                u = torch.rand(t.shape, generator=generator, dtype=t.dtype,
+                               device=t.device)
+                return t + (u - 0.5) * self.noise_scale
+            if self.noise_type == "logistic":
+                u = torch.rand(t.shape, generator=generator, dtype=t.dtype,
+                               device=t.device).clamp(1e-7, 1 - 1e-7)
+                return t + torch.log(u / (1 - u)) * self.noise_scale
+            raise ValueError(f"Invalid noise type: {self.noise_type}")
+
+        presence_logit_per_caps = add_noise(presence_logit_per_caps)
+        presence_logit_per_vote = add_noise(presence_logit_per_vote)
+
+        vote_presence = (torch.sigmoid(presence_logit_per_caps)
+                         * torch.sigmoid(presence_logit_per_vote))
+        if self.learn_vote_scale:
+            scale_per_vote = F.softplus(scale_per_vote + 0.5) + 1e-2
+        else:
+            scale_per_vote = torch.ones_like(scale_per_vote)
+
+        return CapsuleLayerResult(
+            vote=vote,
+            scale=scale_per_vote,
+            vote_presence=vote_presence,
+            presence_logit_per_caps=presence_logit_per_caps,
+            presence_logit_per_vote=presence_logit_per_vote,
+            cpr_dynamic_reg_loss=cpr_dynamic_reg_loss,
+        )
+
+
+def capsule_likelihood(vote, scale, vote_presence, dummy_vote, x,
+                       presence=None) -> CapsuleLikelihoodResult:
+    """Capsule mixture likelihood + winner routing.
+
+    vote (B, O, M, P), scale (B, O, M), vote_presence (B, O, M),
+    dummy_vote (1, 1, M, P), x (B, M, P) target part poses, presence
+    (B, M) or None.
+    """
+    B, n_points, dim_in = x.shape
+    vote_log_prob = torch.sum(
+        normal_log_prob(x[:, None], vote, scale[..., None]), dim=-1)
+    const = torch.full((B, 1, n_points), _LOG_001, dtype=x.dtype,
+                       device=x.device)
+    vote_log_prob = torch.cat([vote_log_prob, const], dim=1)   # (B, O+1, M)
+    mixing_logit = torch.cat([log_safe(vote_presence), const], dim=1)
+    mixing_log_prob = mixing_logit - torch.logsumexp(mixing_logit, dim=1,
+                                                     keepdim=True)
+    vote_presence_binary = (mixing_logit[:, :-1]
+                            > mixing_logit[:, -1:]).to(x.dtype)
+
+    posterior_logits = mixing_logit + vote_log_prob
+    mixture_log_prob_per_point = torch.logsumexp(posterior_logits, dim=1)
+    if presence is not None:
+        mixture_log_prob_per_point = mixture_log_prob_per_point * presence
+    log_prob = torch.mean(torch.sum(mixture_log_prob_per_point, dim=1))
+
+    # hard winner: argmax over the real capsules only
+    winning_idx = torch.argmax(posterior_logits[:, :-1], dim=1)  # (B, M)
+    winner = torch.gather(
+        vote, 1, winning_idx[:, None, :, None].expand(B, 1, n_points, dim_in)
+    ).squeeze(1)
+    winner_presence = torch.gather(vote_presence, 1,
+                                   winning_idx[:, None, :]).squeeze(1)
+    # the reference's quirk, kept as the JAX package keeps it; never read
+    is_from_capsule = torch.div(winning_idx, n_points, rounding_mode="floor")
+
+    posterior_mixing_prob = torch.softmax(posterior_logits, dim=1)
+    votes_full = torch.cat(
+        [vote, dummy_vote.expand(B, 1, n_points, dim_in)], dim=1)
+    vote_presence_full = torch.cat(
+        [vote_presence, torch.zeros_like(vote_presence[:, :1])], dim=1)
+    soft_winner = torch.sum(posterior_mixing_prob[..., None] * votes_full,
+                            dim=1)
+    soft_winner_presence = torch.sum(
+        posterior_mixing_prob * vote_presence_full, dim=1)
+
+    return CapsuleLikelihoodResult(
+        log_prob=log_prob,
+        vote_presence_binary=vote_presence_binary,
+        winner=winner,
+        winner_presence=winner_presence,
+        soft_winner=soft_winner,
+        soft_winner_presence=soft_winner_presence,
+        posterior_mixing_prob=posterior_mixing_prob[:, :-1],
+        mixing_log_prob=mixing_log_prob,
+        mixing_logit=mixing_logit,
+        is_from_capsule=is_from_capsule,
+    )
+
+
+class CapsuleObjectDecoder(nn.Module):
+    """CapsuleLayer + capsule likelihood."""
+
+    def __init__(self, capsule_layer: CapsuleLayer):
+        super().__init__()
+        self.capsule_layer = capsule_layer
+        self.dummy_vote = nn.Parameter(torch.empty(
+            1, 1, capsule_layer.n_votes, capsule_layer.n_transform_params))
+
+    @property
+    def n_obj_capsules(self) -> int:
+        return self.capsule_layer.n_caps
+
+    def init_own_parameters(self, generator):
+        nn.init.zeros_(self.dummy_vote)
+
+    def forward(self, obj_encoding, part_pose, part_presence=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """obj_encoding (B, O, F), part_pose (B, M, P), part_presence
+        (B, M) or None."""
+        B, O = obj_encoding.shape[:2]
+        V = part_pose.shape[1]
+        P = self.capsule_layer.n_transform_params
+        res = self.capsule_layer(obj_encoding, deterministic=deterministic,
+                                 generator=generator)
+        vote_flat = res.vote[..., :-1, :].reshape(B, O, V, P)
+        caps_presence = torch.amax(res.vote_presence, dim=-1)    # (B, O)
+        ll = capsule_likelihood(vote_flat, res.scale, res.vote_presence,
+                                self.dummy_vote, part_pose, part_presence)
+        return ObjectDecoderResult(
+            vote=vote_flat,
+            scale=res.scale,
+            vote_presence=res.vote_presence,
+            presence_logit_per_caps=res.presence_logit_per_caps,
+            presence_logit_per_vote=res.presence_logit_per_vote,
+            cpr_dynamic_reg_loss=res.cpr_dynamic_reg_loss,
+            caps_presence=caps_presence,
+            log_prob=ll.log_prob,
+            vote_presence_binary=ll.vote_presence_binary,
+            winner=ll.winner,
+            winner_presence=ll.winner_presence,
+            soft_winner=ll.soft_winner,
+            soft_winner_presence=ll.soft_winner_presence,
+            posterior_mixing_prob=ll.posterior_mixing_prob,
+            mixing_log_prob=ll.mixing_log_prob,
+            mixing_logit=ll.mixing_logit,
+            is_from_capsule=ll.is_from_capsule,
+        )
+
+
+# capsule-presence sparsity regularisers
+
+def capsule_l2_loss(caps_presence, n_classes: int,
+                    within_example_constant=None, **unused_kwargs):
+    """Prior sparsity: l2(aggregated presence - constant)."""
+    B, num_caps = caps_presence.shape
+    if within_example_constant is None:
+        within_example_constant = float(num_caps) / n_classes
+    within = torch.mean(
+        (torch.sum(caps_presence, 1) - within_example_constant) ** 2)
+    between = torch.mean(
+        (torch.sum(caps_presence, 0) - float(B) / n_classes) ** 2)
+    return within, between
+
+
+def capsule_entropy_loss(caps_presence, k=1, **unused_kwargs):
+    """Posterior sparsity: within / between normalised cross-entropy."""
+    within_prob = normalize(caps_presence, 1)
+    within = cross_entropy_safe(within_prob, within_prob * k)
+    between_prob = normalize(torch.sum(caps_presence, 0), 0)
+    between = cross_entropy_safe(between_prob, between_prob * k)
+    return within, -between
+
+
+def neg_capsule_kl(caps_presence, **unused_kwargs):
+    return capsule_entropy_loss(caps_presence, k=int(caps_presence.shape[-1]))
+
+
+def sparsity_loss(loss_type, *args, **kwargs):
+    if loss_type == "l2":
+        return capsule_l2_loss(*args, **kwargs)
+    if loss_type == "entropy":
+        return capsule_entropy_loss(*args, **kwargs)
+    if loss_type == "kl":
+        return neg_capsule_kl(*args, **kwargs)
+    raise ValueError(f"Invalid sparsity loss: {loss_type}")

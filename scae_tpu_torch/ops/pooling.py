@@ -1,0 +1,27 @@
+"""Attention-weighted pooling (counterpart of scae_tpu/ops/pooling.py).
+
+Each of A capsules owns a contiguous channel group whose last channel is
+an attention logit; a softmax over pixels of that logit weights the other
+channels of the group, which are then summed over pixels. NCHW layout.
+"""
+
+import torch
+
+
+def multiple_soft_attention(feature_map, n_attention_map):
+    """(B, C, H, W) with C = A * (k+1) -> (B, C - A, H, W)."""
+    B, C, H, W = feature_map.shape
+    A = n_attention_map
+    if not (A > 0 and C > A and C % A == 0):
+        raise ValueError("Incompatible attention map count")
+    fm = feature_map.reshape(B, A, C // A, H * W)
+    real, att = fm[:, :, :-1, :], fm[:, :, -1:, :]
+    mask = torch.softmax(att, dim=-1)
+    return (real * mask).reshape(B, C - A, H, W)
+
+
+def multiple_attention_pooling_2d(feature_map, n_attention_map):
+    """Attention-weighted global pooling: (B, C - A, 1, 1)."""
+    x = multiple_soft_attention(feature_map, n_attention_map)
+    B, C = x.shape[:2]
+    return torch.sum(x.reshape(B, C, -1), dim=-1)[..., None, None]
