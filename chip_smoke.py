@@ -7,24 +7,35 @@
 Phases, each announced when it starts and when it ends, with its seconds:
 
   env     torch / CUDA versions, the card's name and power limit, nvcc
-  build   the CUDA kernels, built from csrc/ with nvcc, and ptxas's report
+  build   the CUDA kernels, built from csrc/ with nvcc (one nvcc per
+          source, all started together), and ptxas's report
   kernel  each kernel against its plain PyTorch version at the main path's
           shapes and at edge shapes; the kernel's time, the plain
-          version's, and the least time the card could take (the bound)
+          version's, and the least time the card could take (the bound).
+          K1 is the forward (decoder likelihood), K2+K3 the backward
   slice   the flagship SCAE (1x40x40, M=40, O=32, 11x11 templates), built
           on the card from a seeded generator, through the eval step and
           the infer function at batch 128; the kernels' launch counts over
           that run; the same weights and input through the port on the CPU,
           term by term; the eval step's time, images per second and peak
           device memory
+  train   the flagship train step (uint8 decode, pad to 40x40, translate by
+          up to 6, forward with noise, 8-term loss, backward through K1 and
+          K2+K3, RMSprop): one step with noise and translation off on the
+          card and on the CPU, every loss term and every gradient compared;
+          the launch counts of one real step at batch 128; then 5 warm-up
+          and 20 timed real steps: ms per step, images per second, peak
+          device memory
 
-Imports torch, numpy, the standard library and scae_tpu_torch only. Exits
+Every number is printed beside the card's name and power limit. Imports
+torch, numpy, the standard library and scae_tpu_torch only. Exits
 non-zero, with no result line, when CUDA is absent or any check fails. The
 line before the last is the card's name and power limit; before it, a JSON
 line of per-kernel numbers; the last line is the JSON result.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -32,10 +43,22 @@ import subprocess
 import sys
 import time
 
-BATCH = 128            # eval batch of the flagship
+BATCH = 128            # eval and train batch of the flagship
+CPU_BATCH = 32         # batch of the card-vs-CPU train-step comparison
 KERNEL_TOL = 1e-4      # abs, kernel vs its plain version (f32 ulps of O(10))
+# backward kernel vs its plain version, relative to each output's largest
+# |entry| (for the three 0-d scalar gradients, to max(|value|, 1)): both are
+# f32 sums over pixels (and, for alpha, examples) taken in other orders, the
+# kernel's through atomics whose order changes from run to run
+BWD_TOL = 1e-4
 TERM_RTOL = 1e-4       # card vs CPU, per loss term, relative to max(1, |cpu|)
 PROB_TOL = 1e-4        # card vs CPU, abs, on presences and probabilities
+# card vs CPU train step, per parameter, relative to its largest |gradient|:
+# the card's cuDNN may convolve by Winograd or FFT where the CPU convolves
+# directly (f32 either way, TF32 off), and every sum runs in another order
+GRAD_RTOL = 1e-3
+GRAD_NAMES = ("templates", "alpha", "pose", "presence", "bg_value",
+              "bg_mixing_logit", "scale", "target")
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
 
@@ -62,10 +85,12 @@ def gpu_name_and_power_limit() -> str:
 
 # ------------------------------------------------------------------ K1
 
-def k1_inputs(torch, shape, seed, pose_noise=0.6, edge=False):
+def k1_inputs(torch, shape, seed, pose_noise=0.6, edge=False,
+              alpha_batched=False):
     """Random decoder-likelihood inputs, made with numpy from a seed.
     ``edge``: every third presence exactly 0, and two hand-built degenerate
-    poses (a near-zero scale at the canvas corner, a translation off it)."""
+    poses (a near-zero scale at the canvas corner, a translation off it).
+    ``alpha_batched``: alpha per example (B, ...) instead of (1, ...)."""
     import numpy as np
 
     from scae_tpu_torch.ops.geometry import geometric_transform
@@ -77,7 +102,7 @@ def k1_inputs(torch, shape, seed, pose_noise=0.6, edge=False):
         return torch.from_numpy(np.asarray(a, np.float32)).cuda()
 
     templates = t(rng.rand(B, M, C, Ht, Wt))
-    alpha = t(rng.randn(1, M, 1, Ht, Wt))
+    alpha = t(rng.randn(B if alpha_batched else 1, M, 1, Ht, Wt))
     pose = geometric_transform(t(rng.randn(B, M, 6) * pose_noise))
     presence = rng.rand(B, M)
     if edge:
@@ -129,7 +154,32 @@ def time_cuda(torch, fn, iters, warmup):
     return start.elapsed_time(end) / iters
 
 
-def kernel_phase(torch):
+def kernel_device_ms(torch, fn, kernel, iters=200, warmup=20):
+    """Device time per launch of the CUDA kernel whose name contains
+    ``kernel``, over ``iters`` calls of ``fn``, from torch.profiler: the
+    kernel alone, without the wrapper's checks and allocations on the host
+    or its small PyTorch kernels (zeroing, the alpha sum) on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in events)
+    if count != iters:
+        raise RuntimeError(f"the profiler saw {count} launches of {kernel}, "
+                           f"expected {iters}")
+    total_us = sum(getattr(e, "device_time_total", None)
+                   or getattr(e, "cuda_time_total", 0.0) for e in events)
+    return total_us / count / 1e3
+
+
+def kernel_phase(torch, card):
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
 
     cases = [
@@ -151,7 +201,7 @@ def kernel_phase(torch):
                 raise RuntimeError(f"K1 {name}: non-finite output")
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         say(f"K1 {name} {shape}: shared memory {smem} B, max abs err "
-            f"{err:.3e} (tolerance {KERNEL_TOL:.0e})")
+            f"{err:.3e} (tolerance {KERNEL_TOL:.0e}) [{card}]")
         if not err < KERNEL_TOL:
             raise RuntimeError(f"K1 {name}: max abs err {err} exceeds "
                                f"{KERNEL_TOL}")
@@ -159,16 +209,20 @@ def kernel_phase(torch):
             flagship_err = err
 
     args = k1_inputs(torch, cases[0][1], seed=2)
-    ms = time_cuda(torch, lambda: k1.decoder_ll_gather(*args),
-                   iters=200, warmup=20)
+    ms = kernel_device_ms(torch, lambda: k1.decoder_ll_gather(*args),
+                          "decoder_ll_gather_fwd_kernel")
+    call_ms = time_cuda(torch, lambda: k1.decoder_ll_gather(*args),
+                        iters=200, warmup=20)
     plain_ms = time_cuda(torch, lambda: k1.decoder_ll_gather_plain(*args),
                          iters=20, warmup=3)
     bound_ms, bound_by, n_bytes, ops = k1_bound_ms(cases[0][1])
-    say(f"K1 flagship time: kernel {ms:.4f} ms (200 launches, CUDA events), "
+    say(f"K1 flagship time: kernel {ms:.4f} ms (device time per launch over "
+        f"200 launches, torch.profiler), wrapper call {call_ms:.4f} ms (200 "
+        f"back-to-back calls, CUDA events), "
         f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us by "
         f"{bound_by} ({n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP), "
         f"library_ms: none (no single PyTorch call computes this), "
-        f"roofline share {bound_ms / ms:.1%}")
+        f"roofline share {bound_ms / ms:.1%} [{card}]")
     return dict(name="decoder_ll_gather_fwd", route="cuda",
                 source="scae_tpu_torch/csrc/decoder_ll_gather.cu",
                 replaces="scae_tpu/ops/pallas_decoder_ll_gather.py:565",
@@ -177,9 +231,148 @@ def kernel_phase(torch):
                 library_ms=None)
 
 
+# ------------------------------------------------------------- K2 + K3
+
+def bwd_bound_ms(torch, args, target_grad):
+    """Least time of the backward kernel on these inputs: the larger of
+    bytes moved over the memory rate and f32 operations over the f32 rate.
+
+    Bytes: each input read once (templates, alpha, pose, presence, target,
+    3 scalars, g, num, den) and each output written once (the gradient
+    table, alpha's gradient, pose, presence, 3 scalars, and the target's
+    where asked for).
+    Operations per (capsule, pixel) pair, as the kernel does them:
+      16  source coordinates, as K1
+      18  taps (2 floors, 2 fractions, 8 bound tests, 6 for the four
+          validity-folded weights)
+       3  the test that some tap lies in the template
+       9  4-tap blend, per plane (C template planes + alpha)
+       4  mixing logit (1) and r = exp(mix - den) into gmix (3)
+      16  per channel: residual, square, log-density (2), +mix, -num, exp,
+          times g, the value gradient (2), gmix, target sum (2), squared
+          sum (2), q sum
+       1  the pixel sum of gmix
+    and, for a pair whose taps touch the template (counted from this data):
+      22  per plane: dV/dix and dV/diy from the masked texels (9 each) and
+          their products into g_ix and g_iy (4)
+       4  the four tap weights
+       8  per plane: the four scatter products and adds
+      10  pose partials (4 products, 6 pixel sums)
+    per pixel: 18 per channel (gsum, background term, target gradient) and
+    13 for the scalar rows; and B*M*Ht*Wt adds of the alpha sum over the
+    batch. Integer index and address arithmetic is not counted.
+    """
+    from scae_tpu_torch.ops.warp import source_coordinates
+
+    templates, alpha, pose = args[0], args[1], args[2]
+    B, M, C, Ht, Wt = templates.shape
+    H, W = args[-1]
+    P, T, CC = H * W, Ht * Wt, C + 1
+    A = alpha.shape[0]
+    ix, iy = source_coordinates(pose, (Ht, Wt), (H, W))
+    h0, w0 = torch.floor(iy), torch.floor(ix)
+    hit = ((h0 >= -1) & (h0 <= Ht - 1) & (w0 >= -1) & (w0 <= Wt - 1))
+    n_hit = int(hit.sum())
+    n_pairs = B * M * P
+    ops = (n_pairs * (42 + 9 * CC + 16 * C) + n_hit * (30 * CC + 14)
+           + B * P * (18 * C + 13) + (B * M * T if A == 1 else 0))
+    n_bytes = 4 * (B * M * C * T + A * M * T + B * M * 6 + B * M
+                   + B * C * P + 3 + 2 * B * C * P + B * P
+                   + B * M * CC * T + A * M * T + B * M * 6 + B * M + 3
+                   + (B * C * P if target_grad else 0))
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes, ops, n_hit
+
+
+def bwd_kernel_phase(torch, card):
+    """The backward kernel against the plain backward (autograd of K1's
+    plain version) at K1's shapes and with per-example alpha; its time."""
+    import numpy as np
+
+    from scae_tpu_torch.kernels import decoder_ll_gather as k1
+
+    cases = [
+        ("flagship", (BATCH, 40, 1, 11, 11, 40, 40), 0.6, False, False),
+        ("edge: raw pose noise 4.0, zero presences, degenerate poses, M=13",
+         (BATCH, 13, 1, 11, 11, 40, 40), 4.0, True, False),
+        ("colour: C=3, 14x14 templates, >48 KB shared memory",
+         (16, 16, 3, 14, 14, 32, 32), 0.6, False, False),
+        ("per-example alpha", (BATCH, 40, 1, 11, 11, 40, 40), 0.6, False,
+         True),
+    ]
+    flagship_err = None
+    for name, shape, noise, edge, alpha_batched in cases:
+        args = k1_inputs(torch, shape, seed=1, pose_noise=noise, edge=edge,
+                         alpha_batched=alpha_batched)
+        B, C, H, W = shape[0], shape[2], shape[5], shape[6]
+        g = torch.from_numpy(np.random.RandomState(3).randn(
+            B, C, H, W).astype(np.float32) / B).cuda()
+        _, num, den = k1.decoder_ll_gather(*args)
+        got = k1.decoder_ll_gather_bwd(g, num, den, *args)
+        torch.cuda.synchronize()
+        want = k1.decoder_ll_gather_bwd_plain(g, num, den, *args)
+        smem = k1.bwd_shared_memory_bytes(*shape[1:5])
+        worst = 0.0
+        for out, a, b in zip(GRAD_NAMES, got, want):
+            if not bool(torch.isfinite(a).all()):
+                raise RuntimeError(f"K2+K3 {name}: non-finite {out}")
+            scale = float(b.abs().max())
+            if b.dim() == 0:
+                scale = max(scale, 1.0)
+            err = float((a - b).abs().max())
+            tol = BWD_TOL * scale
+            say(f"K2+K3 {name} {shape}: d{out} max abs err {err:.3e} "
+                f"(tolerance {tol:.3e} = {BWD_TOL:.0e} x {scale:.3e}) "
+                f"[{card}]")
+            if not err <= tol:
+                raise RuntimeError(f"K2+K3 {name}: d{out} max abs err {err}"
+                                   f" exceeds {tol}")
+            worst = max(worst, err / scale)
+        say(f"K2+K3 {name}: shared memory {smem} B, worst relative err "
+            f"{worst:.3e} [{card}]")
+        if flagship_err is None:
+            flagship_err = max(float((a - b).abs().max())
+                               for a, b in zip(got, want))
+
+    # the main path's call: the loss's constant upstream gradient -1/B,
+    # no target gradient
+    args = k1_inputs(torch, cases[0][1], seed=2)
+    _, num, den = k1.decoder_ll_gather(*args)
+    g = torch.full((BATCH, 1, 40, 40), -1.0 / BATCH, device="cuda")
+
+    def main_path_call():
+        return k1.decoder_ll_gather_bwd(g, num, den, *args,
+                                        target_grad=False)
+
+    ms = kernel_device_ms(torch, main_path_call,
+                          "decoder_ll_gather_bwd_kernel")
+    call_ms = time_cuda(torch, main_path_call, iters=200, warmup=20)
+    plain_ms = time_cuda(torch, lambda: k1.decoder_ll_gather_bwd_plain(
+        g, num, den, *args, target_grad=False), iters=10, warmup=2)
+    bound_ms, bound_by, n_bytes, ops, n_hit = bwd_bound_ms(
+        torch, args, target_grad=False)
+    say(f"K2+K3 flagship time: kernel {ms:.4f} ms (device time per launch "
+        f"over 200 launches, torch.profiler), wrapper call {call_ms:.4f} ms "
+        f"(200 back-to-back calls, CUDA events, with the zeroing of its "
+        f"outputs and the alpha sum), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.2f} us by "
+        f"{bound_by} ({n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP, "
+        f"{n_hit} of {BATCH * 40 * 1600} capsule-pixel pairs touch their "
+        f"template), library_ms: none (no single PyTorch call computes "
+        f"this), roofline share {bound_ms / ms:.1%} [{card}]")
+    return dict(name="decoder_ll_gather_bwd", route="cuda",
+                source="scae_tpu_torch/csrc/decoder_ll_gather_bwd.cu",
+                replaces="scae_tpu/ops/pallas_decoder_ll_gather.py:604",
+                launches=None, max_abs_err=flagship_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
 # --------------------------------------------------------------- slice
 
-def slice_phase(torch, k1_row):
+def slice_phase(torch, card, rows):
     import numpy as np
 
     from scae_tpu_torch import serve
@@ -205,20 +398,22 @@ def slice_phase(torch, k1_row):
     # the main path: every launch count at 0 just before, read just after.
     # The eval step reads the likelihood (one launch); the infer call
     # returns none of it, and the decoder computes it only when read.
-    k1.launches = 0
+    k1.launches = k1.bwd_launches = 0
     metrics = eval_step(images, labels)
     served = infer(canvas_images)
     torch.cuda.synchronize()
-    launches = k1.launches
-    say(f"K1 launches over the main path (1 eval step, 1 infer call): "
-        f"{launches}")
-    if launches != 1:
-        raise RuntimeError(f"K1 launched {launches} times, expected 1")
-    k1_row["launches"] = launches
+    launches, bwd_launches = k1.launches, k1.bwd_launches
+    say(f"launches over the eval path (1 eval step, 1 infer call): K1 "
+        f"{launches}, K2+K3 {bwd_launches} [{card}]")
+    if (launches, bwd_launches) != (1, 0):
+        raise RuntimeError(f"K1 launched {launches} times and K2+K3 "
+                           f"{bwd_launches} times, expected 1 and 0")
+    rows[0]["launches"] = launches
+    rows[1]["launches"] = bwd_launches
 
     terms = {k: float(v) for k, v in metrics.items()}
     for k, v in terms.items():
-        say(f"  eval {k} = {v!r}")
+        say(f"  eval {k} = {v!r} [{card}]")
         if not math.isfinite(v):
             raise RuntimeError(f"eval term {k} is not finite: {v}")
     for k, v in served.items():
@@ -250,14 +445,14 @@ def slice_phase(torch, k1_row):
         else:
             tol, diff = TERM_RTOL, abs(v - ref) / max(1.0, abs(ref))
         say(f"  card vs CPU {k}: card {v!r} cpu {ref!r} diff {diff:.3e} "
-            f"(tolerance {tol:.1e})")
+            f"(tolerance {tol:.1e}) [{card}]")
         if not diff <= tol:
             raise RuntimeError(f"{k}: card and CPU differ by {diff}")
     for k in ("part_presence", "part_pose", "caps_presence",
               "prior_cls_prob", "posterior_cls_prob"):
         diff = float((served[k].cpu() - cpu_served[k]).abs().max())
         say(f"  card vs CPU infer {k}: max abs diff {diff:.3e} "
-            f"(tolerance {PROB_TOL:.0e})")
+            f"(tolerance {PROB_TOL:.0e}) [{card}]")
         if not diff <= PROB_TOL:
             raise RuntimeError(f"infer {k}: card and CPU differ by {diff}")
 
@@ -279,28 +474,184 @@ def slice_phase(torch, k1_row):
     say(f"eval step (batch {BATCH}, canvas 40): {dt * 1e3:.4f} ms/step "
         f"(host clock, {steps} steps after {warmup} warm-up), "
         f"{BATCH / dt:.1f} images/s, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated()} B")
-    return model, eval_step, images, labels
+        f"{torch.cuda.max_memory_allocated()} B [{card}]")
+    return eval_step, images, labels
 
 
-def profile_phase(torch, eval_step, images, labels):
-    """Device time by kernel name over a few eval steps."""
+# --------------------------------------------------------------- train
+
+def flagship_train_state(torch, device, noise):
+    """The flagship model from seed 0 on ``device`` with the harness'
+    optimizer: RMSprop, lr 3e-5, momentum 0.9, eps 1e-2/B^2, the learning
+    rate times 0.997 per epoch of 55,000 MNIST training images. Without
+    ``noise`` the presence noise of both encoders is off."""
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
+    from scae_tpu_torch.optim import make_optimizer
+    from scae_tpu_torch.parallel.train_step import TrainState
+
+    params = dict(FLAGSHIP_MODEL_PARAMS)
+    if not noise:
+        params.update(
+            pcae_encoder_params=dict(noise_scale=0.0),
+            ocae_decoder_capsule_params=dict(noise_type=None,
+                                             noise_scale=0.0))
+    model = make_scae(params, device=device, seed=0)
+    opt = make_optimizer(model.parameters(), "rmsprop", 3e-5,
+                         batch_size=BATCH, momentum=0.9,
+                         lr_decay_rate=0.997, decay_steps=55000 // BATCH)
+    return TrainState(model, opt, seed=0)
+
+
+def keep_gradients(state):
+    """Make ``state.optimizer.step`` keep a copy of the gradients it gets."""
+    kept = []
+    step = state.optimizer.step
+
+    def recording(grads):
+        kept[:] = [None if g is None else g.detach().clone() for g in grads]
+        step(grads)
+
+    state.optimizer.step = recording
+    return kept
+
+
+def train_phase(torch, card, rows):
+    import numpy as np
+
+    from scae_tpu_torch.kernels import decoder_ll_gather as k1
+    from scae_tpu_torch.parallel.train_step import make_raw_train_step
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = torch.device("cuda")
+    rng = np.random.RandomState(1)
+    images = rng.randint(0, 256, (BATCH, 28, 28)).astype(np.uint8)
+    labels = rng.randint(0, 10, (BATCH,)).astype(np.int64)
+
+    # one step with noise and translation off, on the card and on the CPU,
+    # from the same weights, at CPU_BATCH
+    pad_only = make_augment_fn(canvas=40, max_shift=0)
+    card_state = flagship_train_state(torch, cuda, noise=False)
+    cpu_state = flagship_train_state(torch, "cpu", noise=False)
+    cpu_state.model.load_state_dict(
+        {k: v.cpu() for k, v in card_state.model.state_dict().items()})
+    got, want = keep_gradients(card_state), keep_gradients(cpu_state)
+    card_terms = make_raw_train_step(card_state, pad_only, cuda)(
+        images[:CPU_BATCH], labels[:CPU_BATCH])
+    torch.cuda.synchronize()
+    cpu_terms = make_raw_train_step(cpu_state, pad_only, "cpu")(
+        images[:CPU_BATCH], labels[:CPU_BATCH])
+    for k, v in card_terms.items():
+        v, ref = float(v), float(cpu_terms[k])
+        if k == "accuracy":
+            tol, diff = 1.0 / CPU_BATCH, abs(v - ref)
+        else:
+            tol, diff = TERM_RTOL, abs(v - ref) / max(1.0, abs(ref))
+        say(f"  train card vs CPU {k}: card {v!r} cpu {ref!r} diff "
+            f"{diff:.3e} (tolerance {tol:.1e}) [{card}]")
+        if not (math.isfinite(v) and diff <= tol):
+            raise RuntimeError(f"train {k}: card and CPU differ by {diff}")
+    names = [n for n, _ in card_state.model.named_parameters()]
+    worst = (0.0, "")
+    for name, a, b in zip(names, got, want):
+        if a is None or b is None:
+            if not (a is None and b is None):
+                raise RuntimeError(f"gradient of {name}: card {a is None} "
+                                   f"and CPU {b is None} disagree on None")
+            continue
+        scale = float(b.abs().max())
+        err = float((a.cpu() - b).abs().max())
+        tol = GRAD_RTOL * scale + 1e-7
+        if not (bool(torch.isfinite(a).all()) and err <= tol):
+            raise RuntimeError(f"gradient of {name}: card and CPU differ by "
+                               f"{err} (largest |gradient| {scale}, "
+                               f"tolerance {tol})")
+        if err / (scale + 1e-30) >= worst[0]:
+            worst = (err / (scale + 1e-30), name)
+    say(f"  train card vs CPU: {len(names)} parameter gradients agree, worst "
+        f"{worst[0]:.3e} of its largest |gradient| ({worst[1]}; tolerance "
+        f"{GRAD_RTOL:.0e}) [{card}]")
+
+    # the main path: one real step (noise on, translation by up to 6) at
+    # batch 128; every launch count at 0 just before, read just after
+    state = flagship_train_state(torch, cuda, noise=True)
+    step = make_raw_train_step(state, make_augment_fn(canvas=40,
+                                                      max_shift=6), cuda)
+    k1.launches = k1.bwd_launches = 0
+    metrics = step(images, labels)
+    torch.cuda.synchronize()
+    launches, bwd_launches = k1.launches, k1.bwd_launches
+    say(f"launches over the train path (1 train step, batch {BATCH}): K1 "
+        f"{launches}, K2+K3 {bwd_launches} [{card}]")
+    if (launches, bwd_launches) != (1, 1):
+        raise RuntimeError(f"K1 launched {launches} times and K2+K3 "
+                           f"{bwd_launches} times in one train step, "
+                           "expected 1 and 1")
+    rows[0]["launches"] += launches
+    rows[1]["launches"] += bwd_launches
+    for k, v in metrics.items():
+        say(f"  train {k} = {float(v)!r} [{card}]")
+
+    warmup, steps = 5, 20
+    for _ in range(warmup):
+        step(images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k1.bwd_launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step(images, labels)["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"non-finite train losses: {losses}")
+    if (k1.launches, k1.bwd_launches) != (steps, steps):
+        raise RuntimeError(f"K1 launched {k1.launches} and K2+K3 "
+                           f"{k1.bwd_launches} times in {steps} train steps")
+    say(f"  train losses over the timed steps: first {losses[0]!r}, last "
+        f"{losses[-1]!r} [{card}]")
+    say(f"train step (batch {BATCH}, 28x28 uint8 -> 40x40, translate 6, "
+        f"noise on, RMSprop): {dt * 1e3:.4f} ms/step (host clock, {steps} "
+        f"steps after {warmup + 1} warm-up), {BATCH / dt:.1f} images/s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
+        f"[{card}]")
+    return step, images, labels
+
+
+def profile_phase(torch, name, step, images, labels, n, card):
+    """Device time by kernel name over ``n`` steps, and the device's busy
+    time per step beside the step's host-clock time under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
-    eval_step(images, labels)
+    step(images, labels)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            eval_step(images, labels)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(images, labels)
         torch.cuda.synchronize()
-    say(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    # the device-side events (kernels, copies, fills) alone: an operator's
+    # row repeats the time of the kernels it launched
+    busy_ms = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / n
+    say(f"profile of {n} {name} step(s): device busy {busy_ms:.4f} ms per "
+        f"step, host clock {host_ms:.4f} ms per step under the profiler, "
+        f"idle share {1 - busy_ms / host_ms:.1%} [{card}]")
+    say(events.table(sort_by="cuda_time_total", row_limit=25))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of the eval step")
+                    help="add torch.profiler breakdowns of the eval and "
+                         "train steps")
     args = ap.parse_args(argv)
 
     import torch
@@ -327,25 +678,36 @@ def main(argv=None) -> int:
         say(f"nvcc {nvcc}: {version.stdout.strip().splitlines()[-1]}")
 
     with phase("build"):
-        info = k1.build_info()
-        say(f"K1 library {info.path}: built in {info.seconds:.2f} s "
-            f"(cached: {info.cached}), nvcc {' '.join(_build.NVCC_FLAGS)}, "
-            "loaded with ctypes")
-        for line in info.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                say(f"  ptxas: {line.strip()}")
+        sources = {"K1": k1.SOURCE, "K2+K3": k1.BWD_SOURCE}
+        with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+            built = dict(zip(sources, pool.map(k1.build_info,
+                                               sources.values())))
+        for kernel, info in built.items():
+            say(f"{kernel} library {info.path}: built in {info.seconds:.2f} s"
+                f" (cached: {info.cached}), nvcc "
+                f"{' '.join(_build.NVCC_FLAGS)}, loaded with ctypes")
+            for line in info.log.splitlines():
+                if any(w in line for w in ("registers", "spill",
+                                           "Compiling")):
+                    say(f"  ptxas: {line.strip()}")
 
     with phase("kernel"):
-        k1_row = kernel_phase(torch)
+        rows = [kernel_phase(torch, card), bwd_kernel_phase(torch, card)]
 
     with phase("slice"):
-        model, eval_step, images, labels = slice_phase(torch, k1_row)
+        eval_step, images, labels = slice_phase(torch, card, rows)
+
+    with phase("train"):
+        train_step, train_images, train_labels = train_phase(torch, card,
+                                                             rows)
 
     if args.profile:
         with phase("profile"):
-            profile_phase(torch, eval_step, images, labels)
+            profile_phase(torch, "eval", eval_step, images, labels, 5, card)
+            profile_phase(torch, "train", train_step, train_images,
+                          train_labels, 5, card)
 
-    say(json.dumps({"kernels": [k1_row]}))
+    say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ live in ``csrc/``; each kernel replaces one Pallas kernel of the JAX
 package and keeps a plain PyTorch version of the same function beside it.
 
 The package imports torch, numpy and the standard library only. Entry
-points (``factory.make_scae``, ``parallel.train_step.make_raw_eval_step``,
+points (``factory.make_scae``, ``parallel.train_step.make_raw_train_step``,
+``make_fused_train_step`` and ``make_raw_eval_step``,
 ``serve.make_infer_fn``) run on the CUDA device unless the caller passes
 ``device="cpu"``.
 """

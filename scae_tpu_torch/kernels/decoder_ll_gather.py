@@ -1,8 +1,10 @@
-"""Gather-form fused decoder log-likelihood, forward: the CUDA kernel K1
-and its plain PyTorch version.
+"""Gather-form fused decoder log-likelihood: the CUDA kernels K1
+(forward) and K2+K3 (backward), their plain PyTorch versions, and the
+autograd Function that joins them.
 
-Replaces the Pallas kernel ``scae_tpu/ops/pallas_decoder_ll_gather.py``
-(``_fwd_kernel``, launched by ``_fwd_call``). Argument contract of
+Replaces the Pallas kernels of ``scae_tpu/ops/pallas_decoder_ll_gather.py``:
+``_fwd_kernel`` (K1) and the backward pair ``_bwd_kernel`` + ``_gt_kernel``
+(K2, K3), which one CUDA kernel does here. Argument contract of
 ``scae_tpu/ops/decoder_ll.py::fused_decoder_ll``: templates (B, M, C, Ht,
 Wt), alpha logits (1 or B, M, 1, Ht, Wt), pose (B, M, 6) flat affines,
 presence (B, M), then bg_value, bg_mixing_logit and scale as
@@ -11,10 +13,14 @@ Returns ``(ll, num, den)``: the per-pixel mixture log-likelihood (B, C,
 H, W) and the two log-sum-exps it is the difference of, num (B, C, P) and
 den (B, 1, P), kept for the backward.
 
-``decoder_ll_gather`` runs the plain version for CPU tensors and the CUDA
-kernel (``csrc/decoder_ll_gather.cu``) for CUDA tensors, where it raises
-on anything the kernel does not take rather than falling back. See the
-source for the kernel's bound on the H100 and how its design meets it.
+``decoder_ll_gather`` runs the plain version for CPU tensors, which
+autograd differentiates, and for CUDA tensors the autograd Function whose
+forward launches K1 (``csrc/decoder_ll_gather.cu``) and whose backward
+launches the backward kernel (``csrc/decoder_ll_gather_bwd.cu``). A CUDA
+wrapper raises on anything its kernel does not take rather than falling
+back. The plain backward is ``torch.autograd.grad`` of the plain forward.
+See the sources for each kernel's bound on the H100 and how its design
+meets it.
 """
 
 import ctypes
@@ -25,31 +31,40 @@ import torch
 
 from scae_tpu_torch.kernels import _build
 from scae_tpu_torch.ops.math_ops import log_safe
-from scae_tpu_torch.ops.warp import source_coordinates
+from scae_tpu_torch.ops.warp import _base_grid, source_coordinates
 
 SOURCE = "decoder_ll_gather.cu"
+BWD_SOURCE = "decoder_ll_gather_bwd.cu"
 MAX_CHANNELS = 4                 # the kernel is instantiated for C = 1..4
 SMEM_LIMIT = 232448              # 227 KB: the most a block can have on Hopper
 _MAX_GRID_Y = 65535
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
-# Kernel launches since the counter was last set to 0. Only the CUDA path
-# adds to it, once per launch; the plain version never does.
+# Kernel launches since a counter was last set to 0: ``launches`` for K1,
+# ``bwd_launches`` for the backward kernel. Only the CUDA paths add to them,
+# once per launch; the plain versions never do.
 launches = 0
+bwd_launches = 0
 
 
 def decoder_ll_gather(templates, alpha, pose, presence, bg_value,
                       bg_mixing_logit, scale, target, out_size):
     """Per-pixel reconstruction mixture log-likelihood and its LSE terms.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    CPU tensors take the plain version; CUDA tensors go through
+    ``DecoderLLGather``, which launches K1 and, in the backward, the
+    backward kernel.
     """
     if templates.device.type == "cpu":
         return decoder_ll_gather_plain(templates, alpha, pose, presence,
                                        bg_value, bg_mixing_logit, scale,
                                        target, out_size)
-    return _launch(templates, alpha, pose, presence, bg_value,
-                   bg_mixing_logit, scale, target, out_size)
+    device = templates.device
+    return DecoderLLGather.apply(
+        templates, alpha, pose, presence,
+        *(torch.as_tensor(v, dtype=torch.float32, device=device)
+          for v in (bg_value, bg_mixing_logit, scale)),
+        target, tuple(out_size))
 
 
 def decoder_ll_gather_plain(templates, alpha, pose, presence, bg_value,
@@ -122,35 +137,54 @@ def _scalar_tensor(v, device):
 
 
 def shared_memory_bytes(M, C, Ht, Wt) -> int:
-    """Dynamic shared memory of one block: the capsule tables, poses and
+    """Dynamic shared memory of one K1 block: the capsule tables, poses and
     log-presences of one example."""
     return 4 * (M * (C + 1) * Ht * Wt + M * 7)
 
 
+def bwd_shared_memory_bytes(M, C, Ht, Wt) -> int:
+    """Dynamic shared memory of one backward block: K1's, plus a gradient
+    table the size of the capsule tables and 7 pixel sums per capsule (6
+    pose entries and the presence)."""
+    return 4 * (2 * M * (C + 1) * Ht * Wt + M * 14)
+
+
+# symbol, pointer arguments and int arguments of each library's launcher
+_SIGNATURES = {
+    SOURCE: ("scae_decoder_ll_gather_fwd", 9, 8),
+    BWD_SOURCE: ("scae_decoder_ll_gather_bwd", 16, 8),
+}
+
+
 @functools.cache
-def _library():
-    """Build (at first use) and load the kernel's shared library."""
-    built = _build.build(SOURCE)
+def _library(source):
+    """Build (at first use) and load a kernel's shared library; its
+    launcher, error-string function and build record."""
+    built = _build.build(source)
     lib = ctypes.CDLL(built.path)
-    fn = lib.scae_decoder_ll_gather_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
+    name, n_ptr, n_int = _SIGNATURES[source]
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.scae_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return lib, built
+    return fn, err, built
 
 
-def build_info() -> _build.BuiltLibrary:
-    """Build the kernel now if needed; the path, ``-Xptxas -v`` report and
-    build seconds of its library."""
-    return _library()[1]
+def build_info(source=SOURCE) -> _build.BuiltLibrary:
+    """Build a kernel (``SOURCE`` for K1, ``BWD_SOURCE`` for the backward)
+    now if needed; the path, ``-Xptxas -v`` report and build seconds of its
+    library."""
+    return _library(source)[2]
 
 
-def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
-            scale, target, out_size):
-    global launches
+def _check_inputs(templates, alpha, pose, presence, target, out_size,
+                  **extra):
+    """Raise unless every array is a contiguous float32 tensor of the
+    expected shape on the templates' device, and the sizes fit the
+    kernels. ``extra``: more (tensor, shape) pairs to check."""
     if templates.dim() != 5:
         raise ValueError(f"templates must be (B, M, C, Ht, Wt), got "
                          f"{tuple(templates.shape)}")
@@ -164,6 +198,7 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
         "pose": (pose, (B, M, 6)),
         "presence": (presence, (B, M)),
         "target": (target, (B, C, H, W)),
+        **extra,
     }
     for name, (t, shape) in expected.items():
         if t.device != device:
@@ -181,33 +216,164 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
         raise ValueError(f"the kernel takes 1..{MAX_CHANNELS} channels, got {C}")
     if B > _MAX_GRID_Y or M < 1 or P < 1:
         raise ValueError(f"unsupported sizes B={B}, M={M}, P={P}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t, _ in expected.values()):
-        raise NotImplementedError(
-            "the CUDA kernel has no backward yet: run it under "
-            "torch.no_grad() or torch.inference_mode()")
+
+
+def _scalars(device, *values):
+    return torch.stack([_scalar_tensor(v, device) for v in values]) \
+        .contiguous()
+
+
+def _raise_on(rc, err, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{err(rc).decode()} (cudaError {rc})")
+
+
+def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
+            scale, target, out_size):
+    """Launch K1 on CUDA tensors: (ll, num, den)."""
+    global launches
+    _check_inputs(templates, alpha, pose, presence, target, out_size)
+    B, M, C, Ht, Wt = templates.shape
+    H, W = out_size
+    P = H * W
+    device = templates.device
     smem = shared_memory_bytes(M, C, Ht, Wt)
     if smem > SMEM_LIMIT:
         raise ValueError(f"the capsule tables need {smem} bytes of shared "
                          f"memory, more than the {SMEM_LIMIT} a block has")
-    scal = torch.stack([_scalar_tensor(v, device) for v in
-                        (bg_value, bg_mixing_logit, scale)]).contiguous()
+    scal = _scalars(device, bg_value, bg_mixing_logit, scale)
 
     ll = torch.empty((B, C, H, W), dtype=torch.float32, device=device)
     num = torch.empty((B, C, P), dtype=torch.float32, device=device)
     den = torch.empty((B, 1, P), dtype=torch.float32, device=device)
-    lib, _ = _library()
+    fn, err, _ = _library(SOURCE)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.scae_decoder_ll_gather_fwd(
-            templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
-            presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
-            ll.data_ptr(), num.data_ptr(), den.data_ptr(),
-            B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1),
-            stream)
-    if rc != 0:
-        raise RuntimeError("decoder_ll_gather kernel launch failed: "
-                           f"{lib.scae_cuda_error_string(rc).decode()} "
-                           f"(cudaError {rc})")
+        rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
+                presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
+                ll.data_ptr(), num.data_ptr(), den.data_ptr(),
+                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), stream)
+    _raise_on(rc, err, "decoder_ll_gather")
     launches += 1
     return ll, num, den
+
+
+# ------------------------------------------------------------- backward
+
+def decoder_ll_gather_bwd(g, num, den, templates, alpha, pose, presence,
+                          bg_value, bg_mixing_logit, scale, target, out_size,
+                          target_grad=True):
+    """Gradients of ``sum(g * ll)`` with respect to the 8 array inputs.
+
+    ``g`` (B, C, H, W) is the upstream gradient of ll, ``num`` and ``den``
+    the forward's log-sum-exps. Returns (g_templates, g_alpha, g_pose,
+    g_presence, g_bg_value, g_bg_mixing_logit, g_scale, g_target): each
+    array gradient in its input's shape (alpha's summed to its own batch of
+    1 or B), the three scalar gradients 0-d, and g_target None unless
+    ``target_grad``. CPU tensors take the plain backward; CUDA tensors
+    launch the backward kernel.
+    """
+    fn = decoder_ll_gather_bwd_plain if templates.device.type == "cpu" \
+        else _bwd_launch
+    return fn(g, num, den, templates, alpha, pose, presence, bg_value,
+              bg_mixing_logit, scale, target, out_size, target_grad)
+
+
+def decoder_ll_gather_bwd_plain(g, num, den, templates, alpha, pose,
+                                presence, bg_value, bg_mixing_logit, scale,
+                                target, out_size, target_grad=True):
+    """The backward kernel's function as ``torch.autograd.grad`` of the
+    plain forward: the same 4-tap form, differentiated by autograd, so no
+    hand-derived copy has to be kept in step. ``num`` and ``den`` are not
+    read (the plain forward recomputes them)."""
+    del num, den
+    device = templates.device
+    with torch.enable_grad():
+        arrays = [t.detach().requires_grad_()
+                  for t in (templates, alpha, pose, presence)]
+        scalars = [_scalar_tensor(v, device).detach().requires_grad_()
+                   for v in (bg_value, bg_mixing_logit, scale)]
+        tgt = target.detach().requires_grad_(target_grad)
+        ll = decoder_ll_gather_plain(*arrays, *scalars, tgt, out_size)[0]
+        wrt = arrays + scalars + ([tgt] if target_grad else [])
+        grads = torch.autograd.grad(ll, wrt, g.reshape(ll.shape))
+    return (*grads[:7], grads[7] if target_grad else None)
+
+
+def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
+                bg_mixing_logit, scale, target, out_size, target_grad=True):
+    """Launch the backward kernel on CUDA tensors; returns what
+    ``decoder_ll_gather_bwd`` does."""
+    global bwd_launches
+    B, M, C, Ht, Wt = templates.shape
+    H, W = out_size
+    P = H * W
+    _check_inputs(templates, alpha, pose, presence, target, out_size,
+                  g=(g, (B, C, H, W)),
+                  num=(num, (B, C, P)), den=(den, (B, 1, P)))
+    smem = bwd_shared_memory_bytes(M, C, Ht, Wt)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"the backward's capsule and gradient tables need {smem} bytes "
+            f"of shared memory, more than the {SMEM_LIMIT} a block has "
+            f"(the forward needs {shared_memory_bytes(M, C, Ht, Wt)})")
+    device = templates.device
+    scal = _scalars(device, bg_value, bg_mixing_logit, scale)
+    f32 = dict(dtype=torch.float32, device=device)
+    gtab = torch.zeros((B, M, C + 1, Ht, Wt), **f32)
+    gpose = torch.zeros((B, M, 6), **f32)
+    gpres = torch.zeros((B, M), **f32)
+    gscal = torch.zeros((3,), **f32)
+    gtarget = torch.empty((B, C, H, W), **f32) if target_grad else None
+    # the plain version's grid, so that both pick the same taps
+    grid_x, grid_y = (v.reshape(-1).contiguous()
+                      for v in _base_grid((H, W), torch.float32, device))
+    fn, err, _ = _library(BWD_SOURCE)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
+                presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
+                g.data_ptr(), num.data_ptr(), den.data_ptr(),
+                grid_x.data_ptr(), grid_y.data_ptr(), gtab.data_ptr(),
+                gpose.data_ptr(), gpres.data_ptr(),
+                gtarget.data_ptr() if target_grad else None,
+                gscal.data_ptr(), B, M, C, Ht, Wt, H, W,
+                int(alpha.shape[0] != 1), stream)
+    _raise_on(rc, err, "decoder_ll_gather backward")
+    bwd_launches += 1
+    g_alpha = gtab[:, :, C:]
+    if alpha.shape[0] == 1:
+        g_alpha = g_alpha.sum(dim=0, keepdim=True)
+    return (gtab[:, :, :C], g_alpha, gpose, gpres, gscal[0], gscal[1],
+            gscal[2], gtarget)
+
+
+class DecoderLLGather(torch.autograd.Function):
+    """K1 forward, backward-kernel backward, on CUDA tensors.
+
+    The forward saves num and den, as ``_core_fwd`` does in the JAX
+    package; the backward returns a gradient for every array input that
+    needs one (None elsewhere), each in its input's shape.
+    """
+
+    @staticmethod
+    def forward(ctx, templates, alpha, pose, presence, bg_value,
+                bg_mixing_logit, scale, target, out_size):
+        ll, num, den = _launch(templates, alpha, pose, presence, bg_value,
+                               bg_mixing_logit, scale, target, out_size)
+        ctx.save_for_backward(templates, alpha, pose, presence, bg_value,
+                              bg_mixing_logit, scale, target, num, den)
+        ctx.out_size = out_size
+        ctx.mark_non_differentiable(num, den)
+        return ll, num, den
+
+    @staticmethod
+    def backward(ctx, g, _g_num, _g_den):
+        needs = ctx.needs_input_grad[:8]
+        *inputs, num, den = ctx.saved_tensors
+        # the gradient of a sum or a mean arrives expanded, with zero strides
+        grads = _bwd_launch(g.contiguous(), num, den, *inputs, ctx.out_size,
+                            target_grad=needs[7])
+        return (*(gr.reshape(x.shape) if need else None
+                  for gr, x, need in zip(grads, inputs, needs)), None)

@@ -9,9 +9,10 @@ TemplateBasedImageDecoder: M warped templates plus a background component,
 alpha-channel or temperature mixing logits, presence folded into the
 mixing logits through log_safe, scalar output scale. With a target, the
 per-pixel log-likelihood comes from the fused path: ``fused_impl="auto"``
-(or "gather") takes the gather decoder-likelihood kernel K1
-(``kernels/decoder_ll_gather.py``), which launches the CUDA kernel for a
-CUDA tensor and runs its plain version for a CPU tensor. The JAX
+(or "gather") takes the gather decoder likelihood
+(``kernels/decoder_ll_gather.py``): for CUDA tensors its autograd Function,
+K1 forward and the backward kernel's backward; for CPU tensors its plain
+version, which autograd differentiates. The JAX
 package's other implementations ("xla", "pallas", "pallas_banded") are
 not ported. The likelihood, like the rendered components, is computed
 when it is first read, so a forward whose caller never reads it (the

@@ -23,11 +23,22 @@ through the 4-tap gather kernel in ``kernels/decoder_ll_gather.py``.
 import torch
 
 
+def _axis(n, dtype, device):
+    """(2j + 1)/n - 1 for j < n. The quotient is taken in float64 and
+    rounded once to ``dtype``, which is IEEE division's result: PyTorch's
+    CUDA division by a scalar multiplies by the reciprocal instead, one ulp
+    off for some j, and the gather kernels' taps and gradients must see the
+    same coordinates on every device (a bilinear sample's derivative jumps
+    at texel boundaries)."""
+    q = (2.0 * torch.arange(n, dtype=torch.float64, device=device) + 1.0) / n
+    return q.to(dtype) - 1.0
+
+
 def _base_grid(out_size, dtype=torch.float32, device=None):
     """Normalized output pixel-centre coordinates, (H, W) each."""
     H, W = out_size
-    xs = (2.0 * torch.arange(W, dtype=dtype, device=device) + 1.0) / W - 1.0
-    ys = (2.0 * torch.arange(H, dtype=dtype, device=device) + 1.0) / H - 1.0
+    xs = _axis(W, dtype, device)
+    ys = _axis(H, dtype, device)
     gx = xs[None, :].expand(H, W)
     gy = ys[:, None].expand(H, W)
     return gx, gy

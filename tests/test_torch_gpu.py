@@ -1,5 +1,6 @@
-"""K1 (the CUDA gather decoder-likelihood kernel) against its plain PyTorch
-version, on the card.
+"""K1 (the CUDA gather decoder-likelihood kernel) and K2+K3 (its backward)
+against their plain PyTorch versions, on the card; the flagship eval and
+train steps through them.
 
 Needs a CUDA device and nvcc; every test skips without a card. The
 decision is taken inside the ``cuda`` fixture, so every pytest worker
@@ -7,10 +8,14 @@ collects the same tests. Imports no jax: run on the GPU machine with
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerance: 1e-4 absolute on ll, num and den. Both sides compute the same
+Tolerances: 1e-4 absolute on ll, num and den. Both sides compute the same
 f32 formula; they differ only in the order of the log-sum-exp (streaming
 in the kernel, whole-axis in the plain version) and in fused multiply-adds,
-each worth a few f32 ulps of values of order 10.
+each worth a few f32 ulps of values of order 10. The backward's outputs:
+1e-4 of each output's largest |entry| (of max(|value|, 1) for the three
+0-d scalar gradients); they are f32 sums over pixels (and, for a shared
+alpha, examples), the kernel's taken through atomics in an order that
+changes from run to run.
 """
 
 import numpy as np
@@ -23,6 +28,9 @@ from scae_tpu_torch.ops.geometry import geometric_transform
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-4
+BWD_TOL = 1e-4
+GRAD_NAMES = ("templates", "alpha", "pose", "presence", "bg_value",
+              "bg_mixing_logit", "scale", "target")
 
 
 @pytest.fixture
@@ -119,20 +127,141 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     bad = dict(inputs, presence=inputs["presence"].cpu())
     with pytest.raises(ValueError, match="presence is on cpu"):
         call(k1.decoder_ll_gather, bad, (16, 16))
-    bad = dict(inputs, templates=inputs["templates"].requires_grad_())
-    with pytest.raises(NotImplementedError, match="no backward"):
-        call(k1.decoder_ll_gather, bad, (16, 16))
-    with torch.no_grad():
-        call(k1.decoder_ll_gather, bad, (16, 16))
+    grad = dict(inputs, templates=inputs["templates"].requires_grad_())
+    k1.bwd_launches = 0
+    call(k1.decoder_ll_gather, grad, (16, 16))[0].sum().backward()
+    assert k1.bwd_launches == 1
+    assert bool(torch.isfinite(grad["templates"].grad).all())
     big = make_inputs((1, 64, 4, 16, 16, 16, 16))
     with pytest.raises(ValueError, match="shared memory"):
         run(k1.decoder_ll_gather, big, cuda, (16, 16))
 
 
-def test_kernel_build_reports_registers(cuda):
-    info = k1.build_info()
+@pytest.mark.parametrize("source", [k1.SOURCE, k1.BWD_SOURCE])
+def test_kernel_build_reports_registers(cuda, source):
+    info = k1.build_info(source)
     assert info.path.endswith(".so")
     assert "registers" in info.log or info.cached
+
+
+def test_base_grid_is_the_same_on_the_card(cuda):
+    """PyTorch's CUDA division by a scalar multiplies by the reciprocal;
+    the grid must not, or the backward kernel and the plain version pick
+    other taps at texel boundaries."""
+    from scae_tpu_torch.ops.warp import _base_grid
+
+    for size in ((40, 40), (24, 24), (28, 97)):
+        for a, b in zip(_base_grid(size, device=cuda), _base_grid(size)):
+            assert torch.equal(a.cpu(), b)
+
+
+def bwd_args(inputs, device, seed=2):
+    a = {k: v.to(device).contiguous() for k, v in inputs.items()}
+    B, C, H, W = a["target"].shape
+    g = torch.from_numpy(np.random.RandomState(seed).randn(
+        B, C, H, W).astype(np.float32)).to(device)
+    args = (a["templates"], a["alpha"], a["pose"], a["presence"],
+            a["bg_value"], a["bg_mixing_logit"], a["scale"], a["target"],
+            (H, W))
+    return g, args
+
+
+def check_bwd(got, want):
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        assert a.shape == b.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        scale = float(b.abs().max())
+        if b.dim() == 0:
+            scale = max(scale, 1.0)
+        err = float((a - b).abs().max())
+        assert err <= BWD_TOL * scale, f"d{name}: {err} vs {scale}"
+
+
+@pytest.mark.parametrize("shape,pose_noise,alpha_batched", [
+    ((8, 40, 1, 11, 11, 40, 40), 0.6, False),    # flagship widths
+    ((4, 13, 1, 5, 5, 24, 24), 4.0, False),      # extreme poses, M = 13
+    ((2, 16, 3, 14, 14, 32, 32), 0.6, False),    # colour, > 48 KB shared
+    ((3, 8, 2, 7, 9, 20, 28), 0.6, True),        # per-example alpha
+    ((8, 40, 1, 11, 11, 40, 40), 0.6, True),     # flagship, per-example alpha
+])
+def test_bwd_kernel_matches_plain(cuda, shape, pose_noise, alpha_batched):
+    inputs = make_inputs(shape, pose_noise=pose_noise,
+                         alpha_batched=alpha_batched)
+    if pose_noise > 1.0:
+        inputs["presence"][:, ::3] = 0.0       # presences exactly 0
+    g, args = bwd_args(inputs, cuda)
+    _, num, den = k1.decoder_ll_gather(*args)
+    got = k1.decoder_ll_gather_bwd(g, num, den, *args)
+    torch.cuda.synchronize()
+    want = k1.decoder_ll_gather_bwd_plain(g, num, den, *args)
+    check_bwd(got, want)
+    part = k1.decoder_ll_gather_bwd(g, num, den, *args, target_grad=False)
+    assert part[7] is None
+    check_bwd(part[:7], want[:7])
+
+
+@pytest.mark.parametrize("bg_value,bg_mix,scale", [
+    (0.0, -2.0, 0.25), (0.9, 3.0, 2.5)])
+def test_bwd_kernel_matches_plain_other_scalars(cuda, bg_value, bg_mix,
+                                                scale):
+    inputs = make_inputs((4, 8, 2, 5, 5, 12, 12), seed=1)
+    inputs.update(bg_value=torch.tensor(bg_value),
+                  bg_mixing_logit=torch.tensor(bg_mix),
+                  scale=torch.tensor(scale))
+    g, args = bwd_args(inputs, cuda)
+    _, num, den = k1.decoder_ll_gather(*args)
+    got = k1.decoder_ll_gather_bwd(g, num, den, *args)
+    torch.cuda.synchronize()
+    check_bwd(got, k1.decoder_ll_gather_bwd_plain(g, num, den, *args))
+
+
+def test_function_matches_plain_autograd(cuda):
+    """Through autograd: the Function on the card against autograd of the
+    plain version, with the expanded upstream gradient of a mean and a
+    (1,)-shaped scalar."""
+    inputs = make_inputs((4, 10, 1, 7, 7, 20, 20), seed=3)
+    inputs["bg_value"] = inputs["bg_value"].reshape(1)
+    results = []
+    for fn in (k1.decoder_ll_gather, k1.decoder_ll_gather_plain):
+        leaves = {k: v.to(cuda).contiguous().requires_grad_(k != "target")
+                  for k, v in inputs.items()}
+        ll = call(fn, leaves, (20, 20))[0]
+        ll.mean().backward()
+        results.append([leaves[k].grad for k in
+                        ("templates", "alpha", "pose", "presence",
+                         "bg_value", "bg_mixing_logit", "scale")])
+    for name, a, b in zip(GRAD_NAMES, *results):
+        scale = max(float(b.abs().max()), 1.0 if b.numel() == 1 else 0.0)
+        assert a.shape == b.shape, name
+        assert float((a - b).abs().max()) <= BWD_TOL * scale, name
+
+
+def test_bwd_kernel_counts_launches(cuda):
+    g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
+    _, num, den = k1.decoder_ll_gather(*args)
+    k1.bwd_launches = 0
+    k1.decoder_ll_gather_bwd(g, num, den, *args)
+    k1.decoder_ll_gather_bwd(g, num, den, *args, target_grad=False)
+    assert k1.bwd_launches == 2
+    k1.decoder_ll_gather_bwd_plain(g, num, den, *args)
+    assert k1.bwd_launches == 2
+
+
+def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
+    g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
+    _, num, den = k1.decoder_ll_gather(*args)
+    with pytest.raises(ValueError, match="g must be contiguous"):
+        k1.decoder_ll_gather_bwd(g.expand(2, 1, 16, 16).transpose(2, 3),
+                                 num, den, *args)
+    with pytest.raises(TypeError, match="num must be float32"):
+        k1.decoder_ll_gather_bwd(g, num.double(), den, *args)
+    with pytest.raises(ValueError, match="den is on cpu"):
+        k1.decoder_ll_gather_bwd(g, num, den.cpu(), *args)
+    # the forward fits in a block's shared memory, the backward does not
+    g, args = bwd_args(make_inputs((1, 60, 3, 15, 15, 8, 8)), cuda)
+    _, num, den = k1.decoder_ll_gather(*args)
+    with pytest.raises(ValueError, match="backward's capsule and gradient"):
+        k1.decoder_ll_gather_bwd(g, num, den, *args)
 
 
 def test_flagship_eval_step_runs_through_kernel(cuda):
@@ -149,3 +278,32 @@ def test_flagship_eval_step_runs_through_kernel(cuda):
     assert k1.launches == 1
     for name, v in metrics.items():
         assert np.isfinite(float(v)), name
+
+
+def test_flagship_train_step_runs_through_kernels(cuda):
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
+    from scae_tpu_torch.optim import make_optimizer
+    from scae_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_raw_train_step,
+    )
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    model = make_scae(FLAGSHIP_MODEL_PARAMS, device=cuda, seed=0)
+    before = [p.detach().clone() for p in model.parameters()]
+    state = TrainState(model, make_optimizer(model.parameters(), "rmsprop",
+                                             3e-5, batch_size=16))
+    step = make_raw_train_step(state, make_augment_fn(40, 6), device=cuda)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (16, 28, 28)).astype(np.uint8)
+    labels = rng.randint(0, 10, (16,))
+    k1.launches = k1.bwd_launches = 0
+    metrics = step(images, labels)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.bwd_launches) == (1, 1)
+    assert state.step == 1
+    for name, v in metrics.items():
+        assert np.isfinite(float(v)), name
+    moved = [not torch.equal(a, b) for a, b in zip(before,
+                                                   model.parameters())]
+    assert sum(moved) > len(moved) // 2

@@ -135,6 +135,24 @@ def test_warp_matches():
           j_warp.affine_warp(tj, pj, (12, 10)))
 
 
+@pytest.mark.parametrize("size", [(5, 7), (12, 20), (24, 24), (40, 40),
+                                  (28, 97)])
+def test_base_grid_is_ieee_division(size):
+    """The output grid is (2j + 1)/n - 1 with an IEEE f32 quotient, bit for
+    bit, as the JAX package computes it: the gather kernels' taps, and so
+    their gradients at texel boundaries, depend on the last bit."""
+    H, W = size
+    gx, gy = t_warp._base_grid(size)
+    for n, got in ((W, gx[0]), (H, gy[:, 0])):
+        j = np.arange(n, dtype=np.float32)
+        want = (np.float32(2.0) * j + np.float32(1.0)) / np.float32(n) \
+            - np.float32(1.0)
+        np.testing.assert_array_equal(got.numpy(), want)
+    jx, jy = j_warp._base_grid(size)
+    np.testing.assert_array_equal(gx.numpy(), np.asarray(jx))
+    np.testing.assert_array_equal(gy.numpy(), np.asarray(jy))
+
+
 def test_grid_sample_golden():
     """affine_warp == F.affine_grid + F.grid_sample(align_corners=False)."""
     g = golden("grid_sample")

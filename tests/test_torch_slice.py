@@ -249,6 +249,15 @@ def test_entry_points_default_to_cuda():
         t_train_step.make_raw_eval_step(tm)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_serve.make_infer_fn(tm)
+    from scae_tpu_torch.optim import make_optimizer
+
+    state = t_train_step.TrainState(
+        tm, make_optimizer(tm.parameters(), "rmsprop", 3e-5, batch_size=B))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_train_step.make_raw_train_step(state)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_train_step.make_fused_train_step(state)
+    t_train_step.make_raw_train_step(state, device="cpu")
 
 
 def test_entry_points_check_the_model_device():
