@@ -12,7 +12,11 @@ Phases, each announced when it starts and when it ends, with its seconds:
   kernel  each kernel against its plain PyTorch version at the main path's
           shapes and at edge shapes; the kernel's time, the plain
           version's, and the least time the card could take (the bound).
-          K1 is the forward (decoder likelihood), K2+K3 the backward
+          K1 is the gather forward (decoder likelihood), K2+K3 its
+          backward (also at the cifar10 shape, M=64, C=3, whose capsules
+          it splits over two blocks); K4f and K4b the dense forward and
+          backward (fused_impl="pallas"), also at the identity and zero
+          poses and at a 17x17 template, K4b run twice for the same bits
   slice   the flagship SCAE (1x40x40, M=40, O=32, 11x11 templates), built
           on the card from a seeded generator, through the eval step and
           the infer function at batch 128; the kernels' launch counts over
@@ -26,6 +30,11 @@ Phases, each announced when it starts and when it ends, with its seconds:
           the launch counts of one real step at batch 128; then 5 warm-up
           and 20 timed real steps: ms per step, images per second, peak
           device memory
+  pallas  the same train phase with fused_impl="pallas" (K4f and K4b in
+          place of K1 and K2+K3), and its eval step at batch 128
+  cifar10 one train step of the shipped cifar10 model (3x32x32, M=64) with
+          noise off at batch 32 on the card and on the CPU, through K1 and
+          K2+K3
 
 Every number is printed beside the card's name and power limit. Imports
 torch, numpy, the standard library and scae_tpu_torch only. Exits
@@ -59,6 +68,8 @@ PROB_TOL = 1e-4        # card vs CPU, abs, on presences and probabilities
 GRAD_RTOL = 1e-3
 GRAD_NAMES = ("templates", "alpha", "pose", "presence", "bg_value",
               "bg_mixing_logit", "scale", "target")
+FLAGSHIP_SHAPE = (BATCH, 40, 1, 11, 11, 40, 40)  # (B, M, C, Ht, Wt, H, W)
+CIFAR10_SHAPE = (CPU_BATCH, 64, 3, 11, 11, 32, 32)
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
 
@@ -86,11 +97,12 @@ def gpu_name_and_power_limit() -> str:
 # ------------------------------------------------------------------ K1
 
 def k1_inputs(torch, shape, seed, pose_noise=0.6, edge=False,
-              alpha_batched=False):
+              alpha_batched=False, fixed_pose=None):
     """Random decoder-likelihood inputs, made with numpy from a seed.
     ``edge``: every third presence exactly 0, and two hand-built degenerate
     poses (a near-zero scale at the canvas corner, a translation off it).
-    ``alpha_batched``: alpha per example (B, ...) instead of (1, ...)."""
+    ``alpha_batched``: alpha per example (B, ...) instead of (1, ...).
+    ``fixed_pose``: one flat affine for every capsule."""
     import numpy as np
 
     from scae_tpu_torch.ops.geometry import geometric_transform
@@ -109,6 +121,8 @@ def k1_inputs(torch, shape, seed, pose_noise=0.6, edge=False,
         presence[:, ::3] = 0.0
         pose[:, 0] = t([0.01, 0.0, 1.0, 0.0, 0.01, 1.0])
         pose[:, 1] = t([1.01, 0.0, -1.0, 0.0, 1.01, 0.0])
+    if fixed_pose is not None:
+        pose[:] = t(fixed_pose)
     return (templates, alpha, pose.contiguous(), t(presence), t(0.3),
             t(0.7), t(1.0), t(rng.rand(B, C, H, W)), (H, W))
 
@@ -301,6 +315,7 @@ def bwd_kernel_phase(torch, card):
          (16, 16, 3, 14, 14, 32, 32), 0.6, False, False),
         ("per-example alpha", (BATCH, 40, 1, 11, 11, 40, 40), 0.6, False,
          True),
+        ("cifar10: M=64, C=3, 11x11", CIFAR10_SHAPE, 0.6, False, False),
     ]
     flagship_err = None
     for name, shape, noise, edge, alpha_batched in cases:
@@ -313,7 +328,8 @@ def bwd_kernel_phase(torch, card):
         got = k1.decoder_ll_gather_bwd(g, num, den, *args)
         torch.cuda.synchronize()
         want = k1.decoder_ll_gather_bwd_plain(g, num, den, *args)
-        smem = k1.bwd_shared_memory_bytes(*shape[1:5])
+        per_block = k1.bwd_capsules_per_block(*shape[1:5])
+        smem = k1.bwd_shared_memory_bytes(per_block, *shape[2:5])
         worst = 0.0
         for out, a, b in zip(GRAD_NAMES, got, want):
             if not bool(torch.isfinite(a).all()):
@@ -330,14 +346,30 @@ def bwd_kernel_phase(torch, card):
                 raise RuntimeError(f"K2+K3 {name}: d{out} max abs err {err}"
                                    f" exceeds {tol}")
             worst = max(worst, err / scale)
-        say(f"K2+K3 {name}: shared memory {smem} B, worst relative err "
-            f"{worst:.3e} [{card}]")
+        say(f"K2+K3 {name}: {per_block} of {shape[1]} capsules per block, "
+            f"shared memory {smem} B, worst relative err {worst:.3e} "
+            f"[{card}]")
         if flagship_err is None:
             flagship_err = max(float((a - b).abs().max())
                                for a, b in zip(got, want))
 
     # the main path's call: the loss's constant upstream gradient -1/B,
-    # no target gradient
+    # no target gradient; and the same call at the cifar10 shape, batch 128
+    cifar = (BATCH,) + CIFAR10_SHAPE[1:]
+    args = k1_inputs(torch, cifar, seed=2)
+    _, num, den = k1.decoder_ll_gather(*args)
+    g = torch.full((BATCH, 3, 32, 32), -1.0 / BATCH, device="cuda")
+    cifar_ms = kernel_device_ms(
+        torch, lambda: k1.decoder_ll_gather_bwd(g, num, den, *args,
+                                                target_grad=False),
+        "decoder_ll_gather_bwd_kernel")
+    cifar_bound = bwd_bound_ms(torch, args, target_grad=False)
+    say(f"K2+K3 cifar10 time {cifar}: kernel {cifar_ms:.4f} ms (device time "
+        f"per launch over 200 launches, torch.profiler; "
+        f"{k1.bwd_capsules_per_block(*cifar[1:5])} capsules per block), "
+        f"bound {cifar_bound[0] * 1e3:.2f} us by {cifar_bound[1]} "
+        f"({cifar_bound[3] / 1e9:.3f} GFLOP) [{card}]")
+
     args = k1_inputs(torch, cases[0][1], seed=2)
     _, num, den = k1.decoder_ll_gather(*args)
     g = torch.full((BATCH, 1, 40, 40), -1.0 / BATCH, device="cuda")
@@ -370,6 +402,138 @@ def bwd_kernel_phase(torch, card):
                 library_ms=None)
 
 
+# ------------------------------------------------------------ K4f, K4b
+
+def dense_kernel_phase(torch, card):
+    """K4f and K4b against their plain version (ops/decoder_ll.py with f32
+    taps and its hand-derived backward) at the main path's shape and at
+    edge shapes, K4b twice for the same bits; their times."""
+    import numpy as np
+
+    from scae_tpu_torch.kernels import decoder_ll_dense as k4
+
+    identity, zero = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0], [0.0] * 6
+    cases = [
+        # (name, shape, pose noise, edge, per-example alpha, fixed pose)
+        ("flagship", FLAGSHIP_SHAPE, 0.6, False, False, None),
+        ("edge: raw pose noise 4.0, zero presences, degenerate poses, M=13",
+         (BATCH, 13, 1, 11, 11, 40, 40), 4.0, True, False, None),
+        ("colour: C=3, 14x14 templates", (16, 16, 3, 14, 14, 32, 32), 0.6,
+         False, False, None),
+        ("per-example alpha", FLAGSHIP_SHAPE, 0.6, False, True, None),
+        ("identity pose, 11x11 canvas: coordinates at texel centres",
+         (BATCH, 40, 1, 11, 11, 11, 11), 0.6, False, False, identity),
+        ("zero pose: every coordinate the template's centre",
+         FLAGSHIP_SHAPE, 0.6, False, False, zero),
+        ("17x17 templates (289 texels, more than gather takes)",
+         (32, 40, 1, 17, 17, 40, 40), 0.6, False, False, None),
+    ]
+    errs = {}
+    for name, shape, noise, edge, alpha_batched, fixed in cases:
+        args = k1_inputs(torch, shape, seed=1, pose_noise=noise, edge=edge,
+                         alpha_batched=alpha_batched, fixed_pose=fixed)
+        B, C, H, W = shape[0], shape[2], shape[5], shape[6]
+        got = k4.decoder_ll_dense_fwd(*args)
+        torch.cuda.synchronize()
+        want = k4.decoder_ll_dense_plain(*args)
+        for x in got:
+            if not bool(torch.isfinite(x).all()):
+                raise RuntimeError(f"K4f {name}: non-finite output")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        say(f"K4f {name} {shape}: shared memory "
+            f"{k4.shared_memory_bytes(*shape[2:5])} B, max abs err "
+            f"{err:.3e} (tolerance {KERNEL_TOL:.0e}) [{card}]")
+        if not err < KERNEL_TOL:
+            raise RuntimeError(f"K4f {name}: max abs err {err} exceeds "
+                               f"{KERNEL_TOL}")
+        errs.setdefault("fwd", err)
+
+        g = torch.from_numpy(np.random.RandomState(3).randn(
+            B, C, H, W).astype(np.float32) / B).cuda()
+        _, num, den = got
+        out = k4.decoder_ll_dense_bwd(g, num, den, *args)
+        again = k4.decoder_ll_dense_bwd(g, num, den, *args)
+        torch.cuda.synchronize()
+        ref = k4.decoder_ll_dense_bwd_plain(g, num, den, *args)
+        worst = 0.0
+        for grad_name, a, b, c in zip(GRAD_NAMES, out, ref, again):
+            if not bool(torch.isfinite(a).all()):
+                raise RuntimeError(f"K4b {name}: non-finite {grad_name}")
+            if not torch.equal(a, c):
+                raise RuntimeError(f"K4b {name}: d{grad_name} differs "
+                                   "between two runs on the same inputs")
+            scale = float(b.abs().max())
+            if b.dim() == 0:
+                scale = max(scale, 1.0)
+            gerr = float((a - b).abs().max())
+            tol = BWD_TOL * scale
+            if not gerr <= tol:
+                raise RuntimeError(f"K4b {name}: d{grad_name} max abs err "
+                                   f"{gerr} exceeds {tol}")
+            # (the zero pose's pose gradient is 0 everywhere, on both sides)
+            worst = max(worst, gerr / scale if scale else gerr)
+        say(f"K4b {name} {shape}: shared memory "
+            f"{k4.bwd_shared_memory_bytes(*shape[2:5])} B, worst err "
+            f"{worst:.3e} of each gradient's largest |entry| (tolerance "
+            f"{BWD_TOL:.0e}), a second run bit-identical [{card}]")
+        errs.setdefault("bwd", max(float((a - b).abs().max())
+                                   for a, b in zip(out, ref)))
+
+    args = k1_inputs(torch, FLAGSHIP_SHAPE, seed=2)
+    ms = kernel_device_ms(torch, lambda: k4.decoder_ll_dense_fwd(*args),
+                          "decoder_ll_dense_fwd_kernel")
+    plain_ms = time_cuda(torch, lambda: k4.decoder_ll_dense_plain(*args),
+                         iters=10, warmup=2)
+    bound_ms, bound_by, n_bytes, ops = k1_bound_ms(FLAGSHIP_SHAPE)
+    dense_ops = 2 * BATCH * 40 * 1600 * 121 * 2
+    say(f"K4f flagship time: kernel {ms:.4f} ms (device time per launch over "
+        f"200 launches, torch.profiler), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.2f} us by {bound_by} ({n_bytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.3f} GFLOP: K1's count, the taps of nonzero weight; the "
+        f"TPU's dense count {dense_ops / 1e9:.3f} GFLOP would give "
+        f"{dense_ops / PEAK_F32_FLOPS * 1e6:.2f} us), library_ms: none, "
+        f"roofline share {bound_ms / ms:.1%} [{card}]")
+    rows = [dict(name="decoder_ll_dense_fwd", route="cuda",
+                 source="scae_tpu_torch/csrc/decoder_ll_dense.cu",
+                 replaces="scae_tpu/ops/pallas_decoder_ll.py:390",
+                 launches=None, max_abs_err=errs["fwd"], ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None)]
+
+    # the main path's call: upstream gradient -1/B, no target gradient
+    _, num, den = k4.decoder_ll_dense_fwd(*args)
+    g = torch.full((BATCH, 1, 40, 40), -1.0 / BATCH, device="cuda")
+
+    def main_path_call():
+        return k4.decoder_ll_dense_bwd(g, num, den, *args, target_grad=False)
+
+    ms = kernel_device_ms(torch, main_path_call,
+                          "decoder_ll_dense_bwd_kernel")
+    plain_ms = time_cuda(torch, lambda: k4.decoder_ll_dense_bwd_plain(
+        g, num, den, *args, target_grad=False), iters=10, warmup=2)
+    # the same function on the same inputs as the gather backward's, so the
+    # same count of what these inputs need: the dense formulation's texel
+    # scan (3 operations for each (texel, pixel) pair of every capsule) is
+    # this kernel's own cost, not the function's, and is reported apart
+    bound_ms, bound_by, n_bytes, ops, n_hit = bwd_bound_ms(
+        torch, args, target_grad=False)
+    scan = 3 * BATCH * 40 * 121 * 1600
+    say(f"K4b flagship time: kernel {ms:.4f} ms (device time per launch "
+        f"over 200 launches, torch.profiler), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.2f} us by {bound_by} ({n_bytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.3f} GFLOP: bwd_bound_ms's count, {n_hit} of "
+        f"{BATCH * 40 * 1600} capsule-pixel pairs touch their template; the "
+        f"texel scan's {scan / 1e9:.3f} G tests not counted), library_ms: "
+        f"none, roofline share {bound_ms / ms:.1%} [{card}]")
+    rows.append(dict(name="decoder_ll_dense_bwd", route="cuda",
+                     source="scae_tpu_torch/csrc/decoder_ll_dense_bwd.cu",
+                     replaces="scae_tpu/ops/pallas_decoder_ll.py:414",
+                     launches=None, max_abs_err=errs["bwd"], ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None))
+    return rows
+
+
 # --------------------------------------------------------------- slice
 
 def slice_phase(torch, card, rows):
@@ -398,18 +562,12 @@ def slice_phase(torch, card, rows):
     # the main path: every launch count at 0 just before, read just after.
     # The eval step reads the likelihood (one launch); the infer call
     # returns none of it, and the decoder computes it only when read.
-    k1.launches = k1.bwd_launches = 0
+    zero_kernel_counts()
     metrics = eval_step(images, labels)
     served = infer(canvas_images)
     torch.cuda.synchronize()
-    launches, bwd_launches = k1.launches, k1.bwd_launches
-    say(f"launches over the eval path (1 eval step, 1 infer call): K1 "
-        f"{launches}, K2+K3 {bwd_launches} [{card}]")
-    if (launches, bwd_launches) != (1, 0):
-        raise RuntimeError(f"K1 launched {launches} times and K2+K3 "
-                           f"{bwd_launches} times, expected 1 and 0")
-    rows[0]["launches"] = launches
-    rows[1]["launches"] = bwd_launches
+    check_kernel_counts(card, rows, "the eval path (1 eval step, 1 infer "
+                        "call)", {"K1": 1})
 
     terms = {k: float(v) for k, v in metrics.items()}
     for k, v in terms.items():
@@ -480,16 +638,50 @@ def slice_phase(torch, card, rows):
 
 # --------------------------------------------------------------- train
 
-def flagship_train_state(torch, device, noise):
-    """The flagship model from seed 0 on ``device`` with the harness'
-    optimizer: RMSprop, lr 3e-5, momentum 0.9, eps 1e-2/B^2, the learning
-    rate times 0.997 per epoch of 55,000 MNIST training images. Without
-    ``noise`` the presence noise of both encoders is off."""
-    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
+KERNELS = ("K1", "K2+K3", "K4f", "K4b")   # in the order of the kernel rows
+
+
+def kernel_counts():
+    """Every kernel's launch count, by kernel id."""
+    from scae_tpu_torch.kernels import decoder_ll_dense as k4
+    from scae_tpu_torch.kernels import decoder_ll_gather as k1
+
+    return {"K1": k1.launches, "K2+K3": k1.bwd_launches,
+            "K4f": k4.launches, "K4b": k4.bwd_launches}
+
+
+def zero_kernel_counts():
+    from scae_tpu_torch.kernels import decoder_ll_dense as k4
+    from scae_tpu_torch.kernels import decoder_ll_gather as k1
+
+    k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
+
+
+def check_kernel_counts(card, rows, what, expected):
+    """Read every launch count after a run from zero; fail unless each
+    equals ``expected`` (0 for a kernel not named); add them to the kernel
+    rows' ``launches`` when ``rows`` is given."""
+    counts = kernel_counts()
+    want = {k: expected.get(k, 0) for k in KERNELS}
+    say(f"launches over {what}: "
+        + ", ".join(f"{k} {counts[k]}" for k in KERNELS) + f" [{card}]")
+    if counts != want:
+        raise RuntimeError(f"launches over {what}: {counts}, expected {want}")
+    if rows is not None:
+        for row, k in zip(rows, KERNELS):
+            row["launches"] = (row["launches"] or 0) + counts[k]
+
+
+def train_state(torch, device, noise, model_params):
+    """The model from seed 0 on ``device`` with the harness' optimizer:
+    RMSprop, lr 3e-5, momentum 0.9, eps 1e-2/B^2, the learning rate times
+    0.997 per epoch of 55,000 MNIST training images. Without ``noise`` the
+    presence noise of both encoders is off."""
+    from scae_tpu_torch.factory import make_scae
     from scae_tpu_torch.optim import make_optimizer
     from scae_tpu_torch.parallel.train_step import TrainState
 
-    params = dict(FLAGSHIP_MODEL_PARAMS)
+    params = dict(model_params)
     if not noise:
         params.update(
             pcae_encoder_params=dict(noise_scale=0.0),
@@ -515,41 +707,40 @@ def keep_gradients(state):
     return kept
 
 
-def train_phase(torch, card, rows):
-    import numpy as np
-
-    from scae_tpu_torch.kernels import decoder_ll_gather as k1
+def card_vs_cpu_step(torch, card, tag, model_params, images, labels,
+                     augment, expected):
+    """One train step with noise off from the same weights on the card and
+    on the CPU: every loss term within TERM_RTOL, every parameter gradient
+    within GRAD_RTOL of its largest entry; the card step's launch counts
+    must be ``expected``."""
     from scae_tpu_torch.parallel.train_step import make_raw_train_step
-    from scae_tpu_torch.train.loop import make_augment_fn
 
     cuda = torch.device("cuda")
-    rng = np.random.RandomState(1)
-    images = rng.randint(0, 256, (BATCH, 28, 28)).astype(np.uint8)
-    labels = rng.randint(0, 10, (BATCH,)).astype(np.int64)
-
-    # one step with noise and translation off, on the card and on the CPU,
-    # from the same weights, at CPU_BATCH
-    pad_only = make_augment_fn(canvas=40, max_shift=0)
-    card_state = flagship_train_state(torch, cuda, noise=False)
-    cpu_state = flagship_train_state(torch, "cpu", noise=False)
+    card_state = train_state(torch, cuda, False, model_params)
+    cpu_state = train_state(torch, "cpu", False, model_params)
     cpu_state.model.load_state_dict(
         {k: v.cpu() for k, v in card_state.model.state_dict().items()})
     got, want = keep_gradients(card_state), keep_gradients(cpu_state)
-    card_terms = make_raw_train_step(card_state, pad_only, cuda)(
-        images[:CPU_BATCH], labels[:CPU_BATCH])
+    zero_kernel_counts()
+    card_terms = make_raw_train_step(card_state, augment, cuda)(images,
+                                                                 labels)
     torch.cuda.synchronize()
-    cpu_terms = make_raw_train_step(cpu_state, pad_only, "cpu")(
-        images[:CPU_BATCH], labels[:CPU_BATCH])
+    check_kernel_counts(card, None, f"the {tag} card-vs-CPU step",
+                        expected)
+    cpu_terms = make_raw_train_step(cpu_state, augment, "cpu")(images,
+                                                               labels)
+    batch = len(labels)
     for k, v in card_terms.items():
         v, ref = float(v), float(cpu_terms[k])
         if k == "accuracy":
-            tol, diff = 1.0 / CPU_BATCH, abs(v - ref)
+            tol, diff = 1.0 / batch, abs(v - ref)
         else:
             tol, diff = TERM_RTOL, abs(v - ref) / max(1.0, abs(ref))
-        say(f"  train card vs CPU {k}: card {v!r} cpu {ref!r} diff "
+        say(f"  {tag} train card vs CPU {k}: card {v!r} cpu {ref!r} diff "
             f"{diff:.3e} (tolerance {tol:.1e}) [{card}]")
         if not (math.isfinite(v) and diff <= tol):
-            raise RuntimeError(f"train {k}: card and CPU differ by {diff}")
+            raise RuntimeError(f"{tag} train {k}: card and CPU differ by "
+                               f"{diff}")
     names = [n for n, _ in card_state.model.named_parameters()]
     worst = (0.0, "")
     for name, a, b in zip(names, got, want):
@@ -562,41 +753,52 @@ def train_phase(torch, card, rows):
         err = float((a.cpu() - b).abs().max())
         tol = GRAD_RTOL * scale + 1e-7
         if not (bool(torch.isfinite(a).all()) and err <= tol):
-            raise RuntimeError(f"gradient of {name}: card and CPU differ by "
-                               f"{err} (largest |gradient| {scale}, "
-                               f"tolerance {tol})")
+            raise RuntimeError(f"{tag}: gradient of {name}: card and CPU "
+                               f"differ by {err} (largest |gradient| "
+                               f"{scale}, tolerance {tol})")
         if err / (scale + 1e-30) >= worst[0]:
             worst = (err / (scale + 1e-30), name)
-    say(f"  train card vs CPU: {len(names)} parameter gradients agree, worst "
-        f"{worst[0]:.3e} of its largest |gradient| ({worst[1]}; tolerance "
-        f"{GRAD_RTOL:.0e}) [{card}]")
+    say(f"  {tag} train card vs CPU (batch {batch}): {len(names)} parameter "
+        f"gradients agree, worst {worst[0]:.3e} of its largest |gradient| "
+        f"({worst[1]}; tolerance {GRAD_RTOL:.0e}) [{card}]")
 
-    # the main path: one real step (noise on, translation by up to 6) at
-    # batch 128; every launch count at 0 just before, read just after
-    state = flagship_train_state(torch, cuda, noise=True)
+
+def train_phase(torch, card, rows, tag, model_params, per_step):
+    """The card-vs-CPU step at CPU_BATCH, then the main path: one real
+    step (noise on, translation by up to 6) at batch 128 whose launch
+    counts must be ``per_step``, then 5 warm-up and 20 timed steps."""
+    import numpy as np
+
+    from scae_tpu_torch.parallel.train_step import make_raw_train_step
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = torch.device("cuda")
+    rng = np.random.RandomState(1)
+    images = rng.randint(0, 256, (BATCH, 28, 28)).astype(np.uint8)
+    labels = rng.randint(0, 10, (BATCH,)).astype(np.int64)
+
+    card_vs_cpu_step(torch, card, tag, model_params, images[:CPU_BATCH],
+                     labels[:CPU_BATCH],
+                     make_augment_fn(canvas=40, max_shift=0), per_step)
+
+    state = train_state(torch, cuda, True, model_params)
     step = make_raw_train_step(state, make_augment_fn(canvas=40,
                                                       max_shift=6), cuda)
-    k1.launches = k1.bwd_launches = 0
+    zero_kernel_counts()
     metrics = step(images, labels)
     torch.cuda.synchronize()
-    launches, bwd_launches = k1.launches, k1.bwd_launches
-    say(f"launches over the train path (1 train step, batch {BATCH}): K1 "
-        f"{launches}, K2+K3 {bwd_launches} [{card}]")
-    if (launches, bwd_launches) != (1, 1):
-        raise RuntimeError(f"K1 launched {launches} times and K2+K3 "
-                           f"{bwd_launches} times in one train step, "
-                           "expected 1 and 1")
-    rows[0]["launches"] += launches
-    rows[1]["launches"] += bwd_launches
+    check_kernel_counts(card, rows, f"the {tag} train path (1 train step, "
+                        f"batch {BATCH})", per_step)
     for k, v in metrics.items():
-        say(f"  train {k} = {float(v)!r} [{card}]")
+        say(f"  {tag} train {k} = {float(v)!r} [{card}]")
 
     warmup, steps = 5, 20
     for _ in range(warmup):
         step(images, labels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k1.bwd_launches = 0
+    held = torch.cuda.memory_allocated()
+    zero_kernel_counts()
     losses = []
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -605,18 +807,73 @@ def train_phase(torch, card, rows):
     dt = (time.perf_counter() - t0) / steps
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
-        raise RuntimeError(f"non-finite train losses: {losses}")
-    if (k1.launches, k1.bwd_launches) != (steps, steps):
-        raise RuntimeError(f"K1 launched {k1.launches} and K2+K3 "
-                           f"{k1.bwd_launches} times in {steps} train steps")
-    say(f"  train losses over the timed steps: first {losses[0]!r}, last "
-        f"{losses[-1]!r} [{card}]")
-    say(f"train step (batch {BATCH}, 28x28 uint8 -> 40x40, translate 6, "
-        f"noise on, RMSprop): {dt * 1e3:.4f} ms/step (host clock, {steps} "
-        f"steps after {warmup + 1} warm-up), {BATCH / dt:.1f} images/s, "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
+        raise RuntimeError(f"non-finite {tag} train losses: {losses}")
+    counts = kernel_counts()
+    if any(counts[k] != steps * per_step.get(k, 0) for k in KERNELS):
+        raise RuntimeError(f"launches in {steps} {tag} train steps: "
+                           f"{counts}")
+    say(f"  {tag} train losses over the timed steps: first {losses[0]!r}, "
+        f"last {losses[-1]!r} [{card}]")
+    say(f"{tag} train step (batch {BATCH}, 28x28 uint8 -> 40x40, translate "
+        f"6, noise on, RMSprop): {dt * 1e3:.4f} ms/step (host clock, "
+        f"{steps} steps after {warmup + 1} warm-up), {BATCH / dt:.1f} "
+        f"images/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B, of which {held} B were "
+        f"held before the timed steps (earlier phases' models included) "
         f"[{card}]")
-    return step, images, labels
+    return step, images, labels, state.model
+
+
+def eval_timing(torch, card, rows, tag, model, per_step):
+    """The eval step at batch 128 on ``model``: one step whose launch counts
+    must be ``per_step``, finite terms, then 5 warm-up and 20 timed steps."""
+    import numpy as np
+
+    from scae_tpu_torch.parallel.train_step import make_raw_eval_step
+
+    cuda = torch.device("cuda")
+    eval_step = make_raw_eval_step(model, canvas=40, device=cuda)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (BATCH, 28, 28)).astype(np.uint8)
+    labels = rng.randint(0, 10, (BATCH,)).astype(np.int64)
+    zero_kernel_counts()
+    metrics = eval_step(images, labels)
+    torch.cuda.synchronize()
+    check_kernel_counts(card, rows, f"the {tag} eval path (1 eval step, "
+                        f"batch {BATCH})", per_step)
+    for k, v in metrics.items():
+        say(f"  {tag} eval {k} = {float(v)!r} [{card}]")
+        if not math.isfinite(float(v)):
+            raise RuntimeError(f"{tag} eval term {k} is not finite")
+    warmup, steps = 5, 20
+    for _ in range(warmup):
+        eval_step(images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eval_step(images, labels)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    say(f"{tag} eval step (batch {BATCH}, canvas 40): {dt * 1e3:.4f} ms/step "
+        f"(host clock, {steps} steps after {warmup} warm-up), "
+        f"{BATCH / dt:.1f} images/s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B [{card}]")
+    return eval_step, images, labels
+
+
+def cifar10_phase(torch, card):
+    """One train step of the shipped cifar10 model (M=64, C=3: K2+K3 splits
+    its capsules over two blocks) with noise off, card against CPU."""
+    import numpy as np
+
+    from scae_tpu_torch.factory import CIFAR10_MODEL_PARAMS
+
+    rng = np.random.RandomState(2)
+    images = rng.randint(0, 256, (CPU_BATCH, 32, 32, 3)).astype(np.uint8)
+    labels = rng.randint(0, 10, (CPU_BATCH,)).astype(np.int64)
+    card_vs_cpu_step(torch, card, "cifar10", CIFAR10_MODEL_PARAMS, images,
+                     labels, None, {"K1": 1, "K2+K3": 1})
 
 
 def profile_phase(torch, name, step, images, labels, n, card):
@@ -656,7 +913,9 @@ def main(argv=None) -> int:
 
     import torch
 
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
     from scae_tpu_torch.kernels import _build
+    from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
 
     if not torch.cuda.is_available():
@@ -678,10 +937,11 @@ def main(argv=None) -> int:
         say(f"nvcc {nvcc}: {version.stdout.strip().splitlines()[-1]}")
 
     with phase("build"):
-        sources = {"K1": k1.SOURCE, "K2+K3": k1.BWD_SOURCE}
+        sources = {"K1": (k1, k1.SOURCE), "K2+K3": (k1, k1.BWD_SOURCE),
+                   "K4f": (k4, k4.SOURCE), "K4b": (k4, k4.BWD_SOURCE)}
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-            built = dict(zip(sources, pool.map(k1.build_info,
-                                               sources.values())))
+            built = dict(zip(sources, pool.map(
+                lambda ms: ms[0].build_info(ms[1]), sources.values())))
         for kernel, info in built.items():
             say(f"{kernel} library {info.path}: built in {info.seconds:.2f} s"
                 f" (cached: {info.cached}), nvcc "
@@ -692,19 +952,37 @@ def main(argv=None) -> int:
                     say(f"  ptxas: {line.strip()}")
 
     with phase("kernel"):
-        rows = [kernel_phase(torch, card), bwd_kernel_phase(torch, card)]
+        rows = [kernel_phase(torch, card), bwd_kernel_phase(torch, card),
+                *dense_kernel_phase(torch, card)]
 
     with phase("slice"):
         eval_step, images, labels = slice_phase(torch, card, rows)
 
     with phase("train"):
-        train_step, train_images, train_labels = train_phase(torch, card,
-                                                             rows)
+        train_step, train_images, train_labels, _ = train_phase(
+            torch, card, rows, "gather", FLAGSHIP_MODEL_PARAMS,
+            {"K1": 1, "K2+K3": 1})
+
+    with phase("pallas"):
+        pallas_params = dict(FLAGSHIP_MODEL_PARAMS,
+                             pcae_decoder_params=dict(fused_impl="pallas"))
+        pallas_step, _, _, pallas_model = train_phase(
+            torch, card, rows, "pallas", pallas_params,
+            {"K4f": 1, "K4b": 1})
+        pallas_eval, _, _ = eval_timing(torch, card, rows, "pallas",
+                                        pallas_model, {"K4f": 1})
+
+    with phase("cifar10"):
+        cifar10_phase(torch, card)
 
     if args.profile:
         with phase("profile"):
             profile_phase(torch, "eval", eval_step, images, labels, 5, card)
             profile_phase(torch, "train", train_step, train_images,
+                          train_labels, 5, card)
+            profile_phase(torch, "pallas eval", pallas_eval, images, labels,
+                          5, card)
+            profile_phase(torch, "pallas train", pallas_step, train_images,
                           train_labels, 5, card)
 
     say(json.dumps({"kernels": rows}))

@@ -32,27 +32,11 @@
 // Built by scae_tpu_torch/kernels/_build.py with plain nvcc into a shared
 // library; scae_tpu_torch/kernels/decoder_ll_gather.py binds it with ctypes.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kLogSqrt2Pi = 0.91893853320467274178f;  // 0.5 * log(2 pi)
-constexpr float kPresEps = 1e-16f;                      // log_safe floor
-
-__device__ __forceinline__ float log_safe(float x) {
-  return x < kPresEps ? -1e8f : logf(x);
-}
-
-// One step of a streaming log-sum-exp: (mx, s) represents mx + log(s).
-__device__ __forceinline__ void lse_push(float x, float& mx, float& s) {
-  if (x > mx) {
-    s = s * expf(mx - x) + 1.0f;
-    mx = x;
-  } else {
-    s += expf(x - mx);
-  }
-}
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -218,10 +202,6 @@ int scae_decoder_ll_gather_fwd(const void* templates, const void* alpha, const v
     case 4: return launch<4>(t, a, po, pr, tg, sc, o_ll, o_num, o_den, B, M, Ht, Wt, H, W, alpha_batched, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-const char* scae_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -41,45 +41,28 @@
 // half of them with random poses): ~0.94 GFLOP, 14 us at 67 TFLOP/s
 // (chip_smoke.py's bwd_bound_ms counts them from this code and the run's
 // data), so the kernel is bound by f32 operations.
-// Grid: (pixel tiles of 256, B); one thread per output pixel; the same as
-// the forward's.
+// Grid: (pixel tiles of 256, B, capsule groups); one thread per output
+// pixel. A block holds the tables of one group of Mb capsules, at most
+// all M: the capsule and gradient tables of all 64 capsules of the cifar10
+// shape (M=64, C=3, 11x11) need 251,392 bytes, more than a block's 232,448,
+// so the wrapper splits them into as few groups as fit (one group, as
+// before, at the flagship; two of 32 at the cifar10 shape). Given num and
+// den, each capsule's gradient terms need only its own values; only the
+// target gradient and the scalar rows sum over the capsules, and with more
+// than one group each group adds its share into them through atomics
+// (the target gradient then arrives zeroed), the first group adding the
+// background's.
 //
 // Built by scae_tpu_torch/kernels/_build.py with plain nvcc into a shared
 // library; scae_tpu_torch/kernels/decoder_ll_gather.py binds it with ctypes.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLogSqrt2Pi = 0.91893853320467274178f;  // 0.5 * log(2 pi)
-constexpr float kPresEps = 1e-16f;                      // log_safe floor
 constexpr int kPart = 7;  // per capsule: 6 pose partials, then presence
-
-__device__ __forceinline__ float log_safe(float x) {
-  return x < kPresEps ? -1e8f : logf(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  return v;
-}
-
-// ((a x + b y + t + 1) n - 1) / 2 with every operation rounded on its own,
-// as PyTorch evaluates it (no fused multiply-adds), from the same grid x, y.
-// The derivative of a bilinear sample jumps where the coordinate crosses a
-// texel boundary, so a coordinate one ulp off picks other taps for a pixel
-// that lies on a boundary and moves the pose gradient by a whole texel
-// difference there; computed this way, the kernel's taps are the plain
-// version's.
-__device__ __forceinline__ float source_coord(float a, float b, float t, float x, float y,
-                                              float n) {
-  const float s = __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), t);
-  return __fmul_rn(__fadd_rn(__fmul_rn(__fadd_rn(s, 1.0f), n), -1.0f), 0.5f);
-}
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -99,13 +82,18 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
                              float* __restrict__ gpres,            // (B, M), zeroed
                              float* __restrict__ gtarget,          // (B, C, P) or null
                              float* __restrict__ gscal,            // (3,), zeroed
-                             int M, int Ht, int Wt, int H, int W, int alpha_batched) {
+                             int M_total, int Mb, int Ht, int Wt, int H, int W,
+                             int alpha_batched) {
   constexpr int CC = C + 1;
   extern __shared__ float smem[];
   __shared__ float red[3][kWarps];
   const int T = Ht * Wt;
   const int P = H * W;
   const int b = blockIdx.y;
+  const int m0 = blockIdx.z * Mb;          // this block's capsule group
+  const int M = min(Mb, M_total - m0);     // its capsules
+  const bool first = blockIdx.z == 0;      // the group that adds the background's terms
+  const bool split = gridDim.z > 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* tab = smem;                // (M, CC, T): C template planes, then alpha
@@ -113,22 +101,23 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
   float* slp = spose + M * 6;       // (M,) log_safe(presence)
   float* gt = slp + M;              // (M, CC, T) gradient table
   float* part = gt + M * CC * T;    // (M, kPart) pixel sums of this block
+  const size_t bm0 = static_cast<size_t>(b) * M_total + m0;  // (b, m0) in (B, M_total)
 
-  const float* tb = templates + static_cast<size_t>(b) * M * C * T;
+  const float* tb = templates + bm0 * C * T;
   for (int i = threadIdx.x; i < M * C * T; i += blockDim.x) {
     const int m = i / (C * T);
     tab[m * CC * T + (i - m * C * T)] = tb[i];
   }
-  const float* ab = alpha + (alpha_batched ? static_cast<size_t>(b) * M * T : 0);
+  const float* ab = alpha + (alpha_batched ? bm0 : static_cast<size_t>(m0)) * T;
   for (int i = threadIdx.x; i < M * T; i += blockDim.x) {
     const int m = i / T;
     tab[m * CC * T + C * T + (i - m * T)] = ab[i];
   }
   for (int i = threadIdx.x; i < M * 6; i += blockDim.x) {
-    spose[i] = pose[static_cast<size_t>(b) * M * 6 + i];
+    spose[i] = pose[bm0 * 6 + i];
   }
   for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    slp[i] = log_safe(presence[static_cast<size_t>(b) * M + i]);
+    slp[i] = log_safe(presence[bm0 + i]);
   }
   for (int i = threadIdx.x; i < M * CC * T + M * kPart; i += blockDim.x) {
     gt[i] = 0.0f;  // the gradient table and the partials are contiguous
@@ -268,25 +257,38 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
     }
   }
 
-  // background component: target gradient and the scalar-gradient rows
+  // background component (first group only): target gradient and the
+  // scalar-gradient rows
   float row0 = 0.0f, row1 = 0.0f, row2 = 0.0f;
   if (active) {
     float gq_bg_sum = 0.0f, gbv = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const float d = t[c] - bg_value;
-      const float dd = d * d;
-      const float gq = gc[c] * expf(bg_mix + (-dd * inv_2var + neg_const) - nm[c]);
-      gq_bg_sum += gq;
-      gbv += gq * d;
-      sq_acc += gq * dd;
-      q_acc += gq;
+      float bg_term = 0.0f;
+      if (first) {
+        const float d = t[c] - bg_value;
+        const float dd = d * d;
+        const float gq = gc[c] * expf(bg_mix + (-dd * inv_2var + neg_const) - nm[c]);
+        gq_bg_sum += gq;
+        gbv += gq * d;
+        sq_acc += gq * dd;
+        q_acc += gq;
+        bg_term = gq * d;
+      }
       if (gtarget != nullptr) {
-        gtarget[(static_cast<size_t>(b) * C + c) * P + p] = (tg[c] + gq * d) * -two_inv_2var;
+        float* o = gtarget + (static_cast<size_t>(b) * C + c) * P + p;
+        const float v = (tg[c] + bg_term) * -two_inv_2var;
+        if (split) {
+          atomicAdd(o, v);
+        } else {
+          *o = v;
+        }
       }
     }
-    row0 = gbv * two_inv_2var;
-    row1 = gq_bg_sum - gsum * expf(bg_mix - dn);
+    if (first) {
+      row0 = gbv * two_inv_2var;
+      row1 = gq_bg_sum - gsum * expf(bg_mix - dn);
+    }
     row2 = sq_acc / (scale * scale * scale) - q_acc / scale;
   }
   row0 = warp_sum(row0);
@@ -304,7 +306,7 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
     for (int w = 0; w < kWarps; ++w) s += red[threadIdx.x][w];
     atomicAdd(gscal + threadIdx.x, s);
   }
-  float* gtb = gtab + static_cast<size_t>(b) * M * CC * T;
+  float* gtb = gtab + bm0 * CC * T;
   for (int i = threadIdx.x; i < M * CC * T; i += blockDim.x) {
     const float v = gt[i];
     if (v != 0.0f) atomicAdd(gtb + i, v);
@@ -314,11 +316,11 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
   for (int i = threadIdx.x; i < M * 6; i += blockDim.x) {
     const int m = i / 6;
     const int k = i - m * 6;
-    atomicAdd(gpose + static_cast<size_t>(b) * M * 6 + i, part[m * kPart + k] * (k < 3 ? cx : cy));
+    atomicAdd(gpose + bm0 * 6 + i, part[m * kPart + k] * (k < 3 ? cx : cy));
   }
   for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const float pr = presence[static_cast<size_t>(b) * M + m];
-    if (pr >= kPresEps) atomicAdd(gpres + static_cast<size_t>(b) * M + m, part[m * kPart + 6] / pr);
+    const float pr = presence[bm0 + m];
+    if (pr >= kPresEps) atomicAdd(gpres + bm0 + m, part[m * kPart + 6] / pr);
   }
 }
 
@@ -327,9 +329,9 @@ int launch(const float* templates, const float* alpha, const float* pose,
            const float* presence, const float* target, const float* scal, const float* g,
            const float* num, const float* den, const float* grid_x, const float* grid_y,
            float* gtab, float* gpose, float* gpres, float* gtarget, float* gscal, int B, int M,
-           int Ht, int Wt, int H, int W, int alpha_batched, cudaStream_t stream) {
+           int Mb, int Ht, int Wt, int H, int W, int alpha_batched, cudaStream_t stream) {
   const size_t smem =
-      (2 * static_cast<size_t>(M) * (C + 1) * Ht * Wt + static_cast<size_t>(M) * (7 + kPart)) *
+      (2 * static_cast<size_t>(Mb) * (C + 1) * Ht * Wt + static_cast<size_t>(Mb) * (7 + kPart)) *
       sizeof(float);
   auto kernel = decoder_ll_gather_bwd_kernel<C>;
   if (smem > 48 * 1024) {
@@ -337,10 +339,10 @@ int launch(const float* templates, const float* alpha, const float* pose,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
+  const dim3 grid((H * W + kThreads - 1) / kThreads, B, (M + Mb - 1) / Mb);
   kernel<<<grid, kThreads, smem, stream>>>(templates, alpha, pose, presence, target, scal, g,
                                            num, den, grid_x, grid_y, gtab, gpose, gpres,
-                                           gtarget, gscal, M, Ht, Wt, H, W, alpha_batched);
+                                           gtarget, gscal, M, Mb, Ht, Wt, H, W, alpha_batched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,14 +356,15 @@ extern "C" {
 // output grid as scae_tpu_torch/ops/warp.py::_base_grid gives it, flattened;
 // gtab, gpose, gpres and gscal
 // must be zeroed, and gtarget may be null where no target gradient is
-// needed. C must be 1..4.
+// needed; it must be zeroed too where Mb < M. Mb is the number of capsules
+// a block takes, 1..M. C must be 1..4.
 int scae_decoder_ll_gather_bwd(const void* templates, const void* alpha, const void* pose,
                                const void* presence, const void* target, const void* scal,
                                const void* g, const void* num, const void* den,
                                const void* grid_x, const void* grid_y, void* gtab,
                                void* gpose, void* gpres, void* gtarget, void* gscal, int B,
-                               int M, int C, int Ht, int Wt, int H, int W, int alpha_batched,
-                               void* stream) {
+                               int M, int Mb, int C, int Ht, int Wt, int H, int W,
+                               int alpha_batched, void* stream) {
   const auto* t = static_cast<const float*>(templates);
   const auto* a = static_cast<const float*>(alpha);
   const auto* po = static_cast<const float*>(pose);
@@ -379,11 +382,12 @@ int scae_decoder_ll_gather_bwd(const void* templates, const void* alpha, const v
   auto* o_tgt = static_cast<float*>(gtarget);
   auto* o_scal = static_cast<float*>(gscal);
   auto s = static_cast<cudaStream_t>(stream);
+  if (Mb < 1 || Mb > M) return static_cast<int>(cudaErrorInvalidValue);
   switch (C) {
 #define SCAE_BWD_CASE(N)                                                                    \
   case N:                                                                                   \
     return launch<N>(t, a, po, pr, tg, sc, gg, nm, dn, gxs, gys, o_tab, o_pose, o_pres, o_tgt, \
-                     o_scal, B, M, Ht, Wt, H, W, alpha_batched, s);
+                     o_scal, B, M, Mb, Ht, Wt, H, W, alpha_batched, s);
     SCAE_BWD_CASE(1)
     SCAE_BWD_CASE(2)
     SCAE_BWD_CASE(3)
@@ -391,10 +395,6 @@ int scae_decoder_ll_gather_bwd(const void* templates, const void* alpha, const v
 #undef SCAE_BWD_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-const char* scae_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -44,6 +44,19 @@ FLAGSHIP_MODEL_PARAMS = dict(
     scae_params=dict(reconstruct_alternatives=False),
 )
 
+# The shipped cifar10 model (scae_tpu/configs/model/cifar10.yaml): 3x32x32
+# images, M=64 part capsules, O=32 object capsules, a learned output scale,
+# bfloat16 taps (read only by fused_impl="xla"), factory defaults otherwise.
+CIFAR10_MODEL_PARAMS = dict(
+    image_shape=(3, 32, 32),
+    n_classes=10,
+    n_part_caps=64,
+    n_obj_caps=32,
+    pcae_decoder_params=dict(learn_output_scale=True,
+                             fused_tap_dtype="bfloat16"),
+    scae_params=dict(reconstruct_alternatives=False),
+)
+
 
 @dataclass
 class CNNEncoderConfig:
@@ -320,10 +333,6 @@ def make_scae(model_params, device=None, seed: int = 0) -> SCAE:
     )
 
     pd = cfg.pcae_decoder
-    if pd.fused_tap_dtype != "float32":
-        raise NotImplementedError(
-            f"fused_tap_dtype={pd.fused_tap_dtype!r} is not ported: the "
-            "port's likelihood (kernel K1) takes its taps in float32")
     part_decoder = TemplateBasedImageDecoder(
         n_templates=pd.n_templates,
         template_size=tuple(pd.template_size),
@@ -333,6 +342,7 @@ def make_scae(model_params, device=None, seed: int = 0) -> SCAE:
         background_value=pd.background_value,
         use_fused_ll=pd.use_fused_ll,
         fused_impl=pd.fused_impl,
+        fused_tap_dtype=pd.fused_tap_dtype,
     )
 
     st = cfg.ocae_encoder_set_transformer

@@ -3,13 +3,15 @@
 Plain ``nvcc`` for ``sm_90a`` into a ``.so`` with a C interface, loaded
 with ``ctypes``: no PyTorch headers are compiled, so a build takes seconds.
 Libraries go to ``scae_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, and are built at the first
-call on a CUDA tensor, never at import. A build is written under a
+named by a hash of the source, the shared headers and the flags, and are
+built at the first call on a CUDA tensor, never at import. A build is written under a
 temporary name and renamed into place, so concurrent builds never see a
 half-written library and no lock file is needed.
 """
 
+import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -50,11 +52,20 @@ class BuiltLibrary:
     cached: bool    # True: an identical earlier build was reused
 
 
+def _headers():
+    """The shared headers of ``csrc/`` (``common.cuh``), which every source
+    includes, so that a change to one rebuilds every kernel."""
+    return sorted(os.path.join(CSRC, n) for n in os.listdir(CSRC)
+                  if n.endswith(".cuh"))
+
+
 def build(source_name: str) -> BuiltLibrary:
     """Compile ``csrc/<source_name>`` unless an identical build exists."""
     src = os.path.join(CSRC, source_name)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *_headers()]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source_name)[0]
     out = os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
     log_path = out + ".log"
@@ -81,3 +92,23 @@ def build(source_name: str) -> BuiltLibrary:
         f.write(log)
     os.replace(tmp, out)
     return BuiltLibrary(out, log, seconds, cached=False)
+
+
+@functools.cache
+def load(source_name: str, symbol: str, n_ptr: int, n_int: int):
+    """Build ``csrc/<source_name>`` at first use and load it with ctypes.
+
+    Returns the launcher ``symbol``, a C function of ``n_ptr`` pointers,
+    ``n_int`` ints and a stream that returns a cudaError_t; the library's
+    ``scae_cuda_error_string``; and the ``BuiltLibrary`` record.
+    """
+    built = build(source_name)
+    lib = ctypes.CDLL(built.path)
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = lib.scae_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err, built

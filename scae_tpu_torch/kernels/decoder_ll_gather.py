@@ -23,21 +23,24 @@ See the sources for each kernel's bound on the H100 and how its design
 meets it.
 """
 
-import ctypes
-import functools
 import math
 
 import torch
 
 from scae_tpu_torch.kernels import _build
+from scae_tpu_torch.kernels._common import (
+    SMEM_LIMIT,
+    check_inputs,
+    check_smem,
+    raise_on,
+    scalar_tensor,
+    scalars,
+)
 from scae_tpu_torch.ops.math_ops import log_safe
 from scae_tpu_torch.ops.warp import _base_grid, source_coordinates
 
 SOURCE = "decoder_ll_gather.cu"
 BWD_SOURCE = "decoder_ll_gather_bwd.cu"
-MAX_CHANNELS = 4                 # the kernel is instantiated for C = 1..4
-SMEM_LIMIT = 232448              # 227 KB: the most a block can have on Hopper
-_MAX_GRID_Y = 65535
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 # Kernel launches since a counter was last set to 0: ``launches`` for K1,
@@ -107,7 +110,7 @@ def decoder_ll_gather_plain(templates, alpha, pose, presence, bg_value,
          + wy[1][:, :, None] * (wx[0][:, :, None] * texels(1, 0)
                                 + wx[1][:, :, None] * texels(1, 1)))
 
-    bg_value, bg_mix, scale = (_scalar_tensor(v, templates.device)
+    bg_value, bg_mix, scale = (scalar_tensor(v, templates.device)
                                for v in (bg_value, bg_mixing_logit, scale))
     inv_2var = 1.0 / (2.0 * scale * scale)
     neg_const = -torch.log(scale) - _LOG_SQRT_2PI
@@ -129,13 +132,6 @@ def decoder_ll_gather_plain(templates, alpha, pose, presence, bg_value,
     return ll.reshape(B, C, H, W), num, den
 
 
-def _scalar_tensor(v, device):
-    t = torch.as_tensor(v, dtype=torch.float32, device=device)
-    if t.numel() != 1:
-        raise ValueError(f"expected a scalar, got shape {tuple(t.shape)}")
-    return t.reshape(())
-
-
 def shared_memory_bytes(M, C, Ht, Wt) -> int:
     """Dynamic shared memory of one K1 block: the capsule tables, poses and
     log-presences of one example."""
@@ -143,34 +139,35 @@ def shared_memory_bytes(M, C, Ht, Wt) -> int:
 
 
 def bwd_shared_memory_bytes(M, C, Ht, Wt) -> int:
-    """Dynamic shared memory of one backward block: K1's, plus a gradient
-    table the size of the capsule tables and 7 pixel sums per capsule (6
-    pose entries and the presence)."""
+    """Dynamic shared memory of one backward block that takes M capsules:
+    K1's, plus a gradient table the size of the capsule tables and 7 pixel
+    sums per capsule (6 pose entries and the presence)."""
     return 4 * (2 * M * (C + 1) * Ht * Wt + M * 14)
+
+
+def bwd_capsules_per_block(M, C, Ht, Wt) -> int:
+    """Capsules per backward block: all M where their tables fit in a
+    block's shared memory, else the largest even share of M over as few
+    blocks as fit (the cifar10 shape, M=64, C=3, 11x11: two blocks of 32
+    per pixel tile). 0 where not even one capsule fits."""
+    for groups in range(1, M + 1):
+        per_block = -(-M // groups)
+        if bwd_shared_memory_bytes(per_block, C, Ht, Wt) <= SMEM_LIMIT:
+            return per_block
+    return 0
 
 
 # symbol, pointer arguments and int arguments of each library's launcher
 _SIGNATURES = {
     SOURCE: ("scae_decoder_ll_gather_fwd", 9, 8),
-    BWD_SOURCE: ("scae_decoder_ll_gather_bwd", 16, 8),
+    BWD_SOURCE: ("scae_decoder_ll_gather_bwd", 16, 9),
 }
 
 
-@functools.cache
 def _library(source):
     """Build (at first use) and load a kernel's shared library; its
     launcher, error-string function and build record."""
-    built = _build.build(source)
-    lib = ctypes.CDLL(built.path)
-    name, n_ptr, n_int = _SIGNATURES[source]
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = lib.scae_cuda_error_string
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return fn, err, built
+    return _build.load(source, *_SIGNATURES[source])
 
 
 def build_info(source=SOURCE) -> _build.BuiltLibrary:
@@ -180,69 +177,17 @@ def build_info(source=SOURCE) -> _build.BuiltLibrary:
     return _library(source)[2]
 
 
-def _check_inputs(templates, alpha, pose, presence, target, out_size,
-                  **extra):
-    """Raise unless every array is a contiguous float32 tensor of the
-    expected shape on the templates' device, and the sizes fit the
-    kernels. ``extra``: more (tensor, shape) pairs to check."""
-    if templates.dim() != 5:
-        raise ValueError(f"templates must be (B, M, C, Ht, Wt), got "
-                         f"{tuple(templates.shape)}")
-    B, M, C, Ht, Wt = templates.shape
-    H, W = out_size
-    P = H * W
-    device = templates.device
-    expected = {
-        "templates": (templates, (B, M, C, Ht, Wt)),
-        "alpha": (alpha, (alpha.shape[0], M, 1, Ht, Wt)),
-        "pose": (pose, (B, M, 6)),
-        "presence": (presence, (B, M)),
-        "target": (target, (B, C, H, W)),
-        **extra,
-    }
-    for name, (t, shape) in expected.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, templates on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if alpha.shape[0] not in (1, B):
-        raise ValueError(f"alpha's batch must be 1 or {B}, got {alpha.shape[0]}")
-    if not 1 <= C <= MAX_CHANNELS:
-        raise ValueError(f"the kernel takes 1..{MAX_CHANNELS} channels, got {C}")
-    if B > _MAX_GRID_Y or M < 1 or P < 1:
-        raise ValueError(f"unsupported sizes B={B}, M={M}, P={P}")
-
-
-def _scalars(device, *values):
-    return torch.stack([_scalar_tensor(v, device) for v in values]) \
-        .contiguous()
-
-
-def _raise_on(rc, err, what):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{err(rc).decode()} (cudaError {rc})")
-
-
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
             scale, target, out_size):
     """Launch K1 on CUDA tensors: (ll, num, den)."""
     global launches
-    _check_inputs(templates, alpha, pose, presence, target, out_size)
+    check_inputs(templates, alpha, pose, presence, target, out_size)
     B, M, C, Ht, Wt = templates.shape
     H, W = out_size
     P = H * W
     device = templates.device
-    smem = shared_memory_bytes(M, C, Ht, Wt)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"the capsule tables need {smem} bytes of shared "
-                         f"memory, more than the {SMEM_LIMIT} a block has")
-    scal = _scalars(device, bg_value, bg_mixing_logit, scale)
+    check_smem(shared_memory_bytes(M, C, Ht, Wt), "K1's capsule tables")
+    scal = scalars(device, bg_value, bg_mixing_logit, scale)
 
     ll = torch.empty((B, C, H, W), dtype=torch.float32, device=device)
     num = torch.empty((B, C, P), dtype=torch.float32, device=device)
@@ -254,7 +199,7 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
                 presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
                 ll.data_ptr(), num.data_ptr(), den.data_ptr(),
                 B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), stream)
-    _raise_on(rc, err, "decoder_ll_gather")
+    raise_on(rc, err, "decoder_ll_gather")
     launches += 1
     return ll, num, den
 
@@ -292,11 +237,11 @@ def decoder_ll_gather_bwd_plain(g, num, den, templates, alpha, pose,
     with torch.enable_grad():
         arrays = [t.detach().requires_grad_()
                   for t in (templates, alpha, pose, presence)]
-        scalars = [_scalar_tensor(v, device).detach().requires_grad_()
-                   for v in (bg_value, bg_mixing_logit, scale)]
+        scals = [scalar_tensor(v, device).detach().requires_grad_()
+                 for v in (bg_value, bg_mixing_logit, scale)]
         tgt = target.detach().requires_grad_(target_grad)
-        ll = decoder_ll_gather_plain(*arrays, *scalars, tgt, out_size)[0]
-        wrt = arrays + scalars + ([tgt] if target_grad else [])
+        ll = decoder_ll_gather_plain(*arrays, *scals, tgt, out_size)[0]
+        wrt = arrays + scals + ([tgt] if target_grad else [])
         grads = torch.autograd.grad(ll, wrt, g.reshape(ll.shape))
     return (*grads[:7], grads[7] if target_grad else None)
 
@@ -309,23 +254,23 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
     B, M, C, Ht, Wt = templates.shape
     H, W = out_size
     P = H * W
-    _check_inputs(templates, alpha, pose, presence, target, out_size,
+    check_inputs(templates, alpha, pose, presence, target, out_size,
                   g=(g, (B, C, H, W)),
                   num=(num, (B, C, P)), den=(den, (B, 1, P)))
-    smem = bwd_shared_memory_bytes(M, C, Ht, Wt)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"the backward's capsule and gradient tables need {smem} bytes "
-            f"of shared memory, more than the {SMEM_LIMIT} a block has "
-            f"(the forward needs {shared_memory_bytes(M, C, Ht, Wt)})")
+    per_block = bwd_capsules_per_block(M, C, Ht, Wt)
+    if per_block == 0:
+        check_smem(bwd_shared_memory_bytes(1, C, Ht, Wt),
+                   "the backward's capsule and gradient tables of one capsule")
     device = templates.device
-    scal = _scalars(device, bg_value, bg_mixing_logit, scale)
+    scal = scalars(device, bg_value, bg_mixing_logit, scale)
     f32 = dict(dtype=torch.float32, device=device)
     gtab = torch.zeros((B, M, C + 1, Ht, Wt), **f32)
     gpose = torch.zeros((B, M, 6), **f32)
     gpres = torch.zeros((B, M), **f32)
     gscal = torch.zeros((3,), **f32)
-    gtarget = torch.empty((B, C, H, W), **f32) if target_grad else None
+    # split capsule groups add their shares of the target gradient
+    gtarget = (torch.zeros if per_block < M else torch.empty)(
+        (B, C, H, W), **f32) if target_grad else None
     # the plain version's grid, so that both pick the same taps
     grid_x, grid_y = (v.reshape(-1).contiguous()
                       for v in _base_grid((H, W), torch.float32, device))
@@ -338,9 +283,9 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 grid_x.data_ptr(), grid_y.data_ptr(), gtab.data_ptr(),
                 gpose.data_ptr(), gpres.data_ptr(),
                 gtarget.data_ptr() if target_grad else None,
-                gscal.data_ptr(), B, M, C, Ht, Wt, H, W,
+                gscal.data_ptr(), B, M, per_block, C, Ht, Wt, H, W,
                 int(alpha.shape[0] != 1), stream)
-    _raise_on(rc, err, "decoder_ll_gather backward")
+    raise_on(rc, err, "decoder_ll_gather backward")
     bwd_launches += 1
     g_alpha = gtab[:, :, C:]
     if alpha.shape[0] == 1:

@@ -8,15 +8,23 @@ the +0.99 pre-shift for relu1.
 TemplateBasedImageDecoder: M warped templates plus a background component,
 alpha-channel or temperature mixing logits, presence folded into the
 mixing logits through log_safe, scalar output scale. With a target, the
-per-pixel log-likelihood comes from the fused path: ``fused_impl="auto"``
-(or "gather") takes the gather decoder likelihood
-(``kernels/decoder_ll_gather.py``): for CUDA tensors its autograd Function,
-K1 forward and the backward kernel's backward; for CPU tensors its plain
-version, which autograd differentiates. The JAX
-package's other implementations ("xla", "pallas", "pallas_banded") are
-not ported. The likelihood, like the rendered components, is computed
-when it is first read, so a forward whose caller never reads it (the
-infer function) launches no kernel.
+per-pixel log-likelihood comes from the fused path, by ``fused_impl``:
+
+  * "auto" or "gather": the gather likelihood
+    (``kernels/decoder_ll_gather.py``): for CUDA tensors its autograd
+    Function, K1 forward and K2+K3 backward; for CPU tensors its plain
+    version, which autograd differentiates;
+  * "pallas": the dense likelihood (``kernels/decoder_ll_dense.py``): K4f
+    forward and K4b backward for CUDA tensors, the plain version
+    (``ops/decoder_ll.py`` with float32 taps and its hand-derived
+    backward) for CPU tensors;
+  * "xla": ``ops/decoder_ll.py::fused_decoder_ll`` with ``fused_tap_dtype``
+    taps, on any device.
+
+"pallas_banded" (the banded kernels, K5) is not ported. The likelihood,
+like the rendered components, is computed when it is first read, so a
+forward whose caller never reads it (the infer function) launches no
+kernel.
 """
 
 from typing import Optional, Tuple
@@ -25,9 +33,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scae_tpu_torch.kernels.decoder_ll_dense import decoder_ll_dense
 from scae_tpu_torch.kernels.decoder_ll_gather import decoder_ll_gather
 from scae_tpu_torch.models.layers import MLP, choose_activation
 from scae_tpu_torch.models.results import PartDecoderResult, TemplateResult
+from scae_tpu_torch.ops.decoder_ll import fused_decoder_ll
 from scae_tpu_torch.ops.gmm import GaussianMixture
 from scae_tpu_torch.ops.math_ops import log_safe
 from scae_tpu_torch.ops.warp import affine_warp
@@ -99,12 +109,17 @@ class TemplateBasedImageDecoder(nn.Module):
                  use_alpha_channel: bool = False,
                  background_value: bool = True,
                  use_fused_ll: bool = True,
-                 fused_impl: str = "auto"):
+                 fused_impl: str = "auto",
+                 fused_tap_dtype: str = "float32"):
         super().__init__()
-        if fused_impl not in ("auto", "gather"):
+        if fused_impl == "pallas_banded":
             raise NotImplementedError(
-                f"fused_impl={fused_impl!r} is not ported; the port has "
-                "'auto' / 'gather' (kernel K1)")
+                "fused_impl='pallas_banded' (the banded kernels, K5) is not "
+                "ported; the port has 'auto', 'gather', 'pallas' and 'xla'")
+        if fused_impl not in ("auto", "gather", "pallas", "xla"):
+            raise ValueError(f"unknown fused_impl {fused_impl!r}")
+        if fused_tap_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown fused_tap_dtype {fused_tap_dtype!r}")
         self.n_templates = n_templates
         self.template_size = tuple(template_size)
         self.output_size = tuple(output_size)
@@ -112,6 +127,7 @@ class TemplateBasedImageDecoder(nn.Module):
         self.use_alpha_channel = use_alpha_channel
         self.use_fused_ll = use_fused_ll
         self.fused_impl = fused_impl
+        self.fused_tap_dtype = getattr(torch, fused_tap_dtype)
         M = n_templates
         self.bg_value = nn.Parameter(torch.empty(1))
         if use_alpha_channel:
@@ -182,12 +198,16 @@ class TemplateBasedImageDecoder(nn.Module):
             full_presence = presence if presence is not None else \
                 torch.ones((B, M), dtype=templates.dtype,
                            device=templates.device)
-            return decoder_ll_gather(
-                templates.contiguous(), self.templates_alpha,
-                pose.contiguous(), full_presence.contiguous(),
-                torch.sigmoid(self.bg_value)[0],
-                F.softplus(self.bg_mixing_logit)[0], scale,
-                target.contiguous(), self.output_size)[0]
+            args = (templates.contiguous(), self.templates_alpha,
+                    pose.contiguous(), full_presence.contiguous(),
+                    torch.sigmoid(self.bg_value)[0],
+                    F.softplus(self.bg_mixing_logit)[0], scale,
+                    target.contiguous(), self.output_size)
+            if self.fused_impl == "xla":
+                return fused_decoder_ll(*args, self.fused_tap_dtype)
+            if self.fused_impl == "pallas":
+                return decoder_ll_dense(*args)[0]
+            return decoder_ll_gather(*args)[0]
 
         fused = (target is not None and self.use_fused_ll
                  and self.use_alpha_channel and bg_image is None)

@@ -26,8 +26,9 @@ def geometric_transform(pose: torch.Tensor, similarity: bool = False,
         shear = torch.tanh(shear * 5.0)
         theta = theta * (2.0 * math.pi)
     else:
-        scale_x = torch.abs(scale_x) + 1e-2
-        scale_y = torch.abs(scale_y) + 1e-2
+        # |x| as a where: slope +1 at exactly 0, as jnp.abs has it
+        scale_x = torch.where(scale_x >= 0, scale_x, -scale_x) + 1e-2
+        scale_y = torch.where(scale_y >= 0, scale_y, -scale_y) + 1e-2
 
     c, s = torch.cos(theta), torch.sin(theta)
 

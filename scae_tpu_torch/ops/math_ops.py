@@ -34,5 +34,10 @@ def l2_loss(x: torch.Tensor) -> torch.Tensor:
 
 
 def relu1(x: torch.Tensor) -> torch.Tensor:
-    """Saturating ReLU in [0, 1]: relu6(6x)/6 == clip(x, 0, 1)."""
-    return torch.clamp(x, 0.0, 1.0)
+    """Saturating ReLU in [0, 1]: relu6(6x)/6 == clip(x, 0, 1).
+
+    Written with the binary ``maximum`` and ``minimum``, which split a tie
+    evenly, so the gradient at exactly 0 and 1 is 0.5, as ``jnp.clip``'s
+    is; ``torch.clamp``'s is 1 there."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, zero), zero + 1.0)

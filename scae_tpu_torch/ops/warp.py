@@ -16,8 +16,11 @@ with ``Wx[p, b] = relu(1 - |ix(p) - b|)`` and ``Wy[p, a] = relu(1 -
   pixel coords   ix  = ((gx+1)*Wt - 1)/2,  iy = ((gy+1)*Ht - 1)/2
 
 The part decoder uses ``affine_warp`` only to render its components
-(``transformed_templates`` and the alpha logits); its likelihood goes
-through the 4-tap gather kernel in ``kernels/decoder_ll_gather.py``.
+(``transformed_templates`` and the alpha logits) and for the likelihood of
+its unfused paths; the fused likelihood goes through the 4-tap gather
+kernel (``kernels/decoder_ll_gather.py``) or the dense one
+(``kernels/decoder_ll_dense.py``, ``ops/decoder_ll.py``), each with its own
+hand-derived or kernel backward.
 """
 
 import torch
@@ -65,9 +68,19 @@ def bilinear_weight_matrices(pose, template_size, out_size):
     ix, iy = source_coordinates(pose, template_size, out_size)
     cols = torch.arange(Wt, dtype=pose.dtype, device=pose.device)[:, None]
     rows = torch.arange(Ht, dtype=pose.dtype, device=pose.device)[:, None]
-    Wx = torch.clamp(1.0 - torch.abs(ix[..., None, :] - cols), min=0.0)
-    Wy = torch.clamp(1.0 - torch.abs(iy[..., None, :] - rows), min=0.0)
-    return Wx, Wy
+    zero = torch.zeros((), dtype=pose.dtype, device=pose.device)
+    return _tap(ix[..., None, :] - cols, zero), _tap(iy[..., None, :] - rows,
+                                                    zero)
+
+
+def _tap(d, zero):
+    """relu(1 - |d|) with JAX's slopes at the kinks, as
+    ``jnp.maximum(0, 1 - jnp.abs(d))`` has them: the binary ``maximum``
+    splits a tie at |d| = 1 evenly between its two sides, and |d| written
+    as a ``where`` has slope +1 at d = 0, where ``torch.abs`` has 0. A
+    source coordinate that lands on a texel centre or edge (a zero or
+    identity pose) hits both kinks."""
+    return torch.maximum(1.0 - torch.where(d >= 0, d, -d), zero)
 
 
 def affine_warp(templates, pose, out_size):

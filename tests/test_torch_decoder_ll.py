@@ -301,9 +301,19 @@ def test_cpu_tensors_never_reach_the_function(monkeypatch):
 def test_backward_shared_memory_size():
     # K1's 39,840 bytes, plus the gradient table and 7 sums per capsule
     assert k1.bwd_shared_memory_bytes(40, 1, 11, 11) == 79680
-    # a shape whose forward fits in a block and whose backward does not
-    assert k1.shared_memory_bytes(60, 3, 15, 15) <= k1.SMEM_LIMIT
-    assert k1.bwd_shared_memory_bytes(60, 3, 15, 15) > k1.SMEM_LIMIT
+    assert k1.bwd_capsules_per_block(40, 1, 11, 11) == 40   # one group
+    # shapes whose forward fits in a block and whose backward's tables for
+    # all capsules do not: the backward splits the capsules into groups
+    for M, C, Ht, Wt, per_block in ((60, 3, 15, 15, 30),
+                                    (64, 3, 11, 11, 32)):   # cifar10
+        assert k1.shared_memory_bytes(M, C, Ht, Wt) <= k1.SMEM_LIMIT
+        assert k1.bwd_shared_memory_bytes(M, C, Ht, Wt) > k1.SMEM_LIMIT
+        assert k1.bwd_capsules_per_block(M, C, Ht, Wt) == per_block
+        assert k1.bwd_shared_memory_bytes(per_block, C, Ht, Wt) \
+            <= k1.SMEM_LIMIT
+    assert k1.bwd_shared_memory_bytes(64, 3, 11, 11) == 251392
+    # not even one capsule's tables fit
+    assert k1.bwd_capsules_per_block(1, 4, 77, 77) == 0
 
 
 def test_jax_stays_on_cpu():

@@ -1,6 +1,6 @@
-"""K1 (the CUDA gather decoder-likelihood kernel) and K2+K3 (its backward)
-against their plain PyTorch versions, on the card; the flagship eval and
-train steps through them.
+"""K1 (the CUDA gather decoder-likelihood kernel) and K2+K3 (its backward),
+K4f and K4b (the dense ones), against their plain PyTorch versions, on the
+card; the flagship eval and train steps through them.
 
 Needs a CUDA device and nvcc; every test skips without a card. The
 decision is taken inside the ``cuda`` fixture, so every pytest worker
@@ -15,13 +15,15 @@ each worth a few f32 ulps of values of order 10. The backward's outputs:
 1e-4 of each output's largest |entry| (of max(|value|, 1) for the three
 0-d scalar gradients); they are f32 sums over pixels (and, for a shared
 alpha, examples), the kernel's taken through atomics in an order that
-changes from run to run.
+changes from run to run. K4b's the same, and its repeat bit for bit: it
+adds in a fixed order, without atomics.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from scae_tpu_torch.kernels import decoder_ll_dense as k4
 from scae_tpu_torch.kernels import decoder_ll_gather as k1
 from scae_tpu_torch.ops.geometry import geometric_transform
 
@@ -183,6 +185,8 @@ def check_bwd(got, want):
     ((2, 16, 3, 14, 14, 32, 32), 0.6, False),    # colour, > 48 KB shared
     ((3, 8, 2, 7, 9, 20, 28), 0.6, True),        # per-example alpha
     ((8, 40, 1, 11, 11, 40, 40), 0.6, True),     # flagship, per-example alpha
+    ((4, 64, 3, 11, 11, 32, 32), 0.6, False),    # cifar10: two capsule groups
+    ((2, 60, 3, 15, 15, 8, 8), 0.6, True),       # two groups, per-example alpha
 ])
 def test_bwd_kernel_matches_plain(cuda, shape, pose_noise, alpha_batched):
     inputs = make_inputs(shape, pose_noise=pose_noise,
@@ -257,8 +261,9 @@ def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
         k1.decoder_ll_gather_bwd(g, num.double(), den, *args)
     with pytest.raises(ValueError, match="den is on cpu"):
         k1.decoder_ll_gather_bwd(g, num, den.cpu(), *args)
-    # the forward fits in a block's shared memory, the backward does not
-    g, args = bwd_args(make_inputs((1, 60, 3, 15, 15, 8, 8)), cuda)
+    # the forward fits in a block's shared memory, the backward's tables
+    # do not, even for one capsule per block
+    g, args = bwd_args(make_inputs((1, 1, 4, 77, 77, 8, 8)), cuda)
     _, num, den = k1.decoder_ll_gather(*args)
     with pytest.raises(ValueError, match="backward's capsule and gradient"):
         k1.decoder_ll_gather_bwd(g, num, den, *args)
@@ -307,3 +312,134 @@ def test_flagship_train_step_runs_through_kernels(cuda):
     moved = [not torch.equal(a, b) for a, b in zip(before,
                                                    model.parameters())]
     assert sum(moved) > len(moved) // 2
+
+
+# ------------------------------------------------------------ K4f and K4b
+
+DENSE_SHAPES = [
+    ((8, 40, 1, 11, 11, 40, 40), 0.6, False),    # flagship widths
+    ((4, 13, 1, 5, 5, 24, 24), 4.0, False),      # extreme poses, M = 13
+    ((2, 16, 3, 14, 14, 32, 32), 0.6, False),    # colour
+    ((3, 8, 2, 7, 9, 20, 28), 0.6, True),        # per-example alpha
+    ((2, 6, 1, 17, 17, 24, 24), 0.6, False),     # 289 texels: gather refuses
+    ((2, 5, 3, 9, 9, 3000, 1), 0.6, False),      # two pixel chunks in K4b
+]
+
+
+@pytest.mark.parametrize("shape,pose_noise,alpha_batched", DENSE_SHAPES)
+def test_dense_kernels_match_plain(cuda, shape, pose_noise, alpha_batched):
+    inputs = make_inputs(shape, pose_noise=pose_noise,
+                         alpha_batched=alpha_batched)
+    if pose_noise > 1.0:
+        inputs["presence"][:, ::3] = 0.0
+    g, args = bwd_args(inputs, cuda)
+    got = k4.decoder_ll_dense_fwd(*args)
+    torch.cuda.synchronize()
+    want = k4.decoder_ll_dense_plain(*args)
+    assert all(torch.isfinite(x).all() for x in got)
+    assert max_err(got, want) < TOL
+    _, num, den = got
+    got = k4.decoder_ll_dense_bwd(g, num, den, *args)
+    again = k4.decoder_ll_dense_bwd(g, num, den, *args)
+    torch.cuda.synchronize()
+    check_bwd(got, k4.decoder_ll_dense_bwd_plain(g, num, den, *args))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)        # no atomics: the same bits
+    part = k4.decoder_ll_dense_bwd(g, num, den, *args, target_grad=False)
+    assert part[7] is None
+    for a, b in zip(part[:7], got[:7]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["identity", "zero"])
+def test_dense_kernels_match_plain_on_texel_centres(cuda, kind):
+    """Coordinates on texel centres and edges, where the tap derivative
+    (-sign, 0 at a centre) has its kinks."""
+    inputs = make_inputs((2, 5, 1, 5, 5, 5, 5), seed=4)
+    one = [1, 0, 0, 0, 1, 0] if kind == "identity" else [0] * 6
+    inputs["pose"] = torch.tensor(one, dtype=torch.float32).repeat(2, 5, 1)
+    g, args = bwd_args(inputs, cuda)
+    got = k4.decoder_ll_dense_fwd(*args)
+    assert max_err(got, k4.decoder_ll_dense_plain(*args)) < TOL
+    _, num, den = got
+    check_bwd(k4.decoder_ll_dense_bwd(g, num, den, *args),
+              k4.decoder_ll_dense_bwd_plain(g, num, den, *args))
+
+
+def test_dense_function_matches_plain_autograd(cuda):
+    inputs = make_inputs((4, 10, 1, 7, 7, 20, 20), seed=3)
+    inputs["bg_value"] = inputs["bg_value"].reshape(1)
+    results = []
+    for device in (cuda, "cpu"):
+        leaves = {k: v.to(device).contiguous().requires_grad_(k != "target")
+                  for k, v in inputs.items()}
+        call(k4.decoder_ll_dense, leaves, (20, 20))[0].mean().backward()
+        results.append([leaves[k].grad for k in
+                        ("templates", "alpha", "pose", "presence",
+                         "bg_value", "bg_mixing_logit", "scale")])
+    for name, a, b in zip(GRAD_NAMES, *results):
+        scale = max(float(b.abs().max()), 1.0 if b.numel() == 1 else 0.0)
+        assert a.shape == b.shape, name
+        assert float((a.cpu() - b).abs().max()) <= BWD_TOL * scale, name
+
+
+def test_dense_kernels_count_launches(cuda):
+    g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
+    k4.launches = k4.bwd_launches = 0
+    _, num, den = k4.decoder_ll_dense_fwd(*args)
+    k4.decoder_ll_dense_bwd(g, num, den, *args)
+    k4.decoder_ll_dense_bwd(g, num, den, *args, target_grad=False)
+    assert (k4.launches, k4.bwd_launches) == (1, 2)
+    k4.decoder_ll_dense_plain(*args)
+    k4.decoder_ll_dense_bwd_plain(g, num, den, *args)
+    assert (k4.launches, k4.bwd_launches) == (1, 2)
+
+
+def test_dense_kernels_reject_what_they_do_not_take(cuda):
+    g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
+    bad = list(args)
+    bad[7] = args[7].double()
+    with pytest.raises(TypeError, match="target must be float32"):
+        k4.decoder_ll_dense_fwd(*bad)
+    _, num, den = k4.decoder_ll_dense_fwd(*args)
+    with pytest.raises(ValueError, match="den is on cpu"):
+        k4.decoder_ll_dense_bwd(g, num, den.cpu(), *args)
+    big = make_inputs((1, 2, 4, 120, 120, 8, 8))
+    with pytest.raises(ValueError, match="shared memory"):
+        run(k4.decoder_ll_dense_fwd, big, cuda, (8, 8))
+
+
+@pytest.mark.parametrize("source", [k4.SOURCE, k4.BWD_SOURCE])
+def test_dense_kernel_build_reports_registers(cuda, source):
+    info = k4.build_info(source)
+    assert info.path.endswith(".so")
+    assert "registers" in info.log or info.cached
+
+
+def test_flagship_pallas_train_step_runs_through_dense_kernels(cuda):
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
+    from scae_tpu_torch.optim import make_optimizer
+    from scae_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_raw_eval_step,
+        make_raw_train_step,
+    )
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    params = dict(FLAGSHIP_MODEL_PARAMS,
+                  pcae_decoder_params=dict(fused_impl="pallas"))
+    model = make_scae(params, device=cuda, seed=0)
+    state = TrainState(model, make_optimizer(model.parameters(), "rmsprop",
+                                             3e-5, batch_size=16))
+    step = make_raw_train_step(state, make_augment_fn(40, 6), device=cuda)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (16, 28, 28)).astype(np.uint8)
+    labels = rng.randint(0, 10, (16,))
+    k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
+    metrics = step(images, labels)
+    make_raw_eval_step(model, canvas=40, device=cuda)(images, labels)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.bwd_launches) == (2, 1)
+    assert (k1.launches, k1.bwd_launches) == (0, 0)
+    for name, v in metrics.items():
+        assert np.isfinite(float(v)), name

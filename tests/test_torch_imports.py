@@ -29,7 +29,9 @@ def port_modules():
 
 def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
     modules = port_modules() + ["chip_smoke"]
-    assert "scae_tpu_torch.kernels.decoder_ll_gather" in modules
+    for name in ("kernels.decoder_ll_gather", "kernels.decoder_ll_dense",
+                 "ops.decoder_ll"):
+        assert f"scae_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, os, sys
         for name in {BLOCKED!r}:

@@ -379,12 +379,31 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="reconstruct_alternatives"):
         t_factory.make_scae(dict(t_factory.FLAGSHIP_MODEL_PARAMS,
                                  scae_params={}), device="cpu")
-    for impl in ("pallas", "pallas_banded", "xla"):
-        with pytest.raises(NotImplementedError, match=impl):
-            t_pd.TemplateBasedImageDecoder(4, (5, 5), (8, 8),
-                                           fused_impl=impl)
-    with pytest.raises(NotImplementedError, match="fused_tap_dtype"):
-        t_factory.make_scae(dict(
-            t_factory.FLAGSHIP_MODEL_PARAMS,
-            pcae_decoder_params=dict(fused_tap_dtype="bfloat16")),
-            device="cpu")
+    # the banded kernels (K5) are the one implementation left to port
+    with pytest.raises(NotImplementedError, match="pallas_banded.*K5"):
+        t_pd.TemplateBasedImageDecoder(4, (5, 5), (8, 8),
+                                       fused_impl="pallas_banded")
+    with pytest.raises(ValueError, match="unknown fused_impl"):
+        t_pd.TemplateBasedImageDecoder(4, (5, 5), (8, 8), fused_impl="mxu")
+    for impl in ("auto", "gather", "pallas", "xla"):
+        t_pd.TemplateBasedImageDecoder(4, (5, 5), (8, 8), fused_impl=impl)
+    # bfloat16 taps, as the shipped mnist and cifar10 configs set them
+    model = t_factory.make_scae(dict(
+        t_factory.FLAGSHIP_MODEL_PARAMS,
+        pcae_decoder_params=dict(fused_tap_dtype="bfloat16",
+                                 fused_impl="xla")), device="cpu")
+    assert model.part_decoder.fused_tap_dtype == torch.bfloat16
+
+
+def test_cifar10_params_match_shipped_yaml():
+    """The port's CIFAR10_MODEL_PARAMS build the model that
+    scae_tpu/configs/model/cifar10.yaml builds in the JAX package, on every
+    field the port reads for it."""
+    from scae_tpu.config import load_config
+
+    yaml_params = load_config("config", ["model=cifar10"])["model"]
+    want = dataclasses.asdict(j_factory.prepare_model_config(**yaml_params))
+    got = dataclasses.asdict(t_factory.prepare_model_config(
+        **t_factory.CIFAR10_MODEL_PARAMS))
+    assert got == want
+    assert (got["n_part_caps"], got["image_shape"]) == (64, (3, 32, 32))

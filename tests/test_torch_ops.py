@@ -243,5 +243,85 @@ def test_qkv_attention_golden():
           g["out_masked"])
 
 
+# ------------------------------------------------------- slopes at the kinks
+# A source coordinate on a texel centre or edge, and relu1 at exactly 0 or
+# 1, sit on kinks, where each framework's slope rule decides the gradient;
+# the port follows JAX's. Gradients within 1e-5 of their largest entry.
+
+def _warp_grads(mod, templates, pose, g, out_size, lib):
+    if lib == "jax":
+        def loss(t, p):
+            return jnp.sum(mod.affine_warp(t, p, out_size) * g)
+        return [np.asarray(x) for x in jax.grad(loss, argnums=(0, 1))(
+            jnp.asarray(templates), jnp.asarray(pose))]
+    t = torch.from_numpy(templates.copy()).requires_grad_()
+    p = torch.from_numpy(pose.copy()).requires_grad_()
+    (mod.affine_warp(t, p, out_size) * torch.from_numpy(g)).sum().backward()
+    return [t.grad.numpy(), p.grad.numpy()]
+
+
+@pytest.mark.parametrize("kind,out_size", [("zero", (8, 8)),
+                                           ("identity", (5, 5))])
+def test_warp_gradient_at_texel_centres_matches_jax(kind, out_size):
+    rng = np.random.RandomState(11)
+    templates = rng.rand(2, 3, 1, 5, 5).astype(np.float32)
+    one = [1, 0, 0, 0, 1, 0] if kind == "identity" else [0] * 6
+    pose = np.tile(np.asarray(one, np.float32), (2, 3, 1))
+    g = rng.randn(2, 3, 1, *out_size).astype(np.float32)
+    got = _warp_grads(t_warp, templates, pose, g, out_size, "torch")
+    want = _warp_grads(j_warp, templates, pose, g, out_size, "jax")
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-5 * float(np.abs(b).max()))
+
+
+def test_geometric_transform_gradient_at_zero_scale_matches_jax():
+    # nonlinear=False takes |scale| + 1e-2; a scale of exactly 0 is the kink
+    pose = np.asarray([[0.0, 0.0, 0.3, 0.1, 0.2, -0.4],
+                       [0.5, -0.7, 0.0, 0.0, 0.0, 0.0]], np.float32)
+    w = np.random.RandomState(12).randn(2, 6).astype(np.float32)
+    want = jax.grad(lambda p: jnp.sum(j_geometry.geometric_transform(
+        p, nonlinear=False) * w))(jnp.asarray(pose))
+    p = torch.from_numpy(pose.copy()).requires_grad_()
+    (t_geometry.geometric_transform(p, nonlinear=False)
+     * torch.from_numpy(w)).sum().backward()
+    close(p.grad, want)
+
+
+def test_relu1_gradient_at_its_kinks_matches_jax():
+    x = np.asarray([-0.5, 0.0, 0.5, 1.0, 1.5], np.float32)
+    want = jax.vmap(jax.grad(j_math.relu1))(jnp.asarray(x))
+    t = torch.from_numpy(x.copy()).requires_grad_()
+    t_math.relu1(t).sum().backward()
+    np.testing.assert_array_equal(t.grad.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(t.grad.numpy(), [0, 0.5, 1, 0.5, 0])
+    close(t_math.relu1(torch.from_numpy(x)), j_math.relu1(jnp.asarray(x)))
+
+
+def test_template_generator_relu1_gradient_matches_jax():
+    """The QR init is min-max normalised, so one texel sits at exactly 0 and
+    one at exactly 1, relu1's two kinks."""
+    from scae_tpu.models import part_decoder as j_pd
+    from scae_tpu_torch.models import part_decoder as t_pd
+    from scae_tpu_torch.utils.from_flax import load_flax_params
+
+    args = dict(n_templates=8, n_channels=1, template_size=(5, 5),
+                template_nonlin="relu1")
+    jm, tm = j_pd.TemplateGenerator(**args), t_pd.TemplateGenerator(**args)
+    params = jm.init(jax.random.PRNGKey(0), batch_size=2)["params"]
+    logits = np.asarray(params["template_logits"])
+    assert logits.min() == 0.0 and logits.max() == 1.0
+    w = np.random.RandomState(13).randn(2, 8, 1, 5, 5).astype(np.float32)
+
+    def loss(p):
+        out = jm.apply({"params": p}, batch_size=2)
+        return jnp.sum(out.templates * w)
+
+    want = jax.grad(loss)(params)["template_logits"]
+    load_flax_params(tm, jax.tree_util.tree_map(np.asarray, params))
+    (tm(batch_size=2).templates * torch.from_numpy(w)).sum().backward()
+    close(tm.template_logits.grad, want)
+
+
 def test_jax_stays_on_cpu():
     assert jax.default_backend() == "cpu"

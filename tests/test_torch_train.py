@@ -3,8 +3,10 @@ decoder likelihood and its backward take their plain versions):
 
   * one train step of ``make_raw_train_step`` against scae_tpu's, from the
     same flax-initialised weights carried across by from_flax.py, with the
-    noise configured off: the loss, every term, the accuracy and every
-    parameter's gradient; then the RMSprop update from identical gradients;
+    noise configured off, through the gather likelihood and through the
+    dense one (``fused_impl="pallas"``): the loss, every term, the accuracy
+    and every parameter's gradient; then the RMSprop update from identical
+    gradients;
   * ``make_fused_train_step`` against ``make_raw_train_step``;
   * ``random_translate`` and ``random_affine`` fed JAX's own draws, and the
     augment and centre-pad functions;
@@ -105,7 +107,11 @@ class Recording(RMSprop):
         super().step(grads)
 
 
-def test_train_step_matches(bridged):
+@pytest.mark.parametrize("fused_impl", ["auto", "pallas"])
+def test_train_step_matches(bridged, fused_impl):
+    """The port's decoder likelihood through the gather path ("auto") or
+    the dense one ("pallas"; K4's plain version on the CPU) against the JAX
+    step, whose CPU path is the f32 XLA likelihood."""
     mp, jm, params = bridged
     images, labels = batch()
 
@@ -126,7 +132,8 @@ def test_train_step_matches(bridged):
     j_grads = flax_to_state_dict(jax.tree_util.tree_map(
         np.asarray, jax.jit(jax.grad(lf))(params)))
 
-    tm = t_make_scae(mp, device="cpu")
+    tm = t_make_scae(dict(mp, pcae_decoder_params=dict(
+        fused_impl=fused_impl)), device="cpu")
     load_flax_params(tm, params)
     rec = Recording(tm.parameters(), LR, decay=0.99,
                     eps=1e-2 / B ** 2, momentum=0.9)
