@@ -16,7 +16,14 @@ Phases, each announced when it starts and when it ends, with its seconds:
           backward (also at the cifar10 shape, M=64, C=3, whose capsules
           it splits over two blocks); K4f and K4b the dense forward and
           backward (fused_impl="pallas"), also at the identity and zero
-          poses and at a 17x17 template, K4b run twice for the same bits
+          poses and at a 17x17 template, K4b run twice for the same bits;
+          K5f and K5b the banded ones (fused_impl="pallas_banded") at the
+          flagship, cifar10, M=13, edge and off-canvas poses (empty row
+          windows), identity and zero poses, 17x17 templates and
+          per-example alpha, K5b twice for the same bits; K6 the set
+          attention at the flagship's two shapes, with soft presences and
+          with a set whose presence is all 0, twice for the same bits,
+          beside PyTorch's scaled_dot_product_attention on the same inputs
   slice   the flagship SCAE (1x40x40, M=40, O=32, 11x11 templates), built
           on the card from a seeded generator, through the eval step and
           the infer function at batch 128; the kernels' launch counts over
@@ -32,6 +39,10 @@ Phases, each announced when it starts and when it ends, with its seconds:
           device memory
   pallas  the same train phase with fused_impl="pallas" (K4f and K4b in
           place of K1 and K2+K3), and its eval step at batch 128
+  banded  the same train phase with fused_impl="pallas_banded" (K5f and
+          K5b) and the set transformer's use_pallas_attention (K6, four
+          launches per step: three set-attention blocks and the final
+          attention), and its eval step at batch 128
   cifar10 one train step of the shipped cifar10 model (3x32x32, M=64) with
           noise off at batch 32 on the card and on the CPU, through K1 and
           K2+K3
@@ -172,25 +183,66 @@ def kernel_device_ms(torch, fn, kernel, iters=200, warmup=20):
     """Device time per launch of the CUDA kernel whose name contains
     ``kernel``, over ``iters`` calls of ``fn``, from torch.profiler: the
     kernel alone, without the wrapper's checks and allocations on the host
-    or its small PyTorch kernels (zeroing, the alpha sum) on the card."""
+    or its small PyTorch kernels (zeroing, the alpha sum) on the card.
+
+    The time is the mean over the launches the profiler recorded. On the
+    card's machine it now and then records fewer than were made (windows
+    of 200 launches have read 193 to 199 of one kernel); such a window is
+    reported with the positions of the launches that lack a record
+    (``unrecorded_launches``), and one that recorded none, or more than
+    ``iters``, is an error. A small fill kernel opens and closes the
+    window."""
     from torch.profiler import ProfilerActivity, profile
 
+    marker = torch.empty(1, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        marker.zero_()
         for _ in range(iters):
             fn()
+        marker.zero_()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if kernel in e.key]
     count = sum(e.count for e in events)
-    if count != iters:
-        raise RuntimeError(f"the profiler saw {count} launches of {kernel}, "
-                           f"expected {iters}")
+    if not 0 < count <= iters:
+        raise RuntimeError(f"{count} profiler records match {kernel} over "
+                           f"{iters} launches")
+    if count < iters:
+        say(f"the profiler recorded {count} of the {iters} launches of "
+            f"{kernel}; the time is the mean over those {count}. "
+            f"{unrecorded_launches(torch, prof)}")
     total_us = sum(getattr(e, "device_time_total", None)
                    or getattr(e, "cuda_time_total", 0.0) for e in events)
     return total_us / count / 1e3
+
+
+def unrecorded_launches(torch, prof):
+    """Which kernel launches of a profiler window have no device record:
+    their positions, in launch order, among all the window's launches
+    (the opening fill kernel is the first), from the runtime calls'
+    correlation ids."""
+    try:
+        raw = list(prof.profiler.kineto_results.events())
+    except AttributeError:
+        return "Which launches lack a record is not known here."
+    cuda = torch.autograd.DeviceType.CUDA
+    recorded = {e.correlation_id() for e in raw if e.device_type() == cuda}
+    launches = sorted((e for e in raw if e.name() == "cudaLaunchKernel"),
+                      key=lambda e: e.start_ns())
+    lost = [i for i, e in enumerate(launches)
+            if e.correlation_id() not in recorded]
+    spans = []
+    for i in lost:
+        if spans and spans[-1][1] == i - 1:
+            spans[-1][1] = i
+        else:
+            spans.append([i, i])
+    where = ", ".join(f"{a}" if a == b else f"{a}-{b}" for a, b in spans)
+    return (f"{len(lost)} of the window's {len(launches)} kernel launches "
+            f"have no device record: {where or 'none'}.")
 
 
 def kernel_phase(torch, card):
@@ -534,6 +586,267 @@ def dense_kernel_phase(torch, card):
     return rows
 
 
+# ------------------------------------------------------------ K5f, K5b
+
+def banded_kernel_phase(torch, card):
+    """K5f and K5b against their plain version (ops/decoder_ll.py with f32
+    taps, the y-taps masked by the row windows) on the wrapper's sorted,
+    padded inputs, at the main path's shape and at edge shapes, K5b twice
+    for the same bits; their times."""
+    import numpy as np
+
+    from scae_tpu_torch.kernels import decoder_ll_banded as k5
+
+    identity, zero = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0], [0.0] * 6
+    cases = [
+        # (name, shape, pose noise, edge, per-example alpha, fixed pose)
+        ("flagship", FLAGSHIP_SHAPE, 0.6, False, False, None),
+        ("cifar10: M=64, C=3, 4 bands", (BATCH,) + CIFAR10_SHAPE[1:], 0.6,
+         False, False, None),
+        ("edge: raw pose noise 4.0, zero presences, degenerate poses, M=13 "
+         "(padded to 16)", (BATCH, 13, 1, 11, 11, 40, 40), 4.0, True, False,
+         None),
+        ("off canvas: every row window empty", (BATCH, 40, 1, 11, 11, 40, 40),
+         0.6, False, False, [1.0, 0.0, 3.0, 0.0, 1.0, 3.0]),
+        ("identity pose, 11x11 canvas: coordinates at texel centres",
+         (BATCH, 40, 1, 11, 11, 11, 11), 0.6, False, False, identity),
+        ("zero pose: every coordinate the template's centre",
+         FLAGSHIP_SHAPE, 0.6, False, False, zero),
+        ("17x17 templates", (32, 40, 1, 17, 17, 40, 40), 0.6, False, False,
+         None),
+        ("per-example alpha", FLAGSHIP_SHAPE, 0.6, False, True, None),
+    ]
+    errs = {}
+    for name, shape, noise, edge, alpha_batched, fixed in cases:
+        args = k1_inputs(torch, shape, seed=1, pose_noise=noise, edge=edge,
+                         alpha_batched=alpha_batched, fixed_pose=fixed)
+        args = (*k5.sort_and_pad(*args[:4]), *args[4:])
+        B, C, H, W = shape[0], shape[2], shape[5], shape[6]
+        win = k5.h_windows(args[2], shape[3], H, W, k5.band_rows(H, W))
+        trips = win[..., 1].float()
+        got = k5.decoder_ll_banded_fwd(*args)
+        torch.cuda.synchronize()
+        want = k5.decoder_ll_banded_plain(*args)
+        for x in got:
+            if not bool(torch.isfinite(x).all()):
+                raise RuntimeError(f"K5f {name}: non-finite output")
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        say(f"K5f {name} {shape}: {tuple(win.shape[1:3])} bands x groups, "
+            f"window rows mean {float(trips.mean()):.2f} of {shape[3]}, "
+            f"{int((trips == 0).sum())} empty windows, shared memory "
+            f"{k5.shared_memory_bytes(*shape[2:5])} B, max abs err "
+            f"{err:.3e} (tolerance {KERNEL_TOL:.0e}) [{card}]")
+        if not err < KERNEL_TOL:
+            raise RuntimeError(f"K5f {name}: max abs err {err} exceeds "
+                               f"{KERNEL_TOL}")
+        errs.setdefault("fwd", err)
+
+        g = torch.from_numpy(np.random.RandomState(3).randn(
+            B, C, H, W).astype(np.float32) / B).cuda()
+        _, num, den = got
+        out = k5.decoder_ll_banded_bwd(g, num, den, *args)
+        again = k5.decoder_ll_banded_bwd(g, num, den, *args)
+        torch.cuda.synchronize()
+        ref = k5.decoder_ll_banded_bwd_plain(g, num, den, *args)
+        worst = 0.0
+        for grad_name, a, b, c in zip(GRAD_NAMES, out, ref, again):
+            if not bool(torch.isfinite(a).all()):
+                raise RuntimeError(f"K5b {name}: non-finite {grad_name}")
+            if not torch.equal(a, c):
+                raise RuntimeError(f"K5b {name}: d{grad_name} differs "
+                                   "between two runs on the same inputs")
+            scale = float(b.abs().max())
+            if b.dim() == 0:
+                scale = max(scale, 1.0)
+            gerr = float((a - b).abs().max())
+            tol = BWD_TOL * scale
+            if not gerr <= tol:
+                raise RuntimeError(f"K5b {name}: d{grad_name} max abs err "
+                                   f"{gerr} exceeds {tol}")
+            worst = max(worst, gerr / scale if scale else gerr)
+        say(f"K5b {name} {shape}: shared memory "
+            f"{k5.bwd_shared_memory_bytes(*shape[2:7])} B, worst err "
+            f"{worst:.3e} of each gradient's largest |entry| (tolerance "
+            f"{BWD_TOL:.0e}), a second run bit-identical [{card}]")
+        errs.setdefault("bwd", max(float((a - b).abs().max())
+                                   for a, b in zip(out, ref)))
+
+    raw = k1_inputs(torch, FLAGSHIP_SHAPE, seed=2)
+    args = (*k5.sort_and_pad(*raw[:4]), *raw[4:])
+    ms = kernel_device_ms(torch, lambda: k5.decoder_ll_banded_fwd(*args),
+                          "decoder_ll_banded_fwd_kernel")
+    plain_ms = time_cuda(torch, lambda: k5.decoder_ll_banded_plain(*args),
+                         iters=10, warmup=2)
+    # the same function on the same inputs as K1's and K4f's: their count
+    bound_ms, bound_by, n_bytes, ops = k1_bound_ms(FLAGSHIP_SHAPE)
+    say(f"K5f flagship time: kernel {ms:.4f} ms (device time per launch over "
+        f"200 launches, torch.profiler), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.2f} us by {bound_by} ({n_bytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.3f} GFLOP: K1's count), library_ms: none, roofline "
+        f"share {bound_ms / ms:.1%} [{card}]")
+    rows = [dict(name="decoder_ll_banded_fwd", route="cuda",
+                 source="scae_tpu_torch/csrc/decoder_ll_banded.cu",
+                 replaces="scae_tpu/ops/pallas_decoder_ll_banded.py:523",
+                 launches=None, max_abs_err=errs["fwd"], ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None)]
+
+    # the main path's call: upstream gradient -1/B, no target gradient
+    _, num, den = k5.decoder_ll_banded_fwd(*args)
+    g = torch.full((BATCH, 1, 40, 40), -1.0 / BATCH, device="cuda")
+
+    def main_path_call():
+        return k5.decoder_ll_banded_bwd(g, num, den, *args,
+                                        target_grad=False)
+
+    ms = kernel_device_ms(torch, main_path_call,
+                          "decoder_ll_banded_bwd_kernel")
+    plain_ms = time_cuda(torch, lambda: k5.decoder_ll_banded_bwd_plain(
+        g, num, den, *args, target_grad=False), iters=10, warmup=2)
+    # K2+K3's and K4b's count on the unsorted inputs: the same function
+    bound_ms, bound_by, n_bytes, ops, n_hit = bwd_bound_ms(
+        torch, raw, target_grad=False)
+    win = k5.h_windows(args[2], 11, 40, 40, k5.band_rows(40, 40))
+    scan = 8 * 11 * int(win[..., 1].sum()) * 320
+    say(f"K5b flagship time: kernel {ms:.4f} ms (device time per launch "
+        f"over 200 launches, torch.profiler), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.2f} us by {bound_by} ({n_bytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.3f} GFLOP: bwd_bound_ms's count, {n_hit} of "
+        f"{BATCH * 40 * 1600} capsule-pixel pairs touch their template; the "
+        f"texel scan's {scan / 1e9:.3f} G tests over the windows' rows not "
+        f"counted), library_ms: none, roofline share {bound_ms / ms:.1%} "
+        f"[{card}]")
+    rows.append(dict(name="decoder_ll_banded_bwd", route="cuda",
+                     source="scae_tpu_torch/csrc/decoder_ll_banded_bwd.cu",
+                     replaces="scae_tpu/ops/pallas_decoder_ll_banded.py:549",
+                     launches=None, max_abs_err=errs["bwd"], ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=None))
+    return rows
+
+
+# ------------------------------------------------------------------ K6
+
+ATTENTION_SHAPES = (   # (B*H, N, M, d_k, d_v) of the flagship's attentions
+    ("set-attention block (x3 per step)", (BATCH, 40, 40, 16, 16)),
+    ("final attention (x1 per step)", (BATCH, 32, 40, 256, 256)),
+)
+
+
+def attention_bound_ms(shape):
+    """Least time of K6 on the card: the larger of bytes moved over the
+    memory rate and f32 operations over the f32 rate.
+
+    Bytes: Q, K, V and presence read once, the output written once.
+    Operations: 2 d_k per score (its dot product), 4 per score for the
+    mask and the scaling (1 - p, times 1e9, subtract, divide), 5 per score
+    for the softmax (max, subtract, exp, sum, divide), 2 d_v per score for
+    the weighted sum of the values.
+    """
+    B, N, M, dk, dv = shape
+    n_bytes = 4 * (B * N * dk + B * M * dk + B * M * dv + B * M + B * N * dv)
+    ops = B * N * M * (2 * dk + 9 + 2 * dv)
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), n_bytes, ops
+
+
+ATTENTION_PRESENCES = {  # kind: what it checks
+    "soft": "soft presences (one-hot softmax: the 1e9 penalties of "
+            "presences in [0, 1) dwarf every score)",
+    "zero": "one set all absent (uniform weights, no NaN)",
+    "ones": "all present, as qkv_attention builds for no presence (the "
+            "weights follow the scores)",
+    "binary": "presences 0 or 1 (the weights follow the scores)",
+    "near one": "presences 1 or the two f32 values below it (penalties 60 "
+                "and 119: the order of mask and scale shows at d_k 256)",
+}
+
+
+def attention_inputs(torch, shape, seed, kind):
+    """Q, K, V from N(0, 1) and (B, M) presences of one kind of
+    ``ATTENTION_PRESENCES``, on the card."""
+    import numpy as np
+
+    B, N, M, dk, dv = shape
+    rng = np.random.RandomState(seed)
+    p = rng.rand(B, M)
+    if kind == "zero":
+        p[0] = 0.0
+    elif kind == "ones":
+        p = np.ones((B, M))
+    elif kind == "binary":
+        p = (p < 0.5).astype(np.float64)
+    elif kind == "near one":
+        p = 1.0 - np.floor(p * 3) * 2.0 ** -24
+    return [torch.from_numpy(np.asarray(a, np.float32)).cuda() for a in
+            (rng.randn(B, N, dk), rng.randn(B, M, dk), rng.randn(B, M, dv),
+             p)]
+
+
+def attention_kernel_phase(torch, card):
+    """K6 against its plain version at the flagship's two shapes, under
+    each kind of presence of ``ATTENTION_PRESENCES``, twice for the same
+    bits; its time, the plain version's, and that of PyTorch's
+    scaled_dot_product_attention on the same inputs (the library column,
+    never called by the port)."""
+    from scae_tpu_torch.kernels import attention as k6
+
+    worst, times = 0.0, {}
+    for label, shape in ATTENTION_SHAPES:
+        for kind, what in ATTENTION_PRESENCES.items():
+            args = attention_inputs(torch, shape, 1, kind)
+            got = k6.attention(*args)
+            again = k6.attention(*args)
+            torch.cuda.synchronize()
+            want = k6.attention_plain(*args)
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"K6 {label}: non-finite output")
+            if not torch.equal(got, again):
+                raise RuntimeError(f"K6 {label}: two runs differ")
+            err = float((got - want).abs().max())
+            say(f"K6 {label} {shape}, {what}: shared memory "
+                f"{k6.shared_memory_bytes(*shape[1:])} B, max abs err "
+                f"{err:.3e} (tolerance {KERNEL_TOL:.0e}), a second run "
+                f"bit-identical [{card}]")
+            if not err < KERNEL_TOL:
+                raise RuntimeError(f"K6 {label}: max abs err {err} exceeds "
+                                   f"{KERNEL_TOL}")
+            worst = max(worst, err)
+        args = attention_inputs(torch, shape, 2, "binary")
+        q, k, v, p = args
+        mask = (-(1.0 - p) * 1e9 / math.sqrt(shape[3]))[:, None, :] \
+            .expand(shape[0], shape[1], shape[2]).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sdpa_err = float((sdpa(q, k, v, attn_mask=mask)
+                          - k6.attention_plain(*args)).abs().max())
+        ms = kernel_device_ms(torch, lambda: k6.attention(*args),
+                              "attention_fwd_kernel")
+        plain_ms = time_cuda(torch, lambda: k6.attention_plain(*args),
+                             iters=50, warmup=5)
+        library_ms = time_cuda(torch, lambda: sdpa(q, k, v, attn_mask=mask),
+                               iters=200, warmup=20)
+        bound_ms, bound_by, n_bytes, ops = attention_bound_ms(shape)
+        say(f"K6 {label} time: kernel {ms:.4f} ms (device time per launch "
+            f"over 200 launches, torch.profiler), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms (200 calls, "
+            f"CUDA events, TF32 off, max abs diff from the plain version "
+            f"{sdpa_err:.3e}), bound {bound_ms * 1e3:.2f} us by {bound_by} "
+            f"({n_bytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP), roofline "
+            f"share {bound_ms / ms:.1%} [{card}]")
+        times[label] = (ms, plain_ms, library_ms, bound_ms, bound_by)
+    # the row: the final attention, the largest of the four launches
+    ms, plain_ms, library_ms, bound_ms, bound_by = times[
+        ATTENTION_SHAPES[1][0]]
+    return dict(name="attention_fwd", route="cuda",
+                source="scae_tpu_torch/csrc/attention.cu",
+                replaces="scae_tpu/ops/pallas_attention.py:99",
+                launches=None, max_abs_err=worst, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 # --------------------------------------------------------------- slice
 
 def slice_phase(torch, card, rows):
@@ -638,23 +951,30 @@ def slice_phase(torch, card, rows):
 
 # --------------------------------------------------------------- train
 
-KERNELS = ("K1", "K2+K3", "K4f", "K4b")   # in the order of the kernel rows
+# in the order of the kernel rows
+KERNELS = ("K1", "K2+K3", "K4f", "K4b", "K5f", "K5b", "K6")
 
 
 def kernel_counts():
     """Every kernel's launch count, by kernel id."""
+    from scae_tpu_torch.kernels import attention as k6
+    from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
 
     return {"K1": k1.launches, "K2+K3": k1.bwd_launches,
-            "K4f": k4.launches, "K4b": k4.bwd_launches}
+            "K4f": k4.launches, "K4b": k4.bwd_launches,
+            "K5f": k5.launches, "K5b": k5.bwd_launches, "K6": k6.launches}
 
 
 def zero_kernel_counts():
+    from scae_tpu_torch.kernels import attention as k6
+    from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
 
     k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
+    k5.launches = k5.bwd_launches = k6.launches = 0
 
 
 def check_kernel_counts(card, rows, what, expected):
@@ -672,11 +992,13 @@ def check_kernel_counts(card, rows, what, expected):
             row["launches"] = (row["launches"] or 0) + counts[k]
 
 
-def train_state(torch, device, noise, model_params):
+def train_state(torch, device, noise, model_params, attention=False):
     """The model from seed 0 on ``device`` with the harness' optimizer:
     RMSprop, lr 3e-5, momentum 0.9, eps 1e-2/B^2, the learning rate times
     0.997 per epoch of 55,000 MNIST training images. Without ``noise`` the
-    presence noise of both encoders is off."""
+    presence noise of both encoders is off. ``attention``: the set
+    transformer's use_pallas_attention on (K6), set on the built model as
+    the JAX package's testing-only flag is (the factory has no knob)."""
     from scae_tpu_torch.factory import make_scae
     from scae_tpu_torch.optim import make_optimizer
     from scae_tpu_torch.parallel.train_step import TrainState
@@ -688,6 +1010,7 @@ def train_state(torch, device, noise, model_params):
             ocae_decoder_capsule_params=dict(noise_type=None,
                                              noise_scale=0.0))
     model = make_scae(params, device=device, seed=0)
+    model.obj_encoder.use_pallas_attention = attention
     opt = make_optimizer(model.parameters(), "rmsprop", 3e-5,
                          batch_size=BATCH, momentum=0.9,
                          lr_decay_rate=0.997, decay_steps=55000 // BATCH)
@@ -708,7 +1031,7 @@ def keep_gradients(state):
 
 
 def card_vs_cpu_step(torch, card, tag, model_params, images, labels,
-                     augment, expected):
+                     augment, expected, attention=False):
     """One train step with noise off from the same weights on the card and
     on the CPU: every loss term within TERM_RTOL, every parameter gradient
     within GRAD_RTOL of its largest entry; the card step's launch counts
@@ -716,8 +1039,8 @@ def card_vs_cpu_step(torch, card, tag, model_params, images, labels,
     from scae_tpu_torch.parallel.train_step import make_raw_train_step
 
     cuda = torch.device("cuda")
-    card_state = train_state(torch, cuda, False, model_params)
-    cpu_state = train_state(torch, "cpu", False, model_params)
+    card_state = train_state(torch, cuda, False, model_params, attention)
+    cpu_state = train_state(torch, "cpu", False, model_params, attention)
     cpu_state.model.load_state_dict(
         {k: v.cpu() for k, v in card_state.model.state_dict().items()})
     got, want = keep_gradients(card_state), keep_gradients(cpu_state)
@@ -763,10 +1086,12 @@ def card_vs_cpu_step(torch, card, tag, model_params, images, labels,
         f"({worst[1]}; tolerance {GRAD_RTOL:.0e}) [{card}]")
 
 
-def train_phase(torch, card, rows, tag, model_params, per_step):
+def train_phase(torch, card, rows, tag, model_params, per_step,
+                attention=False):
     """The card-vs-CPU step at CPU_BATCH, then the main path: one real
     step (noise on, translation by up to 6) at batch 128 whose launch
-    counts must be ``per_step``, then 5 warm-up and 20 timed steps."""
+    counts must be ``per_step``, then 5 warm-up and 20 timed steps.
+    ``attention``: the set transformer's use_pallas_attention on."""
     import numpy as np
 
     from scae_tpu_torch.parallel.train_step import make_raw_train_step
@@ -779,9 +1104,10 @@ def train_phase(torch, card, rows, tag, model_params, per_step):
 
     card_vs_cpu_step(torch, card, tag, model_params, images[:CPU_BATCH],
                      labels[:CPU_BATCH],
-                     make_augment_fn(canvas=40, max_shift=0), per_step)
+                     make_augment_fn(canvas=40, max_shift=0), per_step,
+                     attention)
 
-    state = train_state(torch, cuda, True, model_params)
+    state = train_state(torch, cuda, True, model_params, attention)
     step = make_raw_train_step(state, make_augment_fn(canvas=40,
                                                       max_shift=6), cuda)
     zero_kernel_counts()
@@ -915,6 +1241,8 @@ def main(argv=None) -> int:
 
     from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
     from scae_tpu_torch.kernels import _build
+    from scae_tpu_torch.kernels import attention as k6
+    from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
 
@@ -937,11 +1265,16 @@ def main(argv=None) -> int:
         say(f"nvcc {nvcc}: {version.stdout.strip().splitlines()[-1]}")
 
     with phase("build"):
-        sources = {"K1": (k1, k1.SOURCE), "K2+K3": (k1, k1.BWD_SOURCE),
-                   "K4f": (k4, k4.SOURCE), "K4b": (k4, k4.BWD_SOURCE)}
+        sources = {"K1": (k1.build_info, k1.SOURCE),
+                   "K2+K3": (k1.build_info, k1.BWD_SOURCE),
+                   "K4f": (k4.build_info, k4.SOURCE),
+                   "K4b": (k4.build_info, k4.BWD_SOURCE),
+                   "K5f": (k5.build_info, k5.SOURCE),
+                   "K5b": (k5.build_info, k5.BWD_SOURCE),
+                   "K6": (lambda _: k6.build_info(), k6.SOURCE)}
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
             built = dict(zip(sources, pool.map(
-                lambda ms: ms[0].build_info(ms[1]), sources.values())))
+                lambda fs: fs[0](fs[1]), sources.values())))
         for kernel, info in built.items():
             say(f"{kernel} library {info.path}: built in {info.seconds:.2f} s"
                 f" (cached: {info.cached}), nvcc "
@@ -953,7 +1286,9 @@ def main(argv=None) -> int:
 
     with phase("kernel"):
         rows = [kernel_phase(torch, card), bwd_kernel_phase(torch, card),
-                *dense_kernel_phase(torch, card)]
+                *dense_kernel_phase(torch, card),
+                *banded_kernel_phase(torch, card),
+                attention_kernel_phase(torch, card)]
 
     with phase("slice"):
         eval_step, images, labels = slice_phase(torch, card, rows)
@@ -972,6 +1307,16 @@ def main(argv=None) -> int:
         pallas_eval, _, _ = eval_timing(torch, card, rows, "pallas",
                                         pallas_model, {"K4f": 1})
 
+    with phase("banded"):
+        banded_params = dict(
+            FLAGSHIP_MODEL_PARAMS,
+            pcae_decoder_params=dict(fused_impl="pallas_banded"))
+        banded_step, _, _, banded_model = train_phase(
+            torch, card, rows, "banded", banded_params,
+            {"K5f": 1, "K5b": 1, "K6": 4}, attention=True)
+        banded_eval, _, _ = eval_timing(torch, card, rows, "banded",
+                                        banded_model, {"K5f": 1, "K6": 4})
+
     with phase("cifar10"):
         cifar10_phase(torch, card)
 
@@ -983,6 +1328,10 @@ def main(argv=None) -> int:
             profile_phase(torch, "pallas eval", pallas_eval, images, labels,
                           5, card)
             profile_phase(torch, "pallas train", pallas_step, train_images,
+                          train_labels, 5, card)
+            profile_phase(torch, "banded eval", banded_eval, images, labels,
+                          5, card)
+            profile_phase(torch, "banded train", banded_step, train_images,
                           train_labels, 5, card)
 
     say(json.dumps({"kernels": rows}))

@@ -53,8 +53,9 @@ class BuiltLibrary:
 
 
 def _headers():
-    """The shared headers of ``csrc/`` (``common.cuh``), which every source
-    includes, so that a change to one rebuilds every kernel."""
+    """The shared headers of ``csrc/`` (``common.cuh``, which every source
+    includes, and ``decoder_ll_banded.cuh``), hashed into every build, so
+    that a change to one rebuilds every kernel."""
     return sorted(os.path.join(CSRC, n) for n in os.listdir(CSRC)
                   if n.endswith(".cuh"))
 

@@ -18,13 +18,16 @@ per-pixel log-likelihood comes from the fused path, by ``fused_impl``:
     forward and K4b backward for CUDA tensors, the plain version
     (``ops/decoder_ll.py`` with float32 taps and its hand-derived
     backward) for CPU tensors;
+  * "pallas_banded": the banded, row-windowed likelihood
+    (``kernels/decoder_ll_banded.py``): the capsules padded and sorted, K5f
+    forward and K5b backward for CUDA tensors, the plain version (the dense
+    one with the y-taps masked by the row windows) for CPU tensors;
   * "xla": ``ops/decoder_ll.py::fused_decoder_ll`` with ``fused_tap_dtype``
     taps, on any device.
 
-"pallas_banded" (the banded kernels, K5) is not ported. The likelihood,
-like the rendered components, is computed when it is first read, so a
-forward whose caller never reads it (the infer function) launches no
-kernel.
+The likelihood, like the rendered components, is computed when it is
+first read, so a forward whose caller never reads it (the infer function)
+launches no kernel.
 """
 
 from typing import Optional, Tuple
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scae_tpu_torch.kernels.decoder_ll_banded import decoder_ll_banded
 from scae_tpu_torch.kernels.decoder_ll_dense import decoder_ll_dense
 from scae_tpu_torch.kernels.decoder_ll_gather import decoder_ll_gather
 from scae_tpu_torch.models.layers import MLP, choose_activation
@@ -112,11 +116,8 @@ class TemplateBasedImageDecoder(nn.Module):
                  fused_impl: str = "auto",
                  fused_tap_dtype: str = "float32"):
         super().__init__()
-        if fused_impl == "pallas_banded":
-            raise NotImplementedError(
-                "fused_impl='pallas_banded' (the banded kernels, K5) is not "
-                "ported; the port has 'auto', 'gather', 'pallas' and 'xla'")
-        if fused_impl not in ("auto", "gather", "pallas", "xla"):
+        if fused_impl not in ("auto", "gather", "pallas", "pallas_banded",
+                              "xla"):
             raise ValueError(f"unknown fused_impl {fused_impl!r}")
         if fused_tap_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown fused_tap_dtype {fused_tap_dtype!r}")
@@ -207,6 +208,8 @@ class TemplateBasedImageDecoder(nn.Module):
                 return fused_decoder_ll(*args, self.fused_tap_dtype)
             if self.fused_impl == "pallas":
                 return decoder_ll_dense(*args)[0]
+            if self.fused_impl == "pallas_banded":
+                return decoder_ll_banded(*args)[0]
             return decoder_ll_gather(*args)[0]
 
         fused = (target is not None and self.use_fused_ll

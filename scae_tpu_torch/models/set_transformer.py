@@ -1,5 +1,5 @@
 """Presence-masked Set Transformer, the OCAE encoder (counterpart of
-scae_tpu/models/set_transformer.py, with ``use_pallas=False``).
+scae_tpu/models/set_transformer.py).
 
 MultiHeadQKVAttention pads head dims up to a multiple of n_heads, fuses
 the projections that share an input (q, k, v in self-attention: one
@@ -11,7 +11,12 @@ and PMA wrap it. SetTransformer is fc1 -> n_layers x SAB/ISAB -> fc2 ->
 learned seeds -> a final multi-head attention.
 
 Input widths are constructor arguments here (flax infers them at the
-first call). Heads are a tensor axis contracted with einsums.
+first call). Heads are a tensor axis contracted with einsums; with
+``use_pallas`` (``use_pallas_attention`` on SetTransformer, which sets it on
+every attention of the model) they fold into the batch, (B*H, N, d/H),
+presence repeated per head, and go through ``qkv_attention(...,
+use_pallas=True)``: the attention kernel K6 on CUDA tensors. The flag adds
+no parameters.
 """
 
 import math
@@ -22,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from scae_tpu_torch.models.layers import TorchLinear, uniform_, xavier_bound
-from scae_tpu_torch.ops.attention import MASK
+from scae_tpu_torch.ops.attention import MASK, qkv_attention
 
 
 class MultiHeadQKVAttention(nn.Module):
@@ -33,10 +38,12 @@ class MultiHeadQKVAttention(nn.Module):
     """
 
     def __init__(self, d_q_in: int, d_kv_in: int, d_k: int, d_v: int,
-                 n_heads: int, self_attention: bool):
+                 n_heads: int, self_attention: bool,
+                 use_pallas: bool = False):
         super().__init__()
         H = n_heads
         self.n_heads = H
+        self.use_pallas = use_pallas
         self.d_k_p = -(-d_k // H) * H        # padded to a multiple of heads
         self.d_v_p = -(-d_v // H) * H
         self.self_attention = self_attention
@@ -63,11 +70,21 @@ class MultiHeadQKVAttention(nn.Module):
         q = q.reshape(B, N, H, dk // H)
         k = k.reshape(B, M, H, dk // H)
         v = v.reshape(B, M, H, dv // H)
-        routing = torch.einsum("bnhd,bmhd->bhnm", q, k)
-        if presence is not None:
-            routing = routing - (1.0 - presence[:, None, None, :]) * MASK
-        routing = torch.softmax(routing / math.sqrt(dk // H), dim=-1)
-        o = torch.einsum("bhnm,bmhd->bnhd", routing, v).reshape(B, N, dv)
+        if self.use_pallas:
+            def fold(x):
+                return x.transpose(1, 2).reshape(B * H, x.shape[1], -1)
+
+            ph = None if presence is None else \
+                presence.repeat_interleave(H, dim=0)
+            oh = qkv_attention(fold(q), fold(k), fold(v), ph,
+                               use_pallas=True)
+            o = oh.reshape(B, H, N, dv // H).transpose(1, 2).reshape(B, N, dv)
+        else:
+            routing = torch.einsum("bnhd,bmhd->bhnm", q, k)
+            if presence is not None:
+                routing = routing - (1.0 - presence[:, None, None, :]) * MASK
+            routing = torch.softmax(routing / math.sqrt(dk // H), dim=-1)
+            o = torch.einsum("bhnm,bmhd->bnhd", routing, v).reshape(B, N, dv)
         return self.o_projector(o)
 
 
@@ -75,10 +92,11 @@ class MAB(nn.Module):
     """Multihead Attention Block: residual attention + rFF."""
 
     def __init__(self, d: int, n_heads: int, layer_norm: bool = False,
-                 self_attention: bool = False):
+                 self_attention: bool = False, use_pallas: bool = False):
         super().__init__()
         self.mqkv = MultiHeadQKVAttention(d, d, d, d, n_heads,
-                                          self_attention=self_attention)
+                                          self_attention=self_attention,
+                                          use_pallas=use_pallas)
         self.layer_norm = layer_norm
         if layer_norm:
             self.ln0 = nn.LayerNorm(d, eps=1e-5)
@@ -100,9 +118,11 @@ class MAB(nn.Module):
 
 
 class SAB(nn.Module):
-    def __init__(self, d: int, n_heads: int, layer_norm: bool = False):
+    def __init__(self, d: int, n_heads: int, layer_norm: bool = False,
+                 use_pallas: bool = False):
         super().__init__()
-        self.mab = MAB(d, n_heads, layer_norm, self_attention=True)
+        self.mab = MAB(d, n_heads, layer_norm, self_attention=True,
+                       use_pallas=use_pallas)
 
     def forward(self, x, presence=None):
         return self.mab(x, x, presence)
@@ -112,11 +132,11 @@ class ISAB(nn.Module):
     """Induced SAB: O(N*m) attention through m inducing points."""
 
     def __init__(self, d: int, n_heads: int, n_inducing_points: int,
-                 layer_norm: bool = False):
+                 layer_norm: bool = False, use_pallas: bool = False):
         super().__init__()
         self.I = nn.Parameter(torch.empty(1, n_inducing_points, d))
-        self.mab0 = MAB(d, n_heads, layer_norm)
-        self.mab1 = MAB(d, n_heads, layer_norm)
+        self.mab0 = MAB(d, n_heads, layer_norm, use_pallas=use_pallas)
+        self.mab1 = MAB(d, n_heads, layer_norm, use_pallas=use_pallas)
 
     def init_own_parameters(self, generator):
         _, m, d = self.I.shape
@@ -132,10 +152,10 @@ class PMA(nn.Module):
     """Pooling by Multihead Attention over learned seed queries."""
 
     def __init__(self, d: int, n_heads: int, n_seeds: int,
-                 layer_norm: bool = False):
+                 layer_norm: bool = False, use_pallas: bool = False):
         super().__init__()
         self.S = nn.Parameter(torch.empty(1, n_seeds, d))
-        self.mab = MAB(d, n_heads, layer_norm)
+        self.mab = MAB(d, n_heads, layer_norm, use_pallas=use_pallas)
 
     def init_own_parameters(self, generator):
         _, k, d = self.S.shape
@@ -152,22 +172,37 @@ class SetTransformer(nn.Module):
     def __init__(self, dim_in: int, dim_hidden: int, dim_out: int,
                  n_outputs: int, n_layers: int, n_heads: int,
                  layer_norm: bool = False,
-                 n_inducing_points: Optional[int] = None):
+                 n_inducing_points: Optional[int] = None,
+                 use_pallas_attention: bool = False):
         super().__init__()
         self.n_layers = n_layers
         self.fc1 = TorchLinear(dim_in, dim_hidden)
         for i in range(n_layers):
             if n_inducing_points is None:
-                block = SAB(dim_hidden, n_heads, layer_norm)
+                block = SAB(dim_hidden, n_heads, layer_norm,
+                            use_pallas_attention)
             else:
                 block = ISAB(dim_hidden, n_heads, n_inducing_points,
-                             layer_norm)
+                             layer_norm, use_pallas_attention)
             self.add_module(f"sab_{i}", block)
         self.fc2 = TorchLinear(dim_hidden, dim_out)
         self.seeds = nn.Parameter(torch.empty(1, n_outputs, dim_out))
         self.multi_head_attention = MultiHeadQKVAttention(
             dim_out, dim_out, dim_out, dim_out, n_heads,
-            self_attention=False)
+            self_attention=False, use_pallas=use_pallas_attention)
+
+    @property
+    def use_pallas_attention(self) -> bool:
+        """Whether the attentions go through K6 (``qkv_attention(...,
+        use_pallas=True)``); setting it sets every attention of the model,
+        as the JAX package's testing-only flag does."""
+        return self.multi_head_attention.use_pallas
+
+    @use_pallas_attention.setter
+    def use_pallas_attention(self, flag: bool):
+        for module in self.modules():
+            if isinstance(module, MultiHeadQKVAttention):
+                module.use_pallas = bool(flag)
 
     def init_own_parameters(self, generator):
         # torch xavier on (1, n_outputs, dim_out): fan_in = n_outputs *

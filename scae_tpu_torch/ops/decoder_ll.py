@@ -22,6 +22,11 @@ dWx/dix = -sign(ix - w) * 1{|ix - w| < 1} (``_dtaps``). That slope is 0 at
 a texel centre and at |ix - w| = 1: it is this module's own rule, not the
 slope of autograd through ``ops/warp.py::affine_warp``.
 
+``row_mask`` (B, M, Ht, P), where given, multiplies the y-taps Wy and
+their slope: the banded likelihood's plain version
+(``kernels/decoder_ll_banded.py``) zeroes with it the template rows outside
+each capsule's row window for the pixel's band.
+
 ``fused_decoder_ll`` is an autograd Function whose backward is this
 hand-derived one, as ``jax.custom_vjp`` makes it in the JAX package. The
 tap weights and the partial products S = T (x) Wx, Sa = A (x) Wx are kept
@@ -103,13 +108,15 @@ def _mixture_ll(V, Alogit, presence, bg_value, bg_mixing_logit, scale,
 
 
 def _forward(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
-             scale, target, out_size, tap_dtype):
+             scale, target, out_size, tap_dtype, row_mask=None):
     B, M, C, Ht, Wt = templates.shape
     H, W = out_size
     P = H * W
     ix, iy = source_coordinates(pose.to(_F32), (Ht, Wt), out_size)
     Wx = _taps(ix, Wt, tap_dtype)
     Wy = _taps(iy, Ht, tap_dtype)
+    if row_mask is not None:
+        Wy = Wy * row_mask.to(tap_dtype)
     alpha_b = alpha[:, :, 0].expand(B, M, Ht, Wt)
     V, Alogit, S, Sa = _warp_values(templates, alpha_b, Wx, Wy)
     ll, num_lse, den_lse = _mixture_ll(
@@ -119,7 +126,7 @@ def _forward(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
                                     Sa)
 
 
-def _bwd(inputs, saved, g, out_size, tap_dtype):
+def _bwd(inputs, saved, g, out_size, tap_dtype, row_mask=None):
     """Gradients of sum(g * ll) for the 8 array inputs, from the inputs
     and the forward's saved values; each in its input's shape."""
     (templates, alpha, pose, presence, bg_value, bg_mixing_logit, scale,
@@ -204,8 +211,10 @@ def _bwd(inputs, saved, g, out_size, tap_dtype):
     g_Wy = (_mm("bmcp,bmchp->bmhp", gV_t, S, tap_dtype).to(_F32)
             + (gmix_t.to(_F32)[:, :, None] * Sa.to(_F32)).to(tap_dtype)
             .to(_F32)).to(tap_dtype)
-    g_iy = torch.sum(g_Wy.to(_F32) * _dtaps(iy, Ht, tap_dtype).to(_F32),
-                     dim=2)                                 # (B, M, P)
+    dWy = _dtaps(iy, Ht, tap_dtype).to(_F32)
+    if row_mask is not None:
+        dWy = dWy * row_mask
+    g_iy = torch.sum(g_Wy.to(_F32) * dWy, dim=2)            # (B, M, P)
 
     # pose chain: ix = ((a x + b y + tx + 1) Wt - 1)/2
     cx = 0.5 * Wt
@@ -268,7 +277,7 @@ def fused_decoder_ll(templates, alpha, pose, presence, bg_value,
 
 def decoder_ll_terms(templates, alpha, pose, presence, bg_value,
                      bg_mixing_logit, scale, target, out_size,
-                     tap_dtype=_F32):
+                     tap_dtype=_F32, row_mask=None):
     """(ll (B, C, H, W), num (B, C, P), den (B, 1, P)) without a graph."""
     B, C = templates.shape[0], templates.shape[2]
     with torch.no_grad():
@@ -276,13 +285,13 @@ def decoder_ll_terms(templates, alpha, pose, presence, bg_value,
             templates, alpha, pose, presence,
             *(_scalar(v, templates) for v in (bg_value, bg_mixing_logit,
                                                scale)),
-            target, tuple(out_size), tap_dtype)
+            target, tuple(out_size), tap_dtype, row_mask)
     return ll, saved[2], saved[3].reshape(B, 1, -1)
 
 
 def decoder_ll_backward(g, num, den, templates, alpha, pose, presence,
                         bg_value, bg_mixing_logit, scale, target, out_size,
-                        tap_dtype=_F32, target_grad=True):
+                        tap_dtype=_F32, target_grad=True, row_mask=None):
     """The hand-derived backward from the inputs and the forward's LSEs
     num (B, C, P) and den (B, 1, P): the warp is recomputed. Returns the 8
     gradients (g_target None unless ``target_grad``); the three scalar
@@ -292,7 +301,8 @@ def decoder_ll_backward(g, num, den, templates, alpha, pose, presence,
                                                scale)]
     inputs = (templates, alpha, pose, presence, *scalars, target)
     with torch.no_grad():
-        _, saved = _forward(*inputs, tuple(out_size), tap_dtype)
+        _, saved = _forward(*inputs, tuple(out_size), tap_dtype, row_mask)
         saved = saved[:2] + (num, den.reshape(B, -1)) + saved[4:]
-        grads = _bwd(inputs, saved, g, tuple(out_size), tap_dtype)
+        grads = _bwd(inputs, saved, g, tuple(out_size), tap_dtype,
+                     row_mask)
     return (*grads[:7], grads[7] if target_grad else None)

@@ -1,6 +1,7 @@
 """K1 (the CUDA gather decoder-likelihood kernel) and K2+K3 (its backward),
-K4f and K4b (the dense ones), against their plain PyTorch versions, on the
-card; the flagship eval and train steps through them.
+K4f and K4b (the dense ones), K5f and K5b (the banded ones) and K6 (the set
+attention), against their plain PyTorch versions, on the card; the
+flagship eval and train steps through them.
 
 Needs a CUDA device and nvcc; every test skips without a card. The
 decision is taken inside the ``cuda`` fixture, so every pytest worker
@@ -15,14 +16,18 @@ each worth a few f32 ulps of values of order 10. The backward's outputs:
 1e-4 of each output's largest |entry| (of max(|value|, 1) for the three
 0-d scalar gradients); they are f32 sums over pixels (and, for a shared
 alpha, examples), the kernel's taken through atomics in an order that
-changes from run to run. K4b's the same, and its repeat bit for bit: it
-adds in a fixed order, without atomics.
+changes from run to run. K4b's and K5b's the same, and their repeats bit for
+bit: they add in a fixed order, without atomics. K6: 1e-5 absolute on
+outputs of order 1 (the same f32 scores, softmax and products, summed in
+another order), and the same bits on repeat.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from scae_tpu_torch.kernels import attention as k6
+from scae_tpu_torch.kernels import decoder_ll_banded as k5
 from scae_tpu_torch.kernels import decoder_ll_dense as k4
 from scae_tpu_torch.kernels import decoder_ll_gather as k1
 from scae_tpu_torch.ops.geometry import geometric_transform
@@ -441,5 +446,236 @@ def test_flagship_pallas_train_step_runs_through_dense_kernels(cuda):
     torch.cuda.synchronize()
     assert (k4.launches, k4.bwd_launches) == (2, 1)
     assert (k1.launches, k1.bwd_launches) == (0, 0)
+    for name, v in metrics.items():
+        assert np.isfinite(float(v)), name
+
+
+# ------------------------------------------------------------ K5f and K5b
+
+BANDED_SHAPES = [
+    # (shape, pose noise, per-example alpha, fixed pose)
+    ((8, 40, 1, 11, 11, 40, 40), 0.6, False, None),   # flagship widths
+    ((4, 64, 3, 11, 11, 32, 32), 0.6, False, None),   # cifar10: 4 bands
+    ((4, 13, 1, 5, 5, 24, 24), 4.0, False, None),     # extreme poses, M = 13
+    ((3, 8, 2, 7, 9, 20, 28), 0.6, True, None),       # per-example alpha
+    ((2, 6, 1, 17, 17, 24, 24), 0.6, False, None),    # 17x17 templates
+    ((2, 8, 1, 11, 11, 40, 40), 0.6, False, ([1, 0, 0, 0, 1, 0], None)),
+    ((2, 8, 1, 11, 11, 40, 40), 0.6, False, ([0] * 6, None)),
+    # every capsule off the canvas but the first: empty windows (trips = 0)
+    ((2, 16, 1, 11, 11, 40, 40), 0.6, False,
+     ([1, 0, 3.0, 0, 1, 3.0], [1, 0, 0, 0, 1, 0])),
+]
+
+
+def banded_args(shape, pose_noise, alpha_batched, fixed, device):
+    inputs = make_inputs(shape, pose_noise=pose_noise,
+                         alpha_batched=alpha_batched)
+    if pose_noise > 1.0:
+        inputs["presence"][:, ::3] = 0.0
+    if fixed is not None:    # (every capsule's pose, the first's or None)
+        inputs["pose"][:] = torch.tensor(fixed[0], dtype=torch.float32)
+        if fixed[1] is not None:
+            inputs["pose"][:, 0] = torch.tensor(fixed[1], dtype=torch.float32)
+    g, args = bwd_args(inputs, device)
+    # the kernels take the wrapper's layout: padded, sorted, alpha per example
+    sorted_args = (*k5.sort_and_pad(*args[:4]), *args[4:])
+    return g, sorted_args
+
+
+@pytest.mark.parametrize("shape,pose_noise,alpha_batched,fixed",
+                         BANDED_SHAPES)
+def test_banded_kernels_match_plain(cuda, shape, pose_noise, alpha_batched,
+                                    fixed):
+    g, args = banded_args(shape, pose_noise, alpha_batched, fixed, cuda)
+    got = k5.decoder_ll_banded_fwd(*args)
+    torch.cuda.synchronize()
+    want = k5.decoder_ll_banded_plain(*args)
+    assert all(torch.isfinite(x).all() for x in got)
+    assert max_err(got, want) < TOL
+    _, num, den = got
+    got = k5.decoder_ll_banded_bwd(g, num, den, *args)
+    again = k5.decoder_ll_banded_bwd(g, num, den, *args)
+    torch.cuda.synchronize()
+    check_bwd(got, k5.decoder_ll_banded_bwd_plain(g, num, den, *args))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)        # no atomics: the same bits
+    part = k5.decoder_ll_banded_bwd(g, num, den, *args, target_grad=False)
+    assert part[7] is None
+    for a, b in zip(part[:7], got[:7]):
+        assert torch.equal(a, b)
+
+
+def test_banded_function_matches_dense_autograd(cuda):
+    """Through autograd on the card: the banded likelihood (sorted, padded,
+    windowed) against the dense one, with unsorted inputs, M = 13 and a
+    shared alpha: the windows drop no mass."""
+    inputs = make_inputs((4, 13, 1, 7, 7, 24, 24), seed=3)
+    results = []
+    for fn in (k5.decoder_ll_banded, k4.decoder_ll_dense):
+        leaves = {k: v.to(cuda).contiguous().requires_grad_(k != "target")
+                  for k, v in inputs.items()}
+        ll = call(fn, leaves, (24, 24))[0]
+        ll.mean().backward()
+        results.append([ll.detach()] + [leaves[k].grad for k in
+                        ("templates", "alpha", "pose", "presence",
+                         "bg_value", "bg_mixing_logit", "scale")])
+    assert float((results[0][0] - results[1][0]).abs().max()) < TOL
+    for name, a, b in zip(GRAD_NAMES, results[0][1:], results[1][1:]):
+        scale = max(float(b.abs().max()), 1.0 if b.numel() == 1 else 0.0)
+        assert a.shape == b.shape, name
+        assert float((a - b).abs().max()) <= BWD_TOL * scale, name
+
+
+def test_banded_kernels_count_launches(cuda):
+    g, args = banded_args((2, 8, 1, 5, 5, 16, 16), 0.6, False, None, cuda)
+    k5.launches = k5.bwd_launches = 0
+    _, num, den = k5.decoder_ll_banded_fwd(*args)
+    k5.decoder_ll_banded_bwd(g, num, den, *args)
+    k5.decoder_ll_banded_bwd(g, num, den, *args, target_grad=False)
+    assert (k5.launches, k5.bwd_launches) == (1, 2)
+    k5.decoder_ll_banded_plain(*args)
+    k5.decoder_ll_banded_bwd_plain(g, num, den, *args)
+    assert (k5.launches, k5.bwd_launches) == (1, 2)
+
+
+def test_banded_kernels_reject_what_they_do_not_take(cuda):
+    g, args = banded_args((2, 8, 1, 5, 5, 16, 16), 0.6, False, None, cuda)
+    bad = list(args)
+    bad[1] = args[1][:1].contiguous()
+    with pytest.raises(ValueError, match="alpha per example"):
+        k5.decoder_ll_banded_fwd(*bad)
+    bad = list(args)
+    bad[:4] = [x[:, :5].contiguous() for x in args[:4]]
+    with pytest.raises(ValueError, match="groups of 8"):
+        k5.decoder_ll_banded_fwd(*bad)
+    # a canvas two rows high: no divisor of 2 gives a band of 512 or fewer
+    _, args = banded_args((1, 8, 1, 5, 5, 2, 600), 0.6, False, None, cuda)
+    with pytest.raises(ValueError, match="band of 600 pixels"):
+        k5.decoder_ll_banded_fwd(*args)
+
+
+@pytest.mark.parametrize("source", [k5.SOURCE, k5.BWD_SOURCE])
+def test_banded_kernel_build_reports_registers(cuda, source):
+    info = k5.build_info(source)
+    assert info.path.endswith(".so")
+    assert "registers" in info.log or info.cached
+
+
+# ------------------------------------------------------------------- K6
+
+def attention_inputs(B, N, M, dk, dv, seed=0, presence="soft"):
+    """Q, K, V from N(0, 1) and presences of one kind: "soft" in [0, 1)
+    ("zero": one set all absent), where the 1e9 penalties make the softmax
+    one-hot on the largest presence, whatever the scores; "ones" (what
+    ``qkv_attention`` builds when given none) and "binary", where the
+    weights follow the scores; "near one", 1 or the two f32 values just
+    below it, where the order of mask and scale shows too."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    p = rng.rand(B, M)
+    q, k, v = rng.randn(B, N, dk), rng.randn(B, M, dk), rng.randn(B, M, dv)
+    if presence == "zero":
+        p[0] = 0.0
+    elif presence == "ones":
+        p = np.ones((B, M))
+    elif presence == "binary":
+        p = (p < 0.5).astype(np.float64)
+    elif presence == "near one":
+        p = 1.0 - np.floor(p * 3) * 2.0 ** -24
+    return t(q), t(k), t(v), t(p)
+
+
+@pytest.mark.parametrize("B,N,M,dk,dv", [
+    (128, 40, 40, 16, 16),     # the flagship's set-attention blocks
+    (128, 32, 40, 256, 256),   # its final attention, > 48 KB shared memory
+    (3, 5, 7, 10, 6),          # nothing a power of two
+])
+@pytest.mark.parametrize("presence",
+                         ["soft", "zero", "ones", "binary", "near one"])
+def test_attention_kernel_matches_plain(cuda, B, N, M, dk, dv, presence):
+    args = [x.to(cuda) for x in
+            attention_inputs(B, N, M, dk, dv, presence=presence)]
+    got = k6.attention(*args)
+    again = k6.attention(*args)
+    torch.cuda.synchronize()
+    want = k6.attention_plain(*args)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) < 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("presence", ["soft", "binary"])
+def test_attention_function_matches_plain_autograd(cuda, presence):
+    """qkv_attention(use_pallas=True) on the card, K6 forward and the plain
+    path's backward, against the plain path's autograd."""
+    from scae_tpu_torch.ops.attention import qkv_attention
+
+    inputs = attention_inputs(4, 6, 9, 16, 8, seed=1, presence=presence)
+    results = []
+    for use_pallas in (True, False):
+        leaves = [x.to(cuda).requires_grad_() for x in inputs]
+        out = qkv_attention(*leaves, use_pallas=use_pallas)
+        (out ** 2).sum().backward()
+        results.append([out.detach()] + [x.grad for x in leaves])
+    for name, a, b in zip(("out", "q", "k", "v", "p"), *results):
+        # under binary presences d/dp carries the mask's 1e9 at full
+        # weight: held within 1e-5 of its largest entry
+        tol = 1e-5 * (float(b.abs().max())
+                      if name == "p" and presence == "binary" else 1.0)
+        assert float((a - b).abs().max()) < tol, name
+
+
+def test_attention_kernel_counts_launches_and_rejects(cuda):
+    args = [x.to(cuda) for x in attention_inputs(2, 3, 4, 8, 8)]
+    k6.launches = 0
+    k6.attention(*args)
+    k6.attention_plain(*args)
+    assert k6.launches == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.attention(args[0].transpose(1, 2).contiguous().transpose(1, 2),
+                     *args[1:])
+    with pytest.raises(TypeError, match="float32"):
+        k6.attention(args[0].double(), *args[1:])
+    big = [x.to(cuda) for x in attention_inputs(1, 64, 64, 512, 512)]
+    with pytest.raises(ValueError, match="shared memory"):
+        k6.attention(*big)
+
+
+def test_attention_kernel_build_reports_registers(cuda):
+    info = k6.build_info()
+    assert info.path.endswith(".so")
+    assert "registers" in info.log or info.cached
+
+
+def test_flagship_banded_train_step_runs_through_k5_and_k6(cuda):
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
+    from scae_tpu_torch.optim import make_optimizer
+    from scae_tpu_torch.parallel.train_step import (
+        TrainState,
+        make_raw_eval_step,
+        make_raw_train_step,
+    )
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    params = dict(FLAGSHIP_MODEL_PARAMS,
+                  pcae_decoder_params=dict(fused_impl="pallas_banded"))
+    model = make_scae(params, device=cuda, seed=0)
+    model.obj_encoder.use_pallas_attention = True
+    state = TrainState(model, make_optimizer(model.parameters(), "rmsprop",
+                                             3e-5, batch_size=16))
+    step = make_raw_train_step(state, make_augment_fn(40, 6), device=cuda)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (16, 28, 28)).astype(np.uint8)
+    labels = rng.randint(0, 10, (16,))
+    k5.launches = k5.bwd_launches = k6.launches = 0
+    k4.launches = k4.bwd_launches = k1.launches = k1.bwd_launches = 0
+    metrics = step(images, labels)
+    torch.cuda.synchronize()
+    assert (k5.launches, k5.bwd_launches, k6.launches) == (1, 1, 4)
+    make_raw_eval_step(model, canvas=40, device=cuda)(images, labels)
+    torch.cuda.synchronize()
+    assert (k5.launches, k5.bwd_launches, k6.launches) == (2, 1, 8)
+    assert (k1.launches, k1.bwd_launches, k4.launches, k4.bwd_launches) \
+        == (0, 0, 0, 0)
     for name, v in metrics.items():
         assert np.isfinite(float(v)), name

@@ -379,10 +379,15 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="reconstruct_alternatives"):
         t_factory.make_scae(dict(t_factory.FLAGSHIP_MODEL_PARAMS,
                                  scae_params={}), device="cpu")
-    # the banded kernels (K5) are the one implementation left to port
-    with pytest.raises(NotImplementedError, match="pallas_banded.*K5"):
-        t_pd.TemplateBasedImageDecoder(4, (5, 5), (8, 8),
-                                       fused_impl="pallas_banded")
+    # the banded kernels (K5) are ported: the decoder builds with them, and
+    # the factory passes the value through
+    decoder = t_pd.TemplateBasedImageDecoder(4, (5, 5), (8, 8),
+                                             fused_impl="pallas_banded")
+    assert decoder.fused_impl == "pallas_banded"
+    model = t_factory.make_scae(dict(
+        t_factory.FLAGSHIP_MODEL_PARAMS,
+        pcae_decoder_params=dict(fused_impl="pallas_banded")), device="cpu")
+    assert model.part_decoder.fused_impl == "pallas_banded"
     with pytest.raises(ValueError, match="unknown fused_impl"):
         t_pd.TemplateBasedImageDecoder(4, (5, 5), (8, 8), fused_impl="mxu")
     for impl in ("auto", "gather", "pallas", "xla"):

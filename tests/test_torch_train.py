@@ -3,10 +3,11 @@ decoder likelihood and its backward take their plain versions):
 
   * one train step of ``make_raw_train_step`` against scae_tpu's, from the
     same flax-initialised weights carried across by from_flax.py, with the
-    noise configured off, through the gather likelihood and through the
-    dense one (``fused_impl="pallas"``): the loss, every term, the accuracy
-    and every parameter's gradient; then the RMSprop update from identical
-    gradients;
+    noise configured off, through the gather likelihood, the dense one
+    (``fused_impl="pallas"``) and the banded one (``"pallas_banded"``, with
+    the set transformer's ``use_pallas_attention`` on both sides): the
+    loss, every term, the accuracy and every parameter's gradient; then the
+    RMSprop update from identical gradients;
   * ``make_fused_train_step`` against ``make_raw_train_step``;
   * ``random_translate`` and ``random_affine`` fed JAX's own draws, and the
     augment and centre-pad functions;
@@ -30,6 +31,7 @@ Tolerances:
     test's tolerance (tests/test_parity_golden.py::test_train_trajectory_golden).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -107,12 +109,27 @@ class Recording(RMSprop):
         super().step(grads)
 
 
-@pytest.mark.parametrize("fused_impl", ["auto", "pallas"])
+def with_pallas_attention(jm):
+    """The JAX model with its set transformer's testing-only
+    ``use_pallas_attention`` on, as tools/ab_attention_step.py sets it (the
+    factory has no knob for it); the weights are the same."""
+    st = dataclasses.replace(jm.obj_encoder, use_pallas_attention=True,
+                             parent=None, name=None)
+    return dataclasses.replace(jm, obj_encoder=st, parent=None, name=None)
+
+
+@pytest.mark.parametrize("fused_impl", ["auto", "pallas", "pallas_banded"])
 def test_train_step_matches(bridged, fused_impl):
-    """The port's decoder likelihood through the gather path ("auto") or
-    the dense one ("pallas"; K4's plain version on the CPU) against the JAX
-    step, whose CPU path is the f32 XLA likelihood."""
+    """The port's decoder likelihood through the gather path ("auto"), the
+    dense one ("pallas"; K4's plain version on the CPU) or the banded one
+    ("pallas_banded"; K5's plain version, with the attention flag, K6's
+    plain version, on both sides) against the JAX step, whose CPU
+    likelihood is the f32 XLA one."""
     mp, jm, params = bridged
+    attention_flag = fused_impl == "pallas_banded"
+    if attention_flag:
+        jm = with_pallas_attention(jm)
+        assert jm.obj_encoder.use_pallas_attention
     images, labels = batch()
 
     tx = j_make_optimizer("rmsprop", LR, batch_size=B, momentum=0.9)
@@ -134,6 +151,7 @@ def test_train_step_matches(bridged, fused_impl):
 
     tm = t_make_scae(dict(mp, pcae_decoder_params=dict(
         fused_impl=fused_impl)), device="cpu")
+    tm.obj_encoder.use_pallas_attention = attention_flag
     load_flax_params(tm, params)
     rec = Recording(tm.parameters(), LR, decay=0.99,
                     eps=1e-2 / B ** 2, momentum=0.9)
