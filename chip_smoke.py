@@ -46,21 +46,44 @@ Phases, each announced when it starts and when it ends, with its seconds:
   cifar10 one train step of the shipped cifar10 model (3x32x32, M=64) with
           noise off at batch 32 on the card and on the CPU, through K1 and
           K2+K3
+  probe   the toolchain probes P1 (x * 2 + 1) and P2 (a float32 product)
+          against their plain versions, timed beside torch.matmul; the
+          probe entry point (python -m scae_tpu_torch.tools.probe) in this
+          process, where it must launch each probe once, and as a
+          subprocess, which must exit 0
+  trainer the training CLI (scae_tpu_torch.train.cli.main) with the shipped
+          model=mnist config at full width (bf16 convs, fused_impl auto) on
+          synthetic data cut to 2,048 training images: 2 epochs, a resume
+          to epoch 3, then mode=test; the metrics JSONL, the image grids,
+          train_seed.json, the resume step and the per-class recall are
+          checked, and K1 and K2+K3 must launch once per train step (K1
+          also once per eval batch, never in the grids' forward); the
+          median images/s of the logged chunks and the peak memory. Then 4
+          steps at batch 32 with noise and translation off and f32 convs,
+          on the card and on the CPU: their per-step JSONL losses within
+          1e-3 relative; and the same 4 steps on the card interrupted after
+          2 and resumed, against the uninterrupted card run
 
 Every number is printed beside the card's name and power limit. Imports
 torch, numpy, the standard library and scae_tpu_torch only. Exits
 non-zero, with no result line, when CUDA is absent or any check fails. The
 line before the last is the card's name and power limit; before it, a JSON
-line of per-kernel numbers; the last line is the JSON result.
+line of per-kernel numbers (K1-K6, P1 and P2); the last line is the JSON
+result.
 """
 
 import argparse
 import concurrent.futures
 import contextlib
 import json
+import io
 import math
+import os
+import re
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 BATCH = 128            # eval and train batch of the flagship
@@ -952,7 +975,7 @@ def slice_phase(torch, card, rows):
 # --------------------------------------------------------------- train
 
 # in the order of the kernel rows
-KERNELS = ("K1", "K2+K3", "K4f", "K4b", "K5f", "K5b", "K6")
+KERNELS = ("K1", "K2+K3", "K4f", "K4b", "K5f", "K5b", "K6", "P1", "P2")
 
 
 def kernel_counts():
@@ -961,10 +984,12 @@ def kernel_counts():
     from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
+    from scae_tpu_torch.kernels import probe as kp
 
     return {"K1": k1.launches, "K2+K3": k1.bwd_launches,
             "K4f": k4.launches, "K4b": k4.bwd_launches,
-            "K5f": k5.launches, "K5b": k5.bwd_launches, "K6": k6.launches}
+            "K5f": k5.launches, "K5b": k5.bwd_launches, "K6": k6.launches,
+            "P1": kp.affine_launches, "P2": kp.matmul_launches}
 
 
 def zero_kernel_counts():
@@ -972,9 +997,11 @@ def zero_kernel_counts():
     from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
+    from scae_tpu_torch.kernels import probe as kp
 
     k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
     k5.launches = k5.bwd_launches = k6.launches = 0
+    kp.affine_launches = kp.matmul_launches = 0
 
 
 def check_kernel_counts(card, rows, what, expected):
@@ -1202,6 +1229,371 @@ def cifar10_phase(torch, card):
                      labels, None, {"K1": 1, "K2+K3": 1})
 
 
+# --------------------------------------------------------------- probe
+
+def probe_bounds():
+    """Least times of P1 and P2 at the probe's shapes, each the larger of
+    bytes over the memory rate and f32 operations over the f32 rate.
+    P1: 4,096 bytes read and 4,096 written, 2 operations per element.
+    P2: a, b read and the product written once (512 KB), 2 K operations
+    (a multiply and an add) per output element."""
+    out = {}
+    for name, n_bytes, ops in (
+            ("P1", 4 * 2 * 8 * 128, 2 * 8 * 128),
+            ("P2", 4 * (256 * 128 + 128 * 256 + 256 * 256),
+             2 * 256 * 128 * 256)):
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_F32_FLOPS * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations",
+                     n_bytes, ops)
+    return out
+
+
+def probe_phase(torch, card, rows):
+    """P1 and P2 against their plain versions at the probe's shapes and at
+    ragged ones; their times beside the bound, the plain version and
+    torch.matmul; the probe entry point in this process (the main path:
+    each probe launched once) and as a subprocess (exit code 0). Appends
+    rows P1 and P2."""
+    import numpy as np
+
+    from scae_tpu_torch.kernels import probe as kp
+    from scae_tpu_torch.tools import probe as probe_tool
+
+    cuda = torch.device("cuda")
+    x_np, a_np, b_np = probe_tool.probe_inputs()
+    rng = np.random.RandomState(3)
+    affine_cases = [("probe (8, 128)", x_np),
+                    ("ragged (1000, 777), N(0, 100)",
+                     (rng.randn(1000, 777) * 100).astype(np.float32))]
+    matmul_cases = [("probe (256, 128) x (128, 256)", a_np, b_np),
+                    ("ragged (100, 37) x (37, 53)",
+                     rng.randn(100, 37).astype(np.float32),
+                     rng.randn(37, 53).astype(np.float32))]
+    errs = {}
+    for name, xa in affine_cases:
+        x = torch.from_numpy(xa).to(cuda)
+        got = kp.affine_probe(x)
+        torch.cuda.synchronize()
+        err = float((got - kp.affine_probe_plain(x)).abs().max())
+        say(f"P1 {name}: max abs err {err:.3e} against x * 2 + 1 "
+            f"(tolerance 0: one rounding either way) [{card}]")
+        if err != 0.0:
+            raise RuntimeError(f"P1 {name}: max abs err {err}")
+        errs.setdefault("P1", err)
+    for name, aa, ba in matmul_cases:
+        a, b = torch.from_numpy(aa).to(cuda), torch.from_numpy(ba).to(cuda)
+        got = kp.matmul_probe(a, b)
+        torch.cuda.synchronize()
+        err = float((got - kp.matmul_probe_plain(a, b)).abs().max())
+        say(f"P2 {name}: max abs err {err:.3e} against torch.matmul "
+            f"(f32, TF32 off; tolerance {KERNEL_TOL:.0e}, the JAX probe's "
+            f"atol) [{card}]")
+        if not err < KERNEL_TOL:
+            raise RuntimeError(f"P2 {name}: max abs err {err} exceeds "
+                               f"{KERNEL_TOL}")
+        errs.setdefault("P2", err)
+    try:
+        kp.matmul_probe(torch.from_numpy(a_np).to(cuda),
+                        torch.from_numpy(a_np).to(cuda))
+    except ValueError as e:
+        say(f"P2 refuses (256, 128) x (256, 128): {e}")
+    else:
+        raise RuntimeError("P2 took mismatched inner sizes")
+
+    # the main path: the probe's entry point, every count 0 before it
+    zero_kernel_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        rc = probe_tool.main(device=cuda)
+    torch.cuda.synchronize()
+    for line in out.getvalue().splitlines():
+        say(f"  probe: {line}")
+    if rc != 0:
+        raise RuntimeError(f"the probe entry point returned {rc}")
+    check_kernel_counts(card, None, "the probe entry point",
+                        {"P1": 1, "P2": 1})
+    probe_counts = kernel_counts()
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "scae_tpu_torch.tools.probe"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in (proc.stdout + proc.stderr).strip().splitlines():
+        say(f"  python -m scae_tpu_torch.tools.probe: {line}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m scae_tpu_torch.tools.probe exited "
+                           f"{proc.returncode}")
+
+    x = torch.from_numpy(x_np).to(cuda)
+    a, b = torch.from_numpy(a_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    # one elementwise launch computing 1 + 2 * x: 2 * x is exact, so the
+    # sum is rounded once, as in P1
+    one = torch.ones((), device=cuda)
+    bounds = probe_bounds()
+    for kid, fn, plain, kernel, library, what in (
+            ("P1", lambda: kp.affine_probe(x),
+             lambda: kp.affine_probe_plain(x), "probe_affine_kernel",
+             lambda: torch.add(one, x, alpha=2), "torch.add(1, x, alpha=2)"),
+            ("P2", lambda: kp.matmul_probe(a, b),
+             lambda: kp.matmul_probe_plain(a, b), "probe_matmul_kernel",
+             lambda: torch.matmul(a, b), "torch.matmul")):
+        lib_err = float((library() - plain()).abs().max())
+        if lib_err > (0.0 if kid == "P1" else KERNEL_TOL):
+            raise RuntimeError(f"{kid}: {what} differs from the plain "
+                               f"version by {lib_err}")
+        ms = kernel_device_ms(torch, fn, kernel)
+        plain_ms = time_cuda(torch, plain, iters=200, warmup=20)
+        library_ms = time_cuda(torch, library, iters=200, warmup=20)
+        bound_ms, bound_by, n_bytes, ops = bounds[kid]
+        say(f"{kid} time: kernel {ms:.4f} ms (device time per launch over "
+            f"200 launches, torch.profiler), plain {plain_ms:.4f} ms (200 "
+            f"calls, CUDA events), library {what} {library_ms:.4f} ms "
+            f"(200 calls, CUDA events; {lib_err:.1e} from the plain "
+            f"version), bound {bound_ms * 1e6:.2f} ns by {bound_by} "
+            f"({n_bytes} B, "
+            f"{ops} FLOP), roofline share {bound_ms / ms:.2%} [{card}]")
+        rows.append(dict(
+            name="probe_affine" if kid == "P1" else "probe_matmul",
+            route="cuda", source="scae_tpu_torch/csrc/probe.cu",
+            replaces="tools/pallas_probe.py:" + ("17" if kid == "P1"
+                                                 else "39"),
+            launches=probe_counts[kid], max_abs_err=errs[kid], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms))
+
+
+# ------------------------------------------------------------- trainer
+
+# the JAX package's JSONL names of a train record of the mnist config
+TRAIN_KEYS = ("rec_ll_loss", "log_prob_loss", "prior_within_sparsity_loss",
+              "prior_between_sparsity_loss",
+              "posterior_within_sparsity_loss",
+              "posterior_between_sparsity_loss", "cpr_dynamic_reg_loss",
+              "prior_cls_xe", "posterior_cls_xe", "accuracy", "loss",
+              "images_per_sec", "learning_rate")
+LOSS_KEYS = TRAIN_KEYS[:9] + ("loss",)
+TRAINER_RTOL = 1e-3    # card vs CPU and resumed vs straight, per-step losses
+
+
+def read_jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_records(records):
+    return [r for r in records if "images_per_sec" in r]
+
+
+def run_cli(cli, argv, device=None):
+    """``cli.main(argv)``, its printed lines echoed; (result, output)."""
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        result = cli.main(argv, device=device)
+    for line in out.getvalue().splitlines():
+        say(f"  cli: {line}")
+    return result, out.getvalue()
+
+
+def training_wall_time(out):
+    """(images, seconds, images/s) of the line a Trainer run prints: its
+    trained images over its training wall time, evals excluded."""
+    m = re.search(r"trained (\d+) images in (\S+) s of training wall time"
+                  r".*: (\S+) images/s", out)
+    if m is None:
+        raise RuntimeError("the CLI printed no training wall time")
+    return int(m.group(1)), float(m.group(2)), float(m.group(3))
+
+
+def trainer_phase(torch, card, rows, tmp):
+    """The training CLI on the shipped mnist config (full width) over
+    synthetic data: 2 epochs, a resume to epoch 3, mode=test; the launch
+    counts of each, the JSONL, grids, seed record and recall."""
+    from scae_tpu_torch.kernels import decoder_ll_gather as k1
+    from scae_tpu_torch.train import cli, loop
+    from scae_tpu_torch.train.checkpoint import CheckpointManager
+
+    base = ["model=mnist", "data_loader.source=synthetic",
+            "data_loader.synthetic_train=2560", "data_loader.val_size=512",
+            "data_loader.synthetic_test=512", "trainer.max_epochs=2",
+            "trainer.log_every_steps=5", "trainer.max_eval_batches=2",
+            f"trainer.checkpoint_dir={tmp}/ckpt",
+            f"trainer.log_dir={tmp}/logs"]
+    jsonl = os.path.join(tmp, "logs", "metrics.jsonl")
+
+    # the grids' forward must launch no kernel: it reads only the modes
+    write_viz = loop.Trainer.write_viz
+    viz_calls = []
+
+    def counted_write_viz(self, *args, **kw):
+        before = kernel_counts()
+        write_viz(self, *args, **kw)
+        torch.cuda.synchronize()
+        if kernel_counts() != before:
+            raise RuntimeError(f"the grids' forward launched kernels: "
+                               f"{before} -> {kernel_counts()}")
+        viz_calls.append(1)
+
+    loop.Trainer.write_viz = counted_write_viz
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        state, out = run_cli(cli, base)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        trained, train_s, train_rate = training_wall_time(out)
+        peak = torch.cuda.max_memory_allocated()
+        records = read_jsonl(jsonl)
+        train = train_records(records)
+        evals = [r for r in records if "val_loss" in r]
+        steps = state.step
+        if steps != 2 * 16 or len(evals) != 2 or len(viz_calls) != 2:
+            raise RuntimeError(f"2 epochs ran {steps} steps (expected 32), "
+                               f"{len(evals)} evals, {len(viz_calls)} "
+                               "grid writes (expected 2 each)")
+        check_kernel_counts(card, rows, f"the trainer CLI ({steps} train "
+                            f"steps, {len(evals)} evals of 2 batches)",
+                            {"K1": steps + 2 * len(evals), "K2+K3": steps})
+        for r in train:
+            missing = [k for k in TRAIN_KEYS if k not in r]
+            if missing:
+                raise RuntimeError(f"JSONL train record at step {r['step']} "
+                                   f"lacks {missing}")
+            if not all(math.isfinite(r[k]) for k in TRAIN_KEYS):
+                raise RuntimeError(f"non-finite JSONL record {r}")
+        images = sorted(os.listdir(os.path.join(tmp, "logs", "images")))
+        for kind in ("reconstructions", "templates",
+                     "transformed_templates"):
+            if not any(n.startswith(kind + "_step") for n in images):
+                raise RuntimeError(f"no {kind} grid among {images}")
+        if not os.path.exists(os.path.join(tmp, "ckpt", "train_seed.json")):
+            raise RuntimeError("train_seed.json was not written")
+        if trained != steps * BATCH:
+            raise RuntimeError(f"the CLI reports {trained} trained images "
+                               f"for {steps} steps of {BATCH}")
+        rates = [r["images_per_sec"] for r in train]
+        # the first chunk (cuDNN's warm-up) and its share of the training
+        # wall time
+        warm_s = train[0]["step"] * BATCH / rates[0]
+        say(f"trainer CLI, model=mnist (batch {BATCH}, 2,048 synthetic "
+            f"training images, 2 epochs = {steps} steps in "
+            f"{len(train)} logged chunks, 2 evals of 2 batches, grids, "
+            f"checkpoints): {seconds!r} s in all; end to end "
+            f"{train_rate!r} images/s ({trained} images over {train_s!r} s "
+            f"of training wall time, from each period's first dispatch to "
+            f"its last read; the other {seconds - train_s!r} s are set-up, "
+            f"evals, grids and checkpoints); the first chunk (cuDNN's "
+            f"warm-up) takes {warm_s!r} s of it, "
+            f"{warm_s / train_s:.1%}; images_per_sec median "
+            f"{statistics.median(rates):.1f} over the chunks (each: "
+            + ", ".join(f"{v:.1f}" for v in rates) + f"); losses first "
+            f"{train[0]['loss']!r}, last {train[-1]['loss']!r}; "
+            f"max_memory_allocated {peak} B, of which {held} B were held "
+            f"before (earlier phases' models included) [{card}]")
+
+        saved = CheckpointManager(os.path.join(tmp, "ckpt")).latest_step
+        zero_kernel_counts()
+        state, out = run_cli(cli, base + ["trainer.max_epochs=3",
+                                          "resume=true"])
+        torch.cuda.synchronize()
+        resumed = train_records(read_jsonl(jsonl))[len(train):]
+        if (saved != 32 or f"resumed from step {saved}" not in out
+                or resumed[0]["step"] != saved + 5 or state.step != 48):
+            raise RuntimeError(f"resume: saved {saved}, first logged step "
+                               f"{resumed[0]['step']}, final {state.step}")
+        check_kernel_counts(card, rows, "the resumed trainer CLI (16 train "
+                            "steps, 1 eval of 2 batches)",
+                            {"K1": 16 + 2, "K2+K3": 16})
+        trained, train_s, train_rate = training_wall_time(out)
+        say(f"trainer CLI resume: from step {saved} to {state.step}, first "
+            f"logged step {resumed[0]['step']}, end to end "
+            f"{train_rate!r} images/s ({trained} images over {train_s!r} s "
+            f"of training wall time), images_per_sec median "
+            f"{statistics.median(r['images_per_sec'] for r in resumed):.1f}"
+            f" [{card}]")
+
+        zero_kernel_counts()
+        metrics, out = run_cli(cli, base + ["mode=test"])
+        torch.cuda.synchronize()
+        recalls = [k for k in metrics if k.startswith("test_class")]
+        if "per-class recall:" not in out or len(recalls) < 2:
+            raise RuntimeError(f"mode=test printed no per-class recall: "
+                               f"{sorted(metrics)}")
+        for k, v in metrics.items():
+            if not math.isfinite(v):
+                raise RuntimeError(f"test metric {k} = {v}")
+        check_kernel_counts(card, rows, "mode=test (4 eval batches; the "
+                            "recall pass reads no likelihood)", {"K1": 4})
+        say(f"trainer CLI mode=test: test_loss {metrics['test_loss']!r}, "
+            f"test_accuracy {metrics['test_accuracy']!r} [{card}]")
+    finally:
+        loop.Trainer.write_viz = write_viz
+
+
+def trainer_card_vs_cpu_phase(torch, card, tmp):
+    """4 steps at batch 32 with noise and translation off and f32 convs on
+    the card and on the CPU from the same seed: per-step JSONL losses
+    within TRAINER_RTOL; then the card run interrupted after 2 steps and
+    resumed, against the uninterrupted one (within the same tolerance: K2+K3
+    adds through atomics, so the last bits differ between runs)."""
+    from scae_tpu_torch.config import load_config
+    from scae_tpu_torch.train import cli, loop
+
+    def overrides(tag):
+        return ["model=mnist", "data_loader.source=synthetic",
+                "data_loader.batch_size=32",
+                "data_loader.synthetic_train=160", "data_loader.val_size=32",
+                "data_loader.synthetic_test=32", "trainer.max_epochs=1",
+                "trainer.log_every_steps=1", "trainer.max_eval_batches=1",
+                "trainer.augment.max_shift=0",
+                "model.pcae_encoder_params.noise_scale=0.0",
+                "model.ocae_decoder_capsule_params.noise_type=null",
+                "model.ocae_decoder_capsule_params.noise_scale=0.0",
+                "model.pcae_cnn_encoder_params.compute_dtype=null",
+                f"trainer.checkpoint_dir={tmp}/{tag}/ckpt",
+                f"trainer.log_dir={tmp}/{tag}/logs"]
+
+    def losses(tag):
+        return train_records(read_jsonl(
+            os.path.join(tmp, tag, "logs", "metrics.jsonl")))
+
+    run_cli(cli, overrides("card"))
+    run_cli(cli, overrides("cpu"), device="cpu")
+    trainer = loop.Trainer(load_config("config", overrides("split")))
+    try:
+        trainer.run(max_steps=2)
+    finally:
+        trainer.close()
+    run_cli(cli, overrides("split") + ["resume=true"])
+    on_card, on_cpu, split = losses("card"), losses("cpu"), losses("split")
+    if [r["step"] for r in on_card] != [1, 2, 3, 4] or \
+            [r["step"] for r in split] != [1, 2, 3, 4] or len(on_cpu) != 4:
+        raise RuntimeError(f"steps logged: card "
+                           f"{[r['step'] for r in on_card]}, resumed "
+                           f"{[r['step'] for r in split]}")
+    for what, got, want in (("card vs CPU", on_card, on_cpu),
+                            ("card resumed after 2 vs straight", split,
+                             on_card)):
+        worst = (0.0, None, None)
+        for g, w in zip(got, want):
+            for k in LOSS_KEYS:
+                gap = abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+                if gap >= worst[0]:
+                    worst = (gap, k, g["step"])
+                if not gap <= TRAINER_RTOL:
+                    raise RuntimeError(f"trainer {what}: {k} at step "
+                                       f"{g['step']}: {g[k]!r} vs {w[k]!r}")
+        say(f"trainer {what} (batch 32, 4 steps, noise and translation "
+            f"off, f32 convs, TF32 off): per-step losses "
+            + ", ".join(f"{g['loss']!r}/{w['loss']!r}"
+                        for g, w in zip(got, want))
+            + f"; largest gap {worst[0]:.3e} relative to max(1, |ref|) "
+            f"({worst[1]} at step {worst[2]}; tolerance "
+            f"{TRAINER_RTOL:.0e}) [{card}]")
+
+
 def profile_phase(torch, name, step, images, labels, n, card):
     """Device time by kernel name over ``n`` steps, and the device's busy
     time per step beside the step's host-clock time under the profiler."""
@@ -1245,6 +1637,7 @@ def main(argv=None) -> int:
     from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
+    from scae_tpu_torch.kernels import probe as kp
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only "
@@ -1271,7 +1664,8 @@ def main(argv=None) -> int:
                    "K4b": (k4.build_info, k4.BWD_SOURCE),
                    "K5f": (k5.build_info, k5.SOURCE),
                    "K5b": (k5.build_info, k5.BWD_SOURCE),
-                   "K6": (lambda _: k6.build_info(), k6.SOURCE)}
+                   "K6": (lambda _: k6.build_info(), k6.SOURCE),
+                   "P1+P2": (lambda _: kp.build_info(), kp.SOURCE)}
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
             built = dict(zip(sources, pool.map(
                 lambda fs: fs[0](fs[1]), sources.values())))
@@ -1319,6 +1713,15 @@ def main(argv=None) -> int:
 
     with phase("cifar10"):
         cifar10_phase(torch, card)
+
+    with phase("probe"):
+        probe_phase(torch, card, rows)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        with phase("trainer"):
+            trainer_phase(torch, card, rows, os.path.join(tmp, "flagship"))
+        with phase("trainer card vs cpu"):
+            trainer_card_vs_cpu_phase(torch, card, tmp)
 
     if args.profile:
         with phase("profile"):

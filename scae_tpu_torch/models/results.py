@@ -135,6 +135,10 @@ class SCAEResult:
     obj: ObjectDecoderResult
     # reconstruction
     rec: PartDecoderResult
+    # the visualisation-only alternatives (reconstruct_alternatives=True)
+    bottom_up_rec: Optional[PartDecoderResult] = None
+    top_down_rec: Optional[PartDecoderResult] = None
+    top_down_per_caps_rec: Optional[PartDecoderResult] = None
     # classifiers
     prior_cls_prob: Optional[torch.Tensor] = None
     posterior_cls_prob: Optional[torch.Tensor] = None

@@ -1,11 +1,15 @@
 """SCAE composite model, 8-term loss and accuracy (counterpart of
 scae_tpu/models/scae.py).
 
-The forward mirrors the JAX module with ``reconstruct_alternatives=False``:
-the visualisation-only alternative reconstructions are not ported yet.
-Stop-gradients become ``detach``; the classifier heads run in exact f32
-(``TorchLinear(precision="highest")``). The ``compat_*`` flags replicate
-the reference's defects as in the JAX package.
+The forward mirrors the JAX module. With ``reconstruct_alternatives`` it
+adds the three visualisation-only reconstructions (bottom-up, top-down and
+the B*O-tiled per-capsule decode): part-decoder calls with no target, on
+detached inputs, which render only when read and then under
+``torch.no_grad``; with no target they never compute the likelihood, so
+they launch no kernel. Stop-gradients become ``detach``; the classifier
+heads run in exact f32 (``TorchLinear(precision="highest")``). The
+``compat_*`` flags replicate the reference's defects as in the JAX
+package.
 """
 
 from typing import Optional
@@ -57,10 +61,6 @@ class SCAE(nn.Module):
                  compat_posterior_gate_bug: bool = False,
                  compat_double_softmax_xe: bool = False):
         super().__init__()
-        if reconstruct_alternatives:
-            raise NotImplementedError(
-                "reconstruct_alternatives (visualisation-only "
-                "reconstructions) is not ported yet")
         if vote_type not in ("enc", "soft", "hard"):
             raise ValueError(f"Invalid vote_type: {vote_type}")
         if presence_type not in ("enc", "soft", "hard"):
@@ -90,6 +90,7 @@ class SCAE(nn.Module):
             posterior_within_example_sparsity_weight
         self.posterior_between_example_sparsity_weight = \
             posterior_between_example_sparsity_weight
+        self.reconstruct_alternatives = reconstruct_alternatives
         self.compat_posterior_cls_bug = compat_posterior_cls_bug
         self.compat_posterior_gate_bug = compat_posterior_gate_bug
         self.compat_double_softmax_xe = compat_double_softmax_xe
@@ -148,6 +149,23 @@ class SCAE(nn.Module):
         rec = self.part_decoder(templates=templates, pose=part_dec_vote,
                                 presence=part_dec_presence, target=image)
 
+        bottom_up_rec = top_down_rec = top_down_per_caps_rec = None
+        if self.reconstruct_alternatives:
+            templates_sg = templates.detach()
+            presence_sg = part_enc.presence.detach()
+            bottom_up_rec = self._decode_without_grad(
+                templates_sg, part_enc.pose.detach(), presence_sg)
+            top_down_rec = self._decode_without_grad(
+                templates_sg, obj.winner.detach(), presence_sg)
+            n_obj_caps = obj.vote.shape[1]
+            td_pose = obj.vote.detach().reshape(-1, *obj.vote.shape[2:])
+            td_enc_presence = presence_sg.repeat_interleave(n_obj_caps, 0)
+            td_dec_presence = obj.vote_presence_binary.detach().reshape(
+                -1, obj.vote_presence.shape[2])
+            top_down_per_caps_rec = self._decode_without_grad(
+                templates_sg.repeat_interleave(n_obj_caps, 0), td_pose,
+                td_enc_presence * td_dec_presence)
+
         prior_prob = posterior_prob = prior_logits = posterior_logits = None
         if self.n_classes is not None:
             prior_logits = self.prior_classifier(obj.caps_presence.detach())
@@ -169,11 +187,22 @@ class SCAE(nn.Module):
             raw_templates=template_res.raw_templates,
             obj=obj,
             rec=rec,
+            bottom_up_rec=bottom_up_rec,
+            top_down_rec=top_down_rec,
+            top_down_per_caps_rec=top_down_per_caps_rec,
             prior_cls_prob=prior_prob,
             posterior_cls_prob=posterior_prob,
             prior_cls_logit=prior_logits,
             posterior_cls_logit=posterior_logits,
         )
+
+    def _decode_without_grad(self, templates, pose, presence):
+        """A part-decoder call with no target whose components render
+        under ``torch.no_grad`` when first read."""
+        rec = self.part_decoder(templates=templates, pose=pose,
+                                presence=presence)
+        rec.render = torch.no_grad()(rec.render)
+        return rec
 
     def loss(self, res: SCAEResult, reconstruction_target, label=None):
         """Composite 8-term loss; returns (loss, log dict)."""

@@ -15,7 +15,7 @@ one launch for the whole parameter list.
 """
 
 import math
-from typing import Callable, Iterable, List, Optional, Sequence, Union
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,13 +48,60 @@ def _value(lr: Schedule, count: int) -> float:
 
 
 class Optimizer:
-    """Updates ``params`` in place; subclasses define ``updates``."""
+    """Updates ``params`` in place; subclasses define ``updates`` and name
+    their state's attributes in ``_state``: step counts (ints) and lists of
+    tensors shaped like ``params``, or ``None``."""
+
+    _state: Tuple[str, ...] = ()
 
     def __init__(self, params: Iterable[torch.Tensor]):
         self.params: List[torch.Tensor] = list(params)
 
     def _zeros(self) -> List[torch.Tensor]:
         return [torch.zeros_like(p) for p in self.params]
+
+    def state_dict(self) -> dict:
+        """The state as CPU copies: counts as ints, tensor lists as lists
+        (a wrapped optimizer's under "base")."""
+        out = {}
+        for name in self._state:
+            value = getattr(self, name)
+            if isinstance(value, Optimizer):
+                value = value.state_dict()
+            elif isinstance(value, list):
+                value = [t.detach().to("cpu", copy=True) for t in value]
+            out[name] = value
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Copy ``state`` (from ``state_dict``) into this optimizer's own
+        tensors, in place; raises on a missing name or a shape that
+        differs."""
+        if set(state) != set(self._state):
+            raise KeyError(f"optimizer state holds {sorted(state)}, "
+                           f"expected {sorted(self._state)}")
+        for name in self._state:
+            mine, saved = getattr(self, name), state[name]
+            if isinstance(mine, Optimizer):
+                mine.load_state_dict(saved)
+            elif isinstance(mine, list):
+                if saved is None or len(saved) != len(mine):
+                    got = "none" if saved is None else len(saved)
+                    raise ValueError(f"optimizer state {name}: {got} "
+                                     f"tensors, expected {len(mine)}")
+                for t, v in zip(mine, saved):
+                    if tuple(t.shape) != tuple(v.shape):
+                        raise ValueError(f"optimizer state {name}: shape "
+                                         f"{tuple(v.shape)}, expected "
+                                         f"{tuple(t.shape)}")
+                    t.copy_(v)
+            elif mine is None:
+                if saved is not None:
+                    raise ValueError(f"optimizer state {name}: this "
+                                     "optimizer keeps none")
+            else:
+                setattr(self, name, int(saved))
 
     def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         raise NotImplementedError
@@ -74,6 +121,8 @@ class RMSprop(Optimizer):
     """``optax.rmsprop(lr, decay, eps, eps_in_sqrt=False, momentum)``:
     nu = (1-decay) g^2 + decay nu; u = -lr g / (sqrt(nu) + eps); with
     momentum, trace = u + momentum trace and the update is the trace."""
+
+    _state = ("count", "nu", "trace")
 
     def __init__(self, params, learning_rate: Schedule, decay: float = 0.9,
                  eps: float = 1e-8, momentum: Optional[float] = None):
@@ -106,6 +155,8 @@ class RMSprop(Optimizer):
 class Adam(Optimizer):
     """``optax.adam(lr, b1, b2, eps)``: bias-corrected moments, then
     -lr mu_hat / (sqrt(nu_hat) + eps)."""
+
+    _state = ("count", "mu", "nu")
 
     def __init__(self, params, learning_rate: Schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
@@ -147,6 +198,8 @@ class RAdam(Optimizer):
     is read at the step number counted from 1, and the step-size scalars
     are float32, as in the JAX version (the torch reference takes them in
     float64; near rho_t = 5 the two differ by ~1e-4 relative)."""
+
+    _state = ("count", "mu", "nu")
 
     def __init__(self, params, learning_rate: Schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
@@ -195,6 +248,8 @@ class Lookahead(Optimizer):
     k inner steps slow += alpha (fast - slow) and the fast weights are set
     to the slow ones. Wraps another optimizer of this module over the same
     parameters."""
+
+    _state = ("count", "slow", "base")
 
     def __init__(self, base: Optimizer, alpha: float = 0.5, k: int = 6):
         super().__init__(base.params)

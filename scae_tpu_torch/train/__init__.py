@@ -1,1 +1,2 @@
-"""Data helpers (counterpart of scae_tpu/train)."""
+"""Training harness: data, checkpoints, metrics, the Trainer and its CLI
+(counterpart of scae_tpu/train)."""

@@ -1,1 +1,2 @@
-"""Utilities: shapes, the flax-parameter bridge and device choice."""
+"""Utilities: shapes, the flax-parameter bridge, device choice and the PNG
+writer."""

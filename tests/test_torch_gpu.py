@@ -1,7 +1,8 @@
 """K1 (the CUDA gather decoder-likelihood kernel) and K2+K3 (its backward),
-K4f and K4b (the dense ones), K5f and K5b (the banded ones) and K6 (the set
-attention), against their plain PyTorch versions, on the card; the
-flagship eval and train steps through them.
+K4f and K4b (the dense ones), K5f and K5b (the banded ones), K6 (the set
+attention) and the toolchain probes P1 and P2, against their plain PyTorch
+versions, on the card; the flagship eval and train steps through them, and
+the training CLI.
 
 Needs a CUDA device and nvcc; every test skips without a card. The
 decision is taken inside the ``cuda`` fixture, so every pytest worker
@@ -19,7 +20,9 @@ alpha, examples), the kernel's taken through atomics in an order that
 changes from run to run. K4b's and K5b's the same, and their repeats bit for
 bit: they add in a fixed order, without atomics. K6: 1e-5 absolute on
 outputs of order 1 (the same f32 scores, softmax and products, summed in
-another order), and the same bits on repeat.
+another order), and the same bits on repeat. P1: exact (one rounding
+either way). P2: 1e-4 absolute, the JAX probe's tolerance, on f32 sums of
+128 products of N(0, 1) entries taken in another order than cuBLAS's.
 """
 
 import numpy as np
@@ -30,6 +33,7 @@ from scae_tpu_torch.kernels import attention as k6
 from scae_tpu_torch.kernels import decoder_ll_banded as k5
 from scae_tpu_torch.kernels import decoder_ll_dense as k4
 from scae_tpu_torch.kernels import decoder_ll_gather as k1
+from scae_tpu_torch.kernels import probe as kp
 from scae_tpu_torch.ops.geometry import geometric_transform
 
 pytestmark = pytest.mark.gpu
@@ -679,3 +683,101 @@ def test_flagship_banded_train_step_runs_through_k5_and_k6(cuda):
         == (0, 0, 0, 0)
     for name, v in metrics.items():
         assert np.isfinite(float(v)), name
+
+
+# ------------------------------------------------------------- P1, P2
+
+@pytest.mark.parametrize("shape", [(8, 128), (1000, 777), (1, 1)])
+def test_affine_probe_matches_plain(cuda, shape):
+    x = torch.from_numpy((np.random.RandomState(0).randn(*shape) * 100)
+                         .astype(np.float32)).to(cuda)
+    assert torch.equal(kp.affine_probe(x), kp.affine_probe_plain(x))
+
+
+@pytest.mark.parametrize("M,K,N", [(256, 128, 256), (100, 37, 53),
+                                   (1, 1, 1), (17, 300, 5)])
+def test_matmul_probe_matches_plain(cuda, M, K, N):
+    rng = np.random.RandomState(1)
+    a = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.randn(K, N).astype(np.float32)).to(cuda)
+    got = kp.matmul_probe(a, b)
+    assert got.shape == (M, N)
+    assert float((got - kp.matmul_probe_plain(a, b)).abs().max()) < TOL
+
+
+def test_probes_count_launches_and_reject(cuda):
+    from scae_tpu_torch.kernels import _build
+    from scae_tpu_torch.kernels._common import raise_on
+
+    x = torch.ones(8, 128, device=cuda)
+    kp.affine_launches = kp.matmul_launches = 0
+    kp.affine_probe(x)
+    kp.matmul_probe(x, x.t().contiguous())
+    kp.affine_probe_plain(x)
+    assert (kp.affine_launches, kp.matmul_launches) == (1, 1)
+    with pytest.raises(TypeError, match="float32"):
+        kp.affine_probe(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        kp.matmul_probe(x, x.t())
+    with pytest.raises(ValueError, match="inner sizes"):
+        kp.matmul_probe(x, x)
+    with pytest.raises(ValueError, match="2-D"):
+        kp.affine_probe(x[None])
+    # a launch the C launcher refuses (no elements) comes back as an error
+    # code, which the wrappers' raise_on turns into an exception
+    fn, err, _ = _build.load(kp.SOURCE, *kp._AFFINE)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    rc = fn(x.data_ptr(), x.data_ptr(), 0, stream)
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        raise_on(rc, err, "P1 (affine probe)")
+    assert (kp.affine_launches, kp.matmul_launches) == (1, 1)
+
+
+def test_probe_entry_point_runs_the_probes(cuda, capsys):
+    from scae_tpu_torch.tools import probe as probe_tool
+
+    kp.affine_launches = kp.matmul_launches = 0
+    assert probe_tool.main(device=cuda) == 0
+    out = capsys.readouterr().out
+    assert "probe ok: True" in out and "probe matmul ok: True" in out
+    assert (kp.affine_launches, kp.matmul_launches) == (1, 1)
+
+
+def test_probe_kernel_build_reports_registers(cuda):
+    info = kp.build_info()
+    assert info.path.endswith(".so")
+    assert "registers" in info.log or info.cached
+
+
+# ------------------------------------------------------------- trainer
+
+def test_trainer_cli_runs_through_kernels(cuda, tmp_path, monkeypatch):
+    """The training CLI at small widths on the card: K2+K3 once per train
+    step, K1 once per train step and per eval batch, nothing else."""
+    from scae_tpu_torch.train import cli
+
+    monkeypatch.setenv("SCAE_TPU_NO_TENSORBOARD", "1")
+    argv = ["data_loader.batch_size=16", "data_loader.source=synthetic",
+            "data_loader.synthetic_train=96", "data_loader.val_size=32",
+            "data_loader.synthetic_test=20", "trainer.max_epochs=1",
+            "trainer.log_every_steps=2", "trainer.max_eval_batches=1",
+            f"trainer.checkpoint_dir={tmp_path}/ckpt",
+            f"trainer.log_dir={tmp_path}/logs",
+            "model.n_part_caps=8", "model.n_obj_caps=4",
+            "model.pcae_cnn_encoder_params.out_channels=[16,16,16,16]",
+            "model.ocae_encoder_set_transformer_params.dim_out=16",
+            "model.ocae_decoder_capsule_params.dim_caps=8",
+            "model.ocae_decoder_capsule_params.hidden_sizes=[16]"]
+    k1.launches = k1.bwd_launches = 0
+    k4.launches = k4.bwd_launches = k5.launches = k5.bwd_launches = 0
+    k6.launches = 0
+    state = cli.main(argv)
+    torch.cuda.synchronize()
+    assert state.step == 4
+    assert (k1.launches, k1.bwd_launches) == (4 + 1, 4)
+    assert (k4.launches, k4.bwd_launches, k5.launches, k5.bwd_launches,
+            k6.launches) == (0, 0, 0, 0, 0)
+    metrics = cli.main(argv + ["mode=test"])
+    assert np.isfinite(metrics["test_loss"])
+    assert any(k.startswith("test_class") for k in metrics)

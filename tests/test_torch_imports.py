@@ -31,7 +31,9 @@ def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
     modules = port_modules() + ["chip_smoke"]
     for name in ("kernels.decoder_ll_gather", "kernels.decoder_ll_dense",
                  "kernels.decoder_ll_banded", "kernels.attention",
-                 "ops.decoder_ll", "ops.attention"):
+                 "kernels.probe", "ops.decoder_ll", "ops.attention",
+                 "config", "train.checkpoint", "train.metrics", "train.cli",
+                 "tools.probe"):
         assert f"scae_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, os, sys

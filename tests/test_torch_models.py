@@ -376,9 +376,11 @@ def test_model_config_matches():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="reconstruct_alternatives"):
-        t_factory.make_scae(dict(t_factory.FLAGSHIP_MODEL_PARAMS,
-                                 scae_params={}), device="cpu")
+    # reconstruct_alternatives is ported: the factory's default (True)
+    # builds, as it does in the JAX package
+    model = t_factory.make_scae(dict(t_factory.FLAGSHIP_MODEL_PARAMS,
+                                     scae_params={}), device="cpu")
+    assert model.reconstruct_alternatives is True
     # the banded kernels (K5) are ported: the decoder builds with them, and
     # the factory passes the value through
     decoder = t_pd.TemplateBasedImageDecoder(4, (5, 5), (8, 8),
