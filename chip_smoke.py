@@ -12,9 +12,12 @@ Phases, each announced when it starts and when it ends, with its seconds:
   kernel  each kernel against its plain PyTorch version at the main path's
           shapes and at edge shapes; the kernel's time, the plain
           version's, and the least time the card could take (the bound).
-          K1 is the gather forward (decoder likelihood), K2+K3 its
-          backward (also at the cifar10 shape, M=64, C=3, whose capsules
-          it splits over two blocks); K4f and K4b the dense forward and
+          K1 is the gather forward (decoder likelihood; also at the
+          cifar10 shape and at poses that put pixels on texel centres and
+          edges), K2+K3 its backward (also at the cifar10 shape, M=64,
+          C=3, and at the identity and zero poses, each case twice for the
+          same bits; the two printed beside their previous designs' times,
+          with their occupancy and waves); K4f and K4b the dense forward and
           backward (fused_impl="pallas"), also at the identity and zero
           poses and at a 17x17 template, K4b run twice for the same bits;
           K5f and K5b the banded ones (fused_impl="pallas_banded") at the
@@ -91,8 +94,7 @@ CPU_BATCH = 32         # batch of the card-vs-CPU train-step comparison
 KERNEL_TOL = 1e-4      # abs, kernel vs its plain version (f32 ulps of O(10))
 # backward kernel vs its plain version, relative to each output's largest
 # |entry| (for the three 0-d scalar gradients, to max(|value|, 1)): both are
-# f32 sums over pixels (and, for alpha, examples) taken in other orders, the
-# kernel's through atomics whose order changes from run to run
+# f32 sums over pixels (and, for alpha, examples) taken in other orders
 BWD_TOL = 1e-4
 TERM_RTOL = 1e-4       # card vs CPU, per loss term, relative to max(1, |cpu|)
 PROB_TOL = 1e-4        # card vs CPU, abs, on presences and probabilities
@@ -167,7 +169,10 @@ def k1_bound_ms(shape, alpha_batch=1):
 
     Bytes: each input read once (templates, alpha, pose, presence, target,
     3 scalars) and each output written once (ll, num, den).
-    Operations per (capsule, pixel) pair, as the kernel does them:
+    Operations per (capsule, pixel) pair: the function's work, as it was
+    fixed when K1 was first ported and kept since, so that the shares of
+    every design of the kernel compare (a design's own work, such as the
+    copies of the persistent kernel, is not counted):
       16  source coordinates (two 2-FMA affine maps, two 4-op rescales)
       14  taps (2 floors, 2 fractions, 2 complements, 8 bound tests)
        9  4-tap blend, per plane (C template planes + alpha)
@@ -268,20 +273,58 @@ def unrecorded_launches(torch, prof):
             f"have no device record: {where or 'none'}.")
 
 
+# Device time per launch of the gather kernels' previous designs at the
+# flagship, as PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W):
+# the yardstick the redesigned kernels are printed beside.
+PREVIOUS_MS = {"K1": (0.0593, 0.0606), "K2+K3": (0.5929, 0.6075)}
+IDENTITY_POSE = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
+ZERO_POSE = [0.0] * 6
+
+
+def occupancy(torch, blocks_per_sm, blocks):
+    """Blocks per SM, the card's slots for them and the waves a grid of
+    ``blocks`` takes, as text."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slots = blocks_per_sm * sms
+    return (f"{blocks_per_sm} blocks per SM "
+            f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor) x {sms} SMs = "
+            f"{slots} slots, {blocks} blocks: {blocks / slots:.2f} waves")
+
+
+def yardstick(kernel, ms, bound_ms):
+    lo, hi = PREVIOUS_MS[kernel]
+    return (f"previous design {lo:.4f}-{hi:.4f} ms per launch (recorded, "
+            f"PERF.md section 6; roofline share {bound_ms / hi:.1%}-"
+            f"{bound_ms / lo:.1%}), this design {ms:.4f} ms "
+            f"({ms / lo:.1%} of the previous design's best)")
+
+
 def kernel_phase(torch, card):
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
 
     cases = [
-        ("flagship", (BATCH, 40, 1, 11, 11, 40, 40), 0.6, False),
+        # (name, shape, pose noise, edge, fixed pose)
+        ("flagship", FLAGSHIP_SHAPE, 0.6, False, None),
         ("edge: raw pose noise 4.0, zero presences, degenerate poses, M=13",
-         (BATCH, 13, 1, 11, 11, 40, 40), 4.0, True),
+         (BATCH, 13, 1, 11, 11, 40, 40), 4.0, True, None),
         ("colour: C=3, 14x14 templates, >48 KB shared memory",
-         (16, 16, 3, 14, 14, 32, 32), 0.6, False),
+         (16, 16, 3, 14, 14, 32, 32), 0.6, False, None),
+        ("cifar10: M=64, C=3, two 93 KB example buffers", CIFAR10_SHAPE,
+         0.6, False, None),
+        ("identity pose, 11x11 canvas: coordinates on texel centres",
+         (BATCH, 40, 1, 11, 11, 11, 11), 0.6, False, IDENTITY_POSE),
+        ("twice the scale, 22x22 canvas: coordinates on texel edges",
+         (BATCH, 40, 1, 11, 11, 22, 22), 0.6, False,
+         [2.0, 0.0, 0.0, 0.0, 2.0, 0.0]),
+        ("zero pose: every coordinate the template's centre",
+         FLAGSHIP_SHAPE, 0.6, False, ZERO_POSE),
     ]
     flagship_err = None
-    for name, shape, noise, edge in cases:
-        args = k1_inputs(torch, shape, seed=1, pose_noise=noise, edge=edge)
-        smem = k1.shared_memory_bytes(*shape[1:5])
+    for name, shape, noise, edge, fixed in cases:
+        args = k1_inputs(torch, shape, seed=1, pose_noise=noise, edge=edge,
+                         fixed_pose=fixed)
+        buffers = k1.forward_buffers(*shape[1:5])
+        smem = k1.shared_memory_bytes(*shape[1:5], buffers=buffers)
         got = k1.decoder_ll_gather(*args)
         torch.cuda.synchronize()
         want = k1.decoder_ll_gather_plain(*args)
@@ -289,29 +332,40 @@ def kernel_phase(torch, card):
             if not bool(torch.isfinite(g).all()):
                 raise RuntimeError(f"K1 {name}: non-finite output")
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        say(f"K1 {name} {shape}: shared memory {smem} B, max abs err "
-            f"{err:.3e} (tolerance {KERNEL_TOL:.0e}) [{card}]")
+        say(f"K1 {name} {shape}: {buffers} example buffer(s), shared memory "
+            f"{smem} B, max abs err {err:.3e} (tolerance {KERNEL_TOL:.0e}) "
+            f"[{card}]")
         if not err < KERNEL_TOL:
             raise RuntimeError(f"K1 {name}: max abs err {err} exceeds "
                                f"{KERNEL_TOL}")
         if flagship_err is None:
             flagship_err = err
 
-    args = k1_inputs(torch, cases[0][1], seed=2)
+    args = k1_inputs(torch, FLAGSHIP_SHAPE, seed=2)
     ms = kernel_device_ms(torch, lambda: k1.decoder_ll_gather(*args),
                           "decoder_ll_gather_fwd_kernel")
     call_ms = time_cuda(torch, lambda: k1.decoder_ll_gather(*args),
                         iters=200, warmup=20)
     plain_ms = time_cuda(torch, lambda: k1.decoder_ll_gather_plain(*args),
                          iters=20, warmup=3)
-    bound_ms, bound_by, n_bytes, ops = k1_bound_ms(cases[0][1])
+    bound_ms, bound_by, n_bytes, ops = k1_bound_ms(FLAGSHIP_SHAPE)
+    B, M, C, Ht, Wt, H, W = FLAGSHIP_SHAPE
+    buffers = k1.forward_buffers(M, C, Ht, Wt)
+    per_sm = k1.blocks_per_sm(k1.SOURCE, M, C, Ht, Wt, 0, buffers)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    items = B * k1.forward_tiles(H * W)
+    blocks = min(items, per_sm * sms)
     say(f"K1 flagship time: kernel {ms:.4f} ms (device time per launch over "
         f"200 launches, torch.profiler), wrapper call {call_ms:.4f} ms (200 "
         f"back-to-back calls, CUDA events), "
         f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us by "
         f"{bound_by} ({n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP), "
         f"library_ms: none (no single PyTorch call computes this), "
-        f"roofline share {bound_ms / ms:.1%} [{card}]")
+        f"roofline share {bound_ms / ms:.1%}; "
+        f"{yardstick('K1', ms, bound_ms)}; persistent grid: "
+        f"{occupancy(torch, per_sm, blocks)}, {items} items of "
+        f"{-(-H * W // k1.forward_tiles(H * W))} pixels, "
+        f"{items / blocks:.2f} per block [{card}]")
     return dict(name="decoder_ll_gather_fwd", route="cuda",
                 source="scae_tpu_torch/csrc/decoder_ll_gather.cu",
                 replaces="scae_tpu/ops/pallas_decoder_ll_gather.py:565",
@@ -330,7 +384,12 @@ def bwd_bound_ms(torch, args, target_grad):
     3 scalars, g, num, den) and each output written once (the gradient
     table, alpha's gradient, pose, presence, 3 scalars, and the target's
     where asked for).
-    Operations per (capsule, pixel) pair, as the kernel does them:
+    Operations per (capsule, pixel) pair: the function's work, as it was
+    fixed when the backward was first ported and kept since, so that the
+    shares of every design of the kernel compare (the texel gather's
+    interval and candidate tests of the present design are its own cost and
+    are not counted; the four scatter products and adds below are the
+    template gradient's, whichever way it is summed):
       16  source coordinates, as K1
       18  taps (2 floors, 2 fractions, 8 bound tests, 6 for the four
           validity-folded weights)
@@ -377,38 +436,48 @@ def bwd_bound_ms(torch, args, target_grad):
 
 def bwd_kernel_phase(torch, card):
     """The backward kernel against the plain backward (autograd of K1's
-    plain version) at K1's shapes and with per-example alpha; its time."""
+    plain version) at K1's shapes, with per-example alpha, at the cifar10
+    shape and at the identity and zero poses; every case run twice for the
+    same bits; its time."""
     import numpy as np
 
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
 
     cases = [
-        ("flagship", (BATCH, 40, 1, 11, 11, 40, 40), 0.6, False, False),
+        # (name, shape, pose noise, edge, per-example alpha, fixed pose)
+        ("flagship", FLAGSHIP_SHAPE, 0.6, False, False, None),
         ("edge: raw pose noise 4.0, zero presences, degenerate poses, M=13",
-         (BATCH, 13, 1, 11, 11, 40, 40), 4.0, True, False),
-        ("colour: C=3, 14x14 templates, >48 KB shared memory",
-         (16, 16, 3, 14, 14, 32, 32), 0.6, False, False),
-        ("per-example alpha", (BATCH, 40, 1, 11, 11, 40, 40), 0.6, False,
-         True),
-        ("cifar10: M=64, C=3, 11x11", CIFAR10_SHAPE, 0.6, False, False),
+         (BATCH, 13, 1, 11, 11, 40, 40), 4.0, True, False, None),
+        ("colour: C=3, 14x14 templates", (16, 16, 3, 14, 14, 32, 32), 0.6,
+         False, False, None),
+        ("per-example alpha", FLAGSHIP_SHAPE, 0.6, False, True, None),
+        ("cifar10: M=64, C=3, 11x11", CIFAR10_SHAPE, 0.6, False, False,
+         None),
+        ("identity pose, 11x11 canvas: coordinates on texel centres",
+         (BATCH, 40, 1, 11, 11, 11, 11), 0.6, False, False, IDENTITY_POSE),
+        ("zero pose: every coordinate the template's centre",
+         FLAGSHIP_SHAPE, 0.6, False, False, ZERO_POSE),
     ]
     flagship_err = None
-    for name, shape, noise, edge, alpha_batched in cases:
+    for name, shape, noise, edge, alpha_batched, fixed in cases:
         args = k1_inputs(torch, shape, seed=1, pose_noise=noise, edge=edge,
-                         alpha_batched=alpha_batched)
+                         alpha_batched=alpha_batched, fixed_pose=fixed)
         B, C, H, W = shape[0], shape[2], shape[5], shape[6]
         g = torch.from_numpy(np.random.RandomState(3).randn(
             B, C, H, W).astype(np.float32) / B).cuda()
         _, num, den = k1.decoder_ll_gather(*args)
         got = k1.decoder_ll_gather_bwd(g, num, den, *args)
+        again = k1.decoder_ll_gather_bwd(g, num, den, *args)
         torch.cuda.synchronize()
         want = k1.decoder_ll_gather_bwd_plain(g, num, den, *args)
-        per_block = k1.bwd_capsules_per_block(*shape[1:5])
-        smem = k1.bwd_shared_memory_bytes(per_block, *shape[2:5])
+        smem = k1.bwd_shared_memory_bytes(*shape[2:5])
         worst = 0.0
-        for out, a, b in zip(GRAD_NAMES, got, want):
+        for out, a, b, c in zip(GRAD_NAMES, got, want, again):
             if not bool(torch.isfinite(a).all()):
                 raise RuntimeError(f"K2+K3 {name}: non-finite {out}")
+            if not torch.equal(a, c):
+                raise RuntimeError(f"K2+K3 {name}: d{out} differs between "
+                                   "two runs on the same inputs")
             scale = float(b.abs().max())
             if b.dim() == 0:
                 scale = max(scale, 1.0)
@@ -420,10 +489,11 @@ def bwd_kernel_phase(torch, card):
             if not err <= tol:
                 raise RuntimeError(f"K2+K3 {name}: d{out} max abs err {err}"
                                    f" exceeds {tol}")
-            worst = max(worst, err / scale)
-        say(f"K2+K3 {name}: {per_block} of {shape[1]} capsules per block, "
-            f"shared memory {smem} B, worst relative err {worst:.3e} "
-            f"[{card}]")
+            # (the zero pose's pose gradient is 0 everywhere, on both sides)
+            worst = max(worst, err / scale if scale else err)
+        say(f"K2+K3 {name}: one block of {k1.BWD_WARPS} warps per (capsule, "
+            f"example), shared memory {smem} B, worst relative err "
+            f"{worst:.3e}, a second run bit-identical [{card}]")
         if flagship_err is None:
             flagship_err = max(float((a - b).abs().max())
                                for a, b in zip(got, want))
@@ -440,12 +510,13 @@ def bwd_kernel_phase(torch, card):
         "decoder_ll_gather_bwd_kernel")
     cifar_bound = bwd_bound_ms(torch, args, target_grad=False)
     say(f"K2+K3 cifar10 time {cifar}: kernel {cifar_ms:.4f} ms (device time "
-        f"per launch over 200 launches, torch.profiler; "
-        f"{k1.bwd_capsules_per_block(*cifar[1:5])} capsules per block), "
-        f"bound {cifar_bound[0] * 1e3:.2f} us by {cifar_bound[1]} "
-        f"({cifar_bound[3] / 1e9:.3f} GFLOP) [{card}]")
+        f"per launch over 200 launches, torch.profiler; the previous design "
+        f"took 1.5733-1.5896 ms, PERF.md section 6), bound "
+        f"{cifar_bound[0] * 1e3:.2f} us by {cifar_bound[1]} "
+        f"({cifar_bound[3] / 1e9:.3f} GFLOP), roofline share "
+        f"{cifar_bound[0] / cifar_ms:.1%} [{card}]")
 
-    args = k1_inputs(torch, cases[0][1], seed=2)
+    args = k1_inputs(torch, FLAGSHIP_SHAPE, seed=2)
     _, num, den = k1.decoder_ll_gather(*args)
     g = torch.full((BATCH, 1, 40, 40), -1.0 / BATCH, device="cuda")
 
@@ -460,15 +531,19 @@ def bwd_kernel_phase(torch, card):
         g, num, den, *args, target_grad=False), iters=10, warmup=2)
     bound_ms, bound_by, n_bytes, ops, n_hit = bwd_bound_ms(
         torch, args, target_grad=False)
+    B, M, C, Ht, Wt, H, W = FLAGSHIP_SHAPE
+    per_sm = k1.blocks_per_sm(k1.BWD_SOURCE, C, Ht, Wt)
     say(f"K2+K3 flagship time: kernel {ms:.4f} ms (device time per launch "
         f"over 200 launches, torch.profiler), wrapper call {call_ms:.4f} ms "
-        f"(200 back-to-back calls, CUDA events, with the zeroing of its "
-        f"outputs and the alpha sum), plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms * 1e3:.2f} us by "
+        f"(200 back-to-back calls, CUDA events, with the sums of the scalar "
+        f"terms and of alpha's gradient over the batch), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us by "
         f"{bound_by} ({n_bytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP, "
         f"{n_hit} of {BATCH * 40 * 1600} capsule-pixel pairs touch their "
         f"template), library_ms: none (no single PyTorch call computes "
-        f"this), roofline share {bound_ms / ms:.1%} [{card}]")
+        f"this), roofline share {bound_ms / ms:.1%}; "
+        f"{yardstick('K2+K3', ms, bound_ms)}; grid (M + 1, B): "
+        f"{occupancy(torch, per_sm, (M + 1) * B)} [{card}]")
     return dict(name="decoder_ll_gather_bwd", route="cuda",
                 source="scae_tpu_torch/csrc/decoder_ll_gather_bwd.cu",
                 replaces="scae_tpu/ops/pallas_decoder_ll_gather.py:604",
@@ -487,7 +562,7 @@ def dense_kernel_phase(torch, card):
 
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
 
-    identity, zero = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0], [0.0] * 6
+    identity, zero = IDENTITY_POSE, ZERO_POSE
     cases = [
         # (name, shape, pose noise, edge, per-example alpha, fixed pose)
         ("flagship", FLAGSHIP_SHAPE, 0.6, False, False, None),
@@ -620,7 +695,7 @@ def banded_kernel_phase(torch, card):
 
     from scae_tpu_torch.kernels import decoder_ll_banded as k5
 
-    identity, zero = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0], [0.0] * 6
+    identity, zero = IDENTITY_POSE, ZERO_POSE
     cases = [
         # (name, shape, pose noise, edge, per-example alpha, fixed pose)
         ("flagship", FLAGSHIP_SHAPE, 0.6, False, False, None),
@@ -1216,8 +1291,8 @@ def eval_timing(torch, card, rows, tag, model, per_step):
 
 
 def cifar10_phase(torch, card):
-    """One train step of the shipped cifar10 model (M=64, C=3: K2+K3 splits
-    its capsules over two blocks) with noise off, card against CPU."""
+    """One train step of the shipped cifar10 model (M=64, C=3) with noise
+    off, card against CPU."""
     import numpy as np
 
     from scae_tpu_torch.factory import CIFAR10_MODEL_PARAMS
@@ -1536,8 +1611,11 @@ def trainer_card_vs_cpu_phase(torch, card, tmp):
     """4 steps at batch 32 with noise and translation off and f32 convs on
     the card and on the CPU from the same seed: per-step JSONL losses
     within TRAINER_RTOL; then the card run interrupted after 2 steps and
-    resumed, against the uninterrupted one (within the same tolerance: K2+K3
-    adds through atomics, so the last bits differ between runs)."""
+    resumed, against the uninterrupted one (within the same tolerance; it
+    was set while K2+K3 added through atomics, whose order changed the last
+    bits from run to run; the kernel is now deterministic, and the gap the
+    line prints says whether anything else, such as cuDNN's choice of
+    algorithm, still moves them)."""
     from scae_tpu_torch.config import load_config
     from scae_tpu_torch.train import cli, loop
 
@@ -1611,14 +1689,16 @@ def profile_phase(torch, name, step, images, labels, n, card):
     events = prof.key_averages()
     # the device-side events (kernels, copies, fills) alone: an operator's
     # row repeats the time of the kernels it launched
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(getattr(e, "self_device_time_total", None)
                   or getattr(e, "self_cuda_time_total", 0.0)
-                  for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA) \
-        / 1e3 / n
+                  for e in device) / 1e3 / n
+    per_step = sum(e.count for e in device) / n
     say(f"profile of {n} {name} step(s): device busy {busy_ms:.4f} ms per "
-        f"step, host clock {host_ms:.4f} ms per step under the profiler, "
-        f"idle share {1 - busy_ms / host_ms:.1%} [{card}]")
+        f"step, {per_step:.1f} device operations (kernels, copies, fills) "
+        f"per step, host clock {host_ms:.4f} ms per step under the "
+        f"profiler, idle share {1 - busy_ms / host_ms:.1%} [{card}]")
     say(events.table(sort_by="cuda_time_total", row_limit=25))
 
 

@@ -18,13 +18,14 @@ __device__ __forceinline__ float log_safe(float x) {
 }
 
 // One step of a streaming log-sum-exp: (mx, s) represents mx + log(s).
+// Without a branch, so that the lanes of a warp never diverge on it: one
+// exp of -|x - mx| serves both cases (x above the running max rescales the
+// sum, else x's term is added).
 __device__ __forceinline__ void lse_push(float x, float& mx, float& s) {
-  if (x > mx) {
-    s = s * expf(mx - x) + 1.0f;
-    mx = x;
-  } else {
-    s += expf(x - mx);
-  }
+  const float d = x - mx;
+  const float e = expf(-fabsf(d));
+  s = d > 0.0f ? s * e + 1.0f : s + e;
+  mx = fmaxf(mx, x);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -71,6 +72,95 @@ __device__ __forceinline__ void two_taps(float x, int n, float w[2], float dw[2]
 __device__ __forceinline__ void two_taps(float x, int n, float w[2], int k[2]) {
   float dw[2];
   two_taps(x, n, w, dw, k);
+}
+
+// Sums each of v[0..N) over a block of Warps warps in a fixed order (a warp
+// tree, then the warps in order); thread 0 gets the results.
+template <int N, int Warps>
+__device__ __forceinline__ void block_sums(float (&v)[N], float (*red)[Warps]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float s = warp_sum(v[k]);
+    if (lane == 0) red[k][warp] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float s = 0.0f;
+      for (int w = 0; w < Warps; ++w) s += red[k][w];
+      v[k] = s;
+    }
+  }
+}
+
+// The background component's terms of the three scalar gradients
+// (bg_value, bg_mixing_logit, scale) for example b, summed over its P
+// pixels by one block in a fixed order and written by thread 0 to out[0..3).
+// Used by the backward kernels that leave the sums over the capsules to
+// their wrapper.
+template <int C, int Warps>
+__device__ __forceinline__ void background_scalars(
+    const float* __restrict__ target, const float* __restrict__ g,
+    const float* __restrict__ num, const float* __restrict__ den, float bg_value,
+    float bg_mix, float inv_2var, float neg_const, float scale, int b, int P,
+    float (*red)[Warps], float* __restrict__ out) {
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // sum gq d, sum gq, sum gsum r, sum gq d^2
+  for (int p = threadIdx.x; p < P; p += blockDim.x) {
+    const float r = expf(bg_mix - den[static_cast<size_t>(b) * P + p]);
+    float gsum = 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
+      const float gc = g[o];
+      const float d = target[o] - bg_value;
+      const float dd = d * d;
+      const float gq = gc * expf(bg_mix + (-dd * inv_2var + neg_const) - num[o]);
+      gsum += gc;
+      v[0] += gq * d;
+      v[1] += gq;
+      v[3] += gq * dd;
+    }
+    v[2] += gsum * r;
+  }
+  block_sums(v, red);
+  if (threadIdx.x == 0) {
+    out[0] = v[0] * (2.0f * inv_2var);
+    out[1] = v[1] - v[2];
+    out[2] = v[3] / (scale * scale * scale) - v[1] / scale;
+  }
+}
+
+// The target's gradient: each capsule's term (tpart, written by a backward
+// kernel) summed over the capsules in order, plus the background's.
+// Grid: (pixel tiles of blockDim.x, B).
+template <int C>
+__global__ void decoder_ll_target_kernel(const float* __restrict__ target,  // (B, C, P)
+                                         const float* __restrict__ scal,    // bg_value, bg_mix, scale
+                                         const float* __restrict__ g,       // (B, C, P)
+                                         const float* __restrict__ num,     // (B, C, P)
+                                         const float* __restrict__ tpart,   // (B, M, C, P)
+                                         float* __restrict__ gtarget,       // (B, C, P)
+                                         int M, int P) {
+  const int b = blockIdx.y;
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const float bg_value = scal[0];
+  const float bg_mix = scal[1];
+  const float scale = scal[2];
+  const float inv_2var = 1.0f / (2.0f * scale * scale);
+  const float neg_const = -logf(scale) - kLogSqrt2Pi;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
+    float s = 0.0f;
+    for (int m = 0; m < M; ++m) s += tpart[((static_cast<size_t>(b) * M + m) * C + c) * P + p];
+    const float d = target[o] - bg_value;
+    const float gq = g[o] * expf(bg_mix + (-(d * d) * inv_2var + neg_const) - num[o]);
+    gtarget[o] = (s + gq * d) * (-2.0f * inv_2var);
+  }
 }
 
 }  // namespace

@@ -63,28 +63,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 2048;  // pixels staged per pass
 constexpr int kSums = 9;      // per block: 6 pose sums, gmix, sum gq d^2, sum gq
 
-// Sums each of v[0..N) over the block in a fixed order (a warp tree, then
-// the warps in order); thread 0 gets the results.
-template <int N>
-__device__ __forceinline__ void block_sums(float (&v)[N], float (*red)[kWarps]) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const float s = warp_sum(v[k]);
-    if (lane == 0) red[k][warp] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float s = 0.0f;
-      for (int w = 0; w < kWarps; ++w) s += red[k][w];
-      v[k] = s;
-    }
-  }
-}
-
 template <int C>
 __global__ void __launch_bounds__(kThreads)
 decoder_ll_dense_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, Ht*Wt)
@@ -121,33 +99,9 @@ decoder_ll_dense_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, H
   const float neg_const = -logf(scale) - kLogSqrt2Pi;
   const float s3 = scale * scale * scale;
 
-  if (m == M) {
-    // the background block: the scalar gradients' background terms
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // sum gq d, sum gq, sum gsum r, sum gq d^2
-    for (int p = threadIdx.x; p < P; p += blockDim.x) {
-      const float r = expf(bg_mix - den[static_cast<size_t>(b) * P + p]);
-      float gsum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
-        const float gc = g[o];
-        const float d = target[o] - bg_value;
-        const float dd = d * d;
-        const float gq = gc * expf(bg_mix + (-dd * inv_2var + neg_const) - num[o]);
-        gsum += gc;
-        v[0] += gq * d;
-        v[1] += gq;
-        v[3] += gq * dd;
-      }
-      v[2] += gsum * r;
-    }
-    block_sums(v, red);
-    if (threadIdx.x == 0) {
-      float* out = cscal + (static_cast<size_t>(b) * (M + 1) + M) * 3;
-      out[0] = v[0] * two_inv_2var;
-      out[1] = v[1] - v[2];
-      out[2] = v[3] / s3 - v[1] / scale;
-    }
+  if (m == M) {  // the background block
+    background_scalars<C>(target, g, num, den, bg_value, bg_mix, inv_2var, neg_const, scale, b,
+                          P, red, cscal + (static_cast<size_t>(b) * (M + 1) + M) * 3);
     return;
   }
 
@@ -308,36 +262,6 @@ decoder_ll_dense_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, H
   }
 }
 
-// The target's gradient: each capsule's term summed over the capsules in
-// order, plus the background's. Grid: (pixel tiles of 256, B).
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-decoder_ll_dense_target_kernel(const float* __restrict__ target,  // (B, C, P)
-                               const float* __restrict__ scal,    // bg_value, bg_mix, scale
-                               const float* __restrict__ g,       // (B, C, P)
-                               const float* __restrict__ num,     // (B, C, P)
-                               const float* __restrict__ tpart,   // (B, M, C, P)
-                               float* __restrict__ gtarget,       // (B, C, P)
-                               int M, int P) {
-  const int b = blockIdx.y;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const float bg_value = scal[0];
-  const float bg_mix = scal[1];
-  const float scale = scal[2];
-  const float inv_2var = 1.0f / (2.0f * scale * scale);
-  const float neg_const = -logf(scale) - kLogSqrt2Pi;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
-    float s = 0.0f;
-    for (int m = 0; m < M; ++m) s += tpart[((static_cast<size_t>(b) * M + m) * C + c) * P + p];
-    const float d = target[o] - bg_value;
-    const float gq = g[o] * expf(bg_mix + (-(d * d) * inv_2var + neg_const) - num[o]);
-    gtarget[o] = (s + gq * d) * (-2.0f * inv_2var);
-  }
-}
-
 template <int C>
 int launch(const float* templates, const float* alpha, const float* pose,
            const float* presence, const float* target, const float* scal, const float* g,
@@ -361,7 +285,7 @@ int launch(const float* templates, const float* alpha, const float* pose,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || gtarget == nullptr) return static_cast<int>(e);
   const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  decoder_ll_dense_target_kernel<C><<<grid, kThreads, 0, stream>>>(target, scal, g, num, tpart,
+  decoder_ll_target_kernel<C><<<grid, kThreads, 0, stream>>>(target, scal, g, num, tpart,
                                                                    gtarget, M, H * W);
   return static_cast<int>(cudaGetLastError());
 }

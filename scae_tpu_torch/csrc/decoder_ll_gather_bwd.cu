@@ -1,4 +1,5 @@
-// Fused template-decoder reconstruction log-likelihood, backward, for Hopper.
+// Fused template-decoder reconstruction log-likelihood, backward, for Hopper
+// (K2+K3).
 //
 // Replaces the two Pallas kernels of the JAX package's gather backward,
 // scae_tpu/ops/pallas_decoder_ll_gather.py: _bwd_kernel (split mode, its
@@ -7,51 +8,78 @@
 // scae_tpu/ops/decoder_ll.py::_bwd.
 //
 // Given the upstream gradient g = dL/dll (B, C, P) and the forward's
-// log-sum-exps num (B, C, P) and den (B, 1, P), each thread owns one output
-// pixel p of one example b and loops over the M capsules, recomputing the
-// forward's warp (coordinates, validity-folded taps, the 4 texels of each
-// plane):
+// log-sum-exps num (B, C, P) and den (B, 1, P), for capsule m at output
+// pixel p, recomputing the forward's warp (coordinates, validity-folded
+// taps, the 4 texels of each plane):
 //   r       = exp(mix - den),   q[c] = exp(mix + lp[c] - num[c]),  gq = g q
 //   gV[c]   = gq[c] (t[c] - V[c]) / s^2
 //   gmix    = sum_c gq[c] - (sum_c g[c]) r
 //   g_ix    = sum_cc gval[cc] * dV[cc]/dix   (masked texels; the same for iy)
-//   gpose  += (g_ix x, g_ix y, g_ix) Wt/2, (g_iy x, g_iy y, g_iy) Ht/2
-//   gpres  += gmix / presence   (0 where presence < 1e-16, as log_safe)
-//   gtab[m, cc, tap] += gval[cc] * wy_a * wx_b   for the 4 taps
-// plus, per pixel, the target gradient and the three scalar-gradient rows
+//   gpose   = sum_p (g_ix x, g_ix y, g_ix) Wt/2, (g_iy x, g_iy y, g_iy) Ht/2
+//   gpres   = sum_p gmix / presence   (0 where presence < 1e-16, as log_safe)
+//   gtab[m, cc, h, w] = sum_p gval[cc] wy[h] wx[w]   over p's 4 taps
+// plus, per pixel, the target gradient and the three scalar gradients
 // (bg_value, bg_mixing_logit, scale), which the TPU kernel returns as rows.
 //
 // The TPU needs two kernels because Mosaic has no scatter: its first kernel
 // writes the (B, C+1, M, P) upstream planes to HBM in bf16 and the second
-// contracts them on the MXU against dense tap rows. On Hopper the template
-// gradient is a scatter-add: each (capsule, pixel) adds its 4 tap weights
-// times the C+1 upstream values into a per-capsule gradient table in shared
-// memory laid out like the forward's texel table (M x (C+1) x Ht*Wt), and
-// the block adds the table to global memory once at its end. So the
-// (B, C+1, M, P) planes never exist (65.5 MB each in f32 at the flagship),
-// and one kernel does the work of both. Sums over pixels (pose, presence,
-// scalar rows) are warp-shuffle reductions into shared memory, then one
-// global atomicAdd per value per block; atomics make the summation order,
-// and so the last bits, change from run to run.
+// contracts them on the MXU against dense tap rows. Here one kernel does
+// both, and the planes never leave the block.
+//
+// Design. Given num and den, capsule m's gradient terms need only its own
+// values, so a block owns one (capsule, example) pair, as K4b's
+// (decoder_ll_dense_bwd.cu), and writes each of its outputs once with a
+// plain store; one more block per example does the background's terms.
+// Each warp walks the pixels 32 at a time, one per lane, and computes
+// gval (C + 1 values), g_ix and g_iy; the pose, presence and scale
+// partials stay in the lane's registers and are reduced once per block in
+// a fixed order (common.cuh::block_sums). The template gradient is a
+// scatter of each pixel's 4 tap weights times gval, made without atomics:
+//   - the key of a pixel is its output row and the cell (floor(iy),
+//     floor(ix)) of its taps. Along a row the source coordinates are
+//     affine in the column, and their rounding (common.cuh::source_coord)
+//     keeps them monotone, so the pixels of one row with equal keys are
+//     neighbours: each run of equal keys among a warp's 32 pixels is
+//     summed by its last lane, in lane order, from the lanes' values in
+//     shared memory;
+//   - the run ends then add their 4 sums into the warp's own gradient
+//     table, one tap at a time and one output row at a time, so that no
+//     two lanes ever write one address together (within a row and a tap,
+//     distinct runs hit distinct texels);
+//   - the block's warps' tables are added in order at the end.
+// The taps are the value's own (the weights computed for V), so the
+// scatter takes the same tap decisions as the value and its derivative,
+// exact at texel centres and edges. Sums over the capsules are the
+// wrapper's, as in K4b: the scale's and the background's scalar terms go
+// to a (B, M+1, 3) buffer, and, where the target's gradient is asked for,
+// each capsule's term per pixel to a (B, M, C, P) buffer that
+// common.cuh::decoder_ll_target_kernel sums over the capsules in order. No
+// floating-point atomics anywhere: the results are bit-identical from run
+// to run, and no output needs zeroing.
+//
+// What this does about the earlier design's costs (one block per 256-pixel
+// tile and example, all M capsules; every tap added to a per-block table
+// with a float atomic add in shared memory, which sm_90a compiles to a
+// compare-and-swap loop that conflicting lanes retry, 69% of its time):
+// (1) no shared atomics: a run of pixels with one key is summed by one
+// lane, and no two lanes write one address together; (2) one block
+// reduction per capsule instead of 7 warp reductions and 7 shared atomics
+// per capsule per warp; (3) 9.4 KB of shared memory at the flagship
+// instead of 79.7 KB, and 5,248 small blocks in place of 896 large ones,
+// so more blocks fit an SM and the last wave is a small share of the run;
+// (4) no global atomics: every output entry is stored once by the block
+// that owns it; (5) no zeroing launches before the kernel, and the same
+// bits on every run.
 //
 // Bound on the H100 SXM (flagship: B=128, M=40, C=1, 11x11 -> 40x40): the
 // bytes in and out are ~11 MB (about 3.3 us at 3.35 TB/s), while the
-// arithmetic is 76 f32 operations for each of the 8.19 M (capsule, pixel)
-// pairs plus 74 more for each pair whose taps touch the template (about
-// half of them with random poses): ~0.94 GFLOP, 14 us at 67 TFLOP/s
-// (chip_smoke.py's bwd_bound_ms counts them from this code and the run's
-// data), so the kernel is bound by f32 operations.
-// Grid: (pixel tiles of 256, B, capsule groups); one thread per output
-// pixel. A block holds the tables of one group of Mb capsules, at most
-// all M: the capsule and gradient tables of all 64 capsules of the cifar10
-// shape (M=64, C=3, 11x11) need 251,392 bytes, more than a block's 232,448,
-// so the wrapper splits them into as few groups as fit (one group, as
-// before, at the flagship; two of 32 at the cifar10 shape). Given num and
-// den, each capsule's gradient terms need only its own values; only the
-// target gradient and the scalar rows sum over the capsules, and with more
-// than one group each group adds its share into them through atomics
-// (the target gradient then arrives zeroed), the first group adding the
-// background's.
+// function's arithmetic is 76 f32 operations for each of the 8.19 M
+// (capsule, pixel) pairs plus 74 more for each pair whose taps touch the
+// template (about half of them with random poses): ~0.94 GFLOP, 14 us at
+// 67 TFLOP/s (chip_smoke.py's bwd_bound_ms, fixed with the first port as
+// the function's work: the runs' bookkeeping here is this design's own
+// cost, not counted), so the kernel is bound by f32 operations.
+// Grid: (M + 1, B); kThreads threads per block.
 //
 // Built by scae_tpu_torch/kernels/_build.py with plain nvcc into a shared
 // library; scae_tpu_torch/kernels/decoder_ll_gather.py binds it with ctypes.
@@ -60,9 +88,43 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPart = 7;  // per capsule: 6 pose partials, then presence
+constexpr int kSums = 9;  // per block: 6 pose sums, gmix, sum gq d^2, sum gq
+
+// Floats a texel of the capsule table takes in shared memory: its C + 1
+// planes, padded for one vector load.
+__host__ __device__ constexpr int tex_stride(int C) {
+  return C + 1 <= 2 ? 2 : (C + 1 <= 4 ? 4 : 8);
+}
+
+// Loads N floats (N = 2, 4 or 8) at an 8- or 16-byte aligned shared-memory
+// address with vector instructions.
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float* v) {
+  if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + q);
+      v[q] = t.x;
+      v[q + 1] = t.y;
+      v[q + 2] = t.z;
+      v[q + 3] = t.w;
+    }
+  }
+}
+
+// Floats of a block's dynamic shared memory: the capsule table (T, TS),
+// each warp's gradient table (C + 1, T), and each warp's scratch: the
+// 4 (C + 1) tap values of its 32 pixels and their keys.
+size_t shared_floats(int C, int Ht, int Wt) {
+  const size_t T = static_cast<size_t>(Ht) * Wt;
+  return T * tex_stride(C) + kWarps * ((C + 1) * T + (4 * (C + 1) + 1) * 32);
+}
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -77,59 +139,23 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
                              const float* __restrict__ den,        // (B, 1, P)
                              const float* __restrict__ grid_x,     // (P,) output x in [-1, 1]
                              const float* __restrict__ grid_y,     // (P,) output y in [-1, 1]
-                             float* __restrict__ gtab,             // (B, M, C+1, Ht*Wt), zeroed
-                             float* __restrict__ gpose,            // (B, M, 6), zeroed
-                             float* __restrict__ gpres,            // (B, M), zeroed
-                             float* __restrict__ gtarget,          // (B, C, P) or null
-                             float* __restrict__ gscal,            // (3,), zeroed
-                             int M_total, int Mb, int Ht, int Wt, int H, int W,
-                             int alpha_batched) {
+                             float* __restrict__ gtab,             // (B, M, C+1, Ht*Wt)
+                             float* __restrict__ gpose,            // (B, M, 6)
+                             float* __restrict__ gpres,            // (B, M)
+                             float* __restrict__ cscal,            // (B, M+1, 3)
+                             float* __restrict__ tpart,            // (B, M, C, P) or null
+                             int M, int Ht, int Wt, int H, int W, int alpha_batched) {
   constexpr int CC = C + 1;
-  extern __shared__ float smem[];
-  __shared__ float red[3][kWarps];
+  constexpr int TS = tex_stride(C);
+  constexpr int NV = 4 * CC;  // tap values of a pixel: (tap, plane)
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kSums][kWarps];
   const int T = Ht * Wt;
   const int P = H * W;
+  const int m = blockIdx.x;
   const int b = blockIdx.y;
-  const int m0 = blockIdx.z * Mb;          // this block's capsule group
-  const int M = min(Mb, M_total - m0);     // its capsules
-  const bool first = blockIdx.z == 0;      // the group that adds the background's terms
-  const bool split = gridDim.z > 1;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* tab = smem;                // (M, CC, T): C template planes, then alpha
-  float* spose = tab + M * CC * T;  // (M, 6)
-  float* slp = spose + M * 6;       // (M,) log_safe(presence)
-  float* gt = slp + M;              // (M, CC, T) gradient table
-  float* part = gt + M * CC * T;    // (M, kPart) pixel sums of this block
-  const size_t bm0 = static_cast<size_t>(b) * M_total + m0;  // (b, m0) in (B, M_total)
-
-  const float* tb = templates + bm0 * C * T;
-  for (int i = threadIdx.x; i < M * C * T; i += blockDim.x) {
-    const int m = i / (C * T);
-    tab[m * CC * T + (i - m * C * T)] = tb[i];
-  }
-  const float* ab = alpha + (alpha_batched ? bm0 : static_cast<size_t>(m0)) * T;
-  for (int i = threadIdx.x; i < M * T; i += blockDim.x) {
-    const int m = i / T;
-    tab[m * CC * T + C * T + (i - m * T)] = ab[i];
-  }
-  for (int i = threadIdx.x; i < M * 6; i += blockDim.x) {
-    spose[i] = pose[bm0 * 6 + i];
-  }
-  for (int i = threadIdx.x; i < M; i += blockDim.x) {
-    slp[i] = log_safe(presence[bm0 + i]);
-  }
-  for (int i = threadIdx.x; i < M * CC * T + M * kPart; i += blockDim.x) {
-    gt[i] = 0.0f;  // the gradient table and the partials are contiguous
-  }
-  __syncthreads();
-
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  // threads past the last pixel take part in the warp reductions with zeros
-  const bool active = p < P;
-  // the grid comes from the wrapper, as the plain version computes it
-  const float gx = active ? grid_x[p] : 0.0f;
-  const float gy = active ? grid_y[p] : 0.0f;
 
   const float bg_value = scal[0];
   const float bg_mix = scal[1];
@@ -137,29 +163,51 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
   const float inv_2var = 1.0f / (2.0f * scale * scale);
   const float two_inv_2var = 2.0f * inv_2var;
   const float neg_const = -logf(scale) - kLogSqrt2Pi;
+
+  if (m == M) {  // the background block
+    background_scalars<C>(target, g, num, den, bg_value, bg_mix, inv_2var, neg_const, scale, b,
+                          P, red, cscal + (static_cast<size_t>(b) * (M + 1) + M) * 3);
+    return;
+  }
+
+  const size_t bm = static_cast<size_t>(b) * M + m;
+  float* tab = smem;                        // (T, TS): C template planes, then alpha
+  float* wtab = tab + T * TS;               // (kWarps, CC, T) the warps' gradient tables
+  float* scratch = wtab + kWarps * CC * T;  // (kWarps, NV + 1, 32)
+  float* mytab = wtab + warp * CC * T;
+  float* vals = scratch + warp * (NV + 1) * 32;        // (NV, 32) this warp's tap values
+  int* keys = reinterpret_cast<int*>(vals + NV * 32);  // (32,) and their keys
+
+  const float* tm = templates + bm * C * T;
+  for (int i = threadIdx.x; i < C * T; i += blockDim.x) {
+    const int c = i / T;
+    tab[(i - c * T) * TS + c] = tm[i];
+  }
+  const float* am = alpha + (alpha_batched ? bm : static_cast<size_t>(m)) * T;
+  for (int i = threadIdx.x; i < T; i += blockDim.x) tab[i * TS + C] = am[i];
+  for (int i = threadIdx.x; i < kWarps * CC * T; i += blockDim.x) wtab[i] = 0.0f;
+  float pm[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) pm[k] = pose[bm * 6 + k];
+  const float pres = presence[bm];
+  const float lp_m = log_safe(pres);
   const float fHt = static_cast<float>(Ht);
   const float fWt = static_cast<float>(Wt);
+  __syncthreads();
 
-  float t[C], gc[C], nm[C], tg[C];
-  float gsum = 0.0f;
+  // per-lane pixel sums: 6 pose partials, gmix, sum gq d^2, sum gq
+  float sums[kSums];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
-    t[c] = active ? target[o] : 0.0f;
-    gc[c] = active ? g[o] : 0.0f;
-    nm[c] = active ? num[o] : 0.0f;
-    tg[c] = 0.0f;
-    gsum += gc[c];
-  }
-  const float dn = active ? den[static_cast<size_t>(b) * P + p] : 0.0f;
-  float sq_acc = 0.0f;  // sum of gq (t - v)^2 over every component and channel
-  float q_acc = 0.0f;   // sum of gq over every component and channel
+  for (int k = 0; k < kSums; ++k) sums[k] = 0.0f;
 
-  for (int m = 0; m < M; ++m) {
-    float gmix = 0.0f, gix = 0.0f, giy = 0.0f;
-    bool hit = false;  // some tap of this capsule lies inside the template
-    if (active) {
-      const float* pm = spose + m * 6;
+  // every lane of a warp takes part in each pass, with or without a pixel
+  for (int base = warp * 32; base < P; base += kThreads) {
+    const int p = base + lane;
+    int key = -1 - lane;  // no pixel, or no tap in the template: a run of its own
+    int h0i = 0, w0i = 0;
+    if (p < P) {
+      const float gx = grid_x[p];
+      const float gy = grid_y[p];
       const float ix = source_coord(pm[0], pm[1], pm[2], gx, gy, fWt);
       const float iy = source_coord(pm[3], pm[4], pm[5], gx, gy, fHt);
       const float h0 = floorf(iy);
@@ -178,40 +226,50 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
       const int ih1 = static_cast<int>(fminf(fmaxf(h0 + 1.0f, 0.0f), fHt - 1.0f));
       const int iw0 = static_cast<int>(fminf(fmaxf(w0, 0.0f), fWt - 1.0f));
       const int iw1 = static_cast<int>(fminf(fmaxf(w0 + 1.0f, 0.0f), fWt - 1.0f));
-      const int k00 = ih0 * Wt + iw0, k01 = ih0 * Wt + iw1;
-      const int k10 = ih1 * Wt + iw0, k11 = ih1 * Wt + iw1;
-      hit = (vy0 + vy1) * (vx0 + vx1) > 0.0f;
+      const bool hit = (vy0 + vy1) * (vx0 + vx1) > 0.0f;
 
-      const float* tm = tab + m * CC * T;
       float tx[CC][4], v[CC];
+      {
+        const int k[4] = {ih0 * Wt + iw0, ih0 * Wt + iw1, ih1 * Wt + iw0, ih1 * Wt + iw1};
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float planes[TS];
+          load_vec<TS>(tab + k[t] * TS, planes);
+#pragma unroll
+          for (int cc = 0; cc < CC; ++cc) tx[cc][t] = planes[cc];
+        }
+      }
 #pragma unroll
       for (int cc = 0; cc < CC; ++cc) {
-        const float* tc = tm + cc * T;
-        tx[cc][0] = tc[k00];
-        tx[cc][1] = tc[k01];
-        tx[cc][2] = tc[k10];
-        tx[cc][3] = tc[k11];
         v[cc] = wy0 * (wx0 * tx[cc][0] + wx1 * tx[cc][1]) +
                 wy1 * (wx0 * tx[cc][2] + wx1 * tx[cc][3]);
       }
-      const float mix = v[C] + slp[m];
+      const float mix = v[C] + lp_m;
+      const float dn = den[static_cast<size_t>(b) * P + p];
       float gval[CC];
-      gmix = -gsum * expf(mix - dn);
+      float gsum = 0.0f, gq_sum = 0.0f;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const float d = t[c] - v[c];
+        const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
+        const float gc = g[o];
+        const float d = target[o] - v[c];
         const float dd = d * d;
-        const float gq = gc[c] * expf(mix + (-dd * inv_2var + neg_const) - nm[c]);
+        const float gq = gc * expf(mix + (-dd * inv_2var + neg_const) - num[o]);
         gval[c] = gq * d * two_inv_2var;
-        gmix += gq;
-        tg[c] += gq * d;
-        sq_acc += gq * dd;
-        q_acc += gq;
+        gsum += gc;
+        gq_sum += gq;
+        sums[7] += gq * dd;
+        if (tpart != nullptr) tpart[(bm * C + c) * P + p] = gq * d;
       }
+      const float gmix = gq_sum - gsum * expf(mix - dn);
       gval[C] = gmix;
+      sums[6] += gmix;
+      sums[8] += gq_sum;
 
       if (hit) {
-        // dV/dix and dV/diy from the validity-masked texels
+        // dV/dix and dV/diy from the validity-masked texels (one-sided at a
+        // texel centre, as the 4-tap form's autograd)
+        float gix = 0.0f, giy = 0.0f;
 #pragma unroll
         for (int cc = 0; cc < CC; ++cc) {
           const float dx = wy0 * (vx1 * tx[cc][1] - vx0 * tx[cc][0]) +
@@ -221,129 +279,120 @@ decoder_ll_gather_bwd_kernel(const float* __restrict__ templates,  // (B, M, C, 
           gix += gval[cc] * dx;
           giy += gval[cc] * dy;
         }
-        // scatter the tap weights into the gradient table; taps outside the
-        // template have weight 0 and are skipped
-        const float w00 = wy0 * wx0, w01 = wy0 * wx1, w10 = wy1 * wx0, w11 = wy1 * wx1;
-        float* gm = gt + m * CC * T;
+        sums[0] += gix * gx;
+        sums[1] += gix * gy;
+        sums[2] += gix;
+        sums[3] += giy * gx;
+        sums[4] += giy * gy;
+        sums[5] += giy;
+
+        // the tap values, and the key: the output row and the taps' cell
+        const float wt[4] = {wy0 * wx0, wy0 * wx1, wy1 * wx0, wy1 * wx1};
 #pragma unroll
-        for (int cc = 0; cc < CC; ++cc) {
-          float* gcp = gm + cc * T;
-          if (w00 != 0.0f) atomicAdd(gcp + k00, gval[cc] * w00);
-          if (w01 != 0.0f) atomicAdd(gcp + k01, gval[cc] * w01);
-          if (w10 != 0.0f) atomicAdd(gcp + k10, gval[cc] * w10);
-          if (w11 != 0.0f) atomicAdd(gcp + k11, gval[cc] * w11);
-        }
-      }
-    }
-
-    float* pp = part + m * kPart;
-    const float gm_sum = warp_sum(gmix);
-    if (lane == 0) atomicAdd(pp + 6, gm_sum);
-    if (__any_sync(kFull, hit)) {
-      const float s0 = warp_sum(gix * gx);
-      const float s1 = warp_sum(gix * gy);
-      const float s2 = warp_sum(gix);
-      const float s3 = warp_sum(giy * gx);
-      const float s4 = warp_sum(giy * gy);
-      const float s5 = warp_sum(giy);
-      if (lane == 0) {
-        atomicAdd(pp + 0, s0);
-        atomicAdd(pp + 1, s1);
-        atomicAdd(pp + 2, s2);
-        atomicAdd(pp + 3, s3);
-        atomicAdd(pp + 4, s4);
-        atomicAdd(pp + 5, s5);
-      }
-    }
-  }
-
-  // background component (first group only): target gradient and the
-  // scalar-gradient rows
-  float row0 = 0.0f, row1 = 0.0f, row2 = 0.0f;
-  if (active) {
-    float gq_bg_sum = 0.0f, gbv = 0.0f;
+        for (int t = 0; t < 4; ++t) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float bg_term = 0.0f;
-      if (first) {
-        const float d = t[c] - bg_value;
-        const float dd = d * d;
-        const float gq = gc[c] * expf(bg_mix + (-dd * inv_2var + neg_const) - nm[c]);
-        gq_bg_sum += gq;
-        gbv += gq * d;
-        sq_acc += gq * dd;
-        q_acc += gq;
-        bg_term = gq * d;
-      }
-      if (gtarget != nullptr) {
-        float* o = gtarget + (static_cast<size_t>(b) * C + c) * P + p;
-        const float v = (tg[c] + bg_term) * -two_inv_2var;
-        if (split) {
-          atomicAdd(o, v);
-        } else {
-          *o = v;
+          for (int cc = 0; cc < CC; ++cc) vals[(t * CC + cc) * 32 + lane] = gval[cc] * wt[t];
         }
+        h0i = static_cast<int>(h0);
+        w0i = static_cast<int>(w0);
+        key = ((p / W) * (Ht + 1) + h0i + 1) * (Wt + 1) + w0i + 1;
       }
     }
-    if (first) {
-      row0 = gbv * two_inv_2var;
-      row1 = gq_bg_sum - gsum * expf(bg_mix - dn);
-    }
-    row2 = sq_acc / (scale * scale * scale) - q_acc / scale;
-  }
-  row0 = warp_sum(row0);
-  row1 = warp_sum(row1);
-  row2 = warp_sum(row2);
-  if (lane == 0) {
-    red[0][warp] = row0;
-    red[1][warp] = row1;
-    red[2][warp] = row2;
-  }
-  __syncthreads();  // also orders every shared atomic before the flush
+    keys[lane] = key;
+    __syncwarp();
 
-  if (threadIdx.x < 3) {
+    // the last lane of each run of equal keys sums the run, in lane order
+    const bool end = key >= 0 && (lane == 31 || keys[lane + 1] != key);
+    float run[NV];
+    if (end) {
+      int first = lane;
+      while (first > 0 && keys[first - 1] == key) --first;
+#pragma unroll
+      for (int e = 0; e < NV; ++e) run[e] = vals[e * 32 + first];
+      for (int l = first + 1; l <= lane; ++l) {
+#pragma unroll
+        for (int e = 0; e < NV; ++e) run[e] += vals[e * 32 + l];
+      }
+    }
+    // into the warp's table, one output row and one tap at a time: within
+    // a row, distinct runs have distinct cells, so no two lanes write one
+    // texel at once
+    const int row = p / W;
+    const int last_row = min(base + 31, P - 1) / W;
+    for (int r = base / W; r <= last_row; ++r) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int h = h0i + (t >> 1);
+        const int w = w0i + (t & 1);
+        if (end && row == r && h >= 0 && h < Ht && w >= 0 && w < Wt) {
+          float* dst = mytab + h * Wt + w;
+#pragma unroll
+          for (int cc = 0; cc < CC; ++cc) dst[cc * T] += run[t * CC + cc];
+        }
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+
+  float* gt = gtab + bm * CC * T;
+  for (int i = threadIdx.x; i < CC * T; i += blockDim.x) {
     float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += red[threadIdx.x][w];
-    atomicAdd(gscal + threadIdx.x, s);
+    for (int w = 0; w < kWarps; ++w) s += wtab[w * CC * T + i];
+    gt[i] = s;
   }
-  float* gtb = gtab + bm0 * CC * T;
-  for (int i = threadIdx.x; i < M * CC * T; i += blockDim.x) {
-    const float v = gt[i];
-    if (v != 0.0f) atomicAdd(gtb + i, v);
+
+  block_sums(sums, red);
+  if (threadIdx.x == 0) {
+    const float cx = 0.5f * fWt;
+    const float cy = 0.5f * fHt;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) gpose[bm * 6 + k] = sums[k] * (k < 3 ? cx : cy);
+    gpres[bm] = pres < kPresEps ? 0.0f : sums[6] / pres;
+    float* out = cscal + (static_cast<size_t>(b) * (M + 1) + m) * 3;
+    out[0] = 0.0f;
+    out[1] = 0.0f;
+    out[2] = sums[7] / (scale * scale * scale) - sums[8] / scale;
   }
-  const float cx = 0.5f * fWt;
-  const float cy = 0.5f * fHt;
-  for (int i = threadIdx.x; i < M * 6; i += blockDim.x) {
-    const int m = i / 6;
-    const int k = i - m * 6;
-    atomicAdd(gpose + bm0 * 6 + i, part[m * kPart + k] * (k < 3 ? cx : cy));
-  }
-  for (int m = threadIdx.x; m < M; m += blockDim.x) {
-    const float pr = presence[bm0 + m];
-    if (pr >= kPresEps) atomicAdd(gpres + bm0 + m, part[m * kPart + 6] / pr);
-  }
+}
+
+template <int C>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(decoder_ll_gather_bwd_kernel<C>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <int C>
 int launch(const float* templates, const float* alpha, const float* pose,
            const float* presence, const float* target, const float* scal, const float* g,
            const float* num, const float* den, const float* grid_x, const float* grid_y,
-           float* gtab, float* gpose, float* gpres, float* gtarget, float* gscal, int B, int M,
-           int Mb, int Ht, int Wt, int H, int W, int alpha_batched, cudaStream_t stream) {
-  const size_t smem =
-      (2 * static_cast<size_t>(Mb) * (C + 1) * Ht * Wt + static_cast<size_t>(Mb) * (7 + kPart)) *
-      sizeof(float);
-  auto kernel = decoder_ll_gather_bwd_kernel<C>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B, (M + Mb - 1) / Mb);
-  kernel<<<grid, kThreads, smem, stream>>>(templates, alpha, pose, presence, target, scal, g,
-                                           num, den, grid_x, grid_y, gtab, gpose, gpres,
-                                           gtarget, gscal, M, Mb, Ht, Wt, H, W, alpha_batched);
+           float* gtab, float* gpose, float* gpres, float* cscal, float* tpart, float* gtarget,
+           int B, int M, int Ht, int Wt, int H, int W, int alpha_batched, cudaStream_t stream) {
+  const size_t smem = shared_floats(C, Ht, Wt) * sizeof(float);
+  cudaError_t e = prepare<C>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decoder_ll_gather_bwd_kernel<C><<<dim3(M + 1, B), kThreads, smem, stream>>>(
+      templates, alpha, pose, presence, target, scal, g, num, den, grid_x, grid_y, gtab, gpose,
+      gpres, cscal, tpart, M, Ht, Wt, H, W, alpha_batched);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || gtarget == nullptr) return static_cast<int>(e);
+  const dim3 grid((H * W + 255) / 256, B);
+  decoder_ll_target_kernel<C><<<grid, 256, 0, stream>>>(target, scal, g, num, tpart, gtarget, M,
+                                                        H * W);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int occupancy(size_t smem) {
+  cudaError_t e = prepare<C>(smem);
+  int blocks = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, decoder_ll_gather_bwd_kernel<C>,
+                                                      kThreads, smem);
+  }
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
 }  // namespace
@@ -353,18 +402,16 @@ extern "C" {
 // Launches the backward on `stream` and returns cudaGetLastError() (0 on
 // success). Every pointer is a contiguous float32 device array (see the
 // kernel's parameter comments for the shapes); grid_x and grid_y are the
-// output grid as scae_tpu_torch/ops/warp.py::_base_grid gives it, flattened;
-// gtab, gpose, gpres and gscal
-// must be zeroed, and gtarget may be null where no target gradient is
-// needed; it must be zeroed too where Mb < M. Mb is the number of capsules
-// a block takes, 1..M. C must be 1..4.
+// output grid as scae_tpu_torch/ops/warp.py::_base_grid gives it, flattened.
+// Every output is written in full, so none needs zeroing. tpart and
+// gtarget are both null (no target gradient) or both given. C must be 1..4.
 int scae_decoder_ll_gather_bwd(const void* templates, const void* alpha, const void* pose,
                                const void* presence, const void* target, const void* scal,
                                const void* g, const void* num, const void* den,
                                const void* grid_x, const void* grid_y, void* gtab,
-                               void* gpose, void* gpres, void* gtarget, void* gscal, int B,
-                               int M, int Mb, int C, int Ht, int Wt, int H, int W,
-                               int alpha_batched, void* stream) {
+                               void* gpose, void* gpres, void* cscal, void* tpart,
+                               void* gtarget, int B, int M, int C, int Ht, int Wt, int H,
+                               int W, int alpha_batched, void* stream) {
   const auto* t = static_cast<const float*>(templates);
   const auto* a = static_cast<const float*>(alpha);
   const auto* po = static_cast<const float*>(pose);
@@ -379,21 +426,35 @@ int scae_decoder_ll_gather_bwd(const void* templates, const void* alpha, const v
   auto* o_tab = static_cast<float*>(gtab);
   auto* o_pose = static_cast<float*>(gpose);
   auto* o_pres = static_cast<float*>(gpres);
+  auto* o_scal = static_cast<float*>(cscal);
+  auto* o_part = static_cast<float*>(tpart);
   auto* o_tgt = static_cast<float*>(gtarget);
-  auto* o_scal = static_cast<float*>(gscal);
   auto s = static_cast<cudaStream_t>(stream);
-  if (Mb < 1 || Mb > M) return static_cast<int>(cudaErrorInvalidValue);
+  if ((o_part == nullptr) != (o_tgt == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   switch (C) {
-#define SCAE_BWD_CASE(N)                                                                    \
-  case N:                                                                                   \
-    return launch<N>(t, a, po, pr, tg, sc, gg, nm, dn, gxs, gys, o_tab, o_pose, o_pres, o_tgt, \
-                     o_scal, B, M, Mb, Ht, Wt, H, W, alpha_batched, s);
+#define SCAE_BWD_CASE(N)                                                                      \
+  case N:                                                                                     \
+    return launch<N>(t, a, po, pr, tg, sc, gg, nm, dn, gxs, gys, o_tab, o_pose, o_pres, o_scal, \
+                     o_part, o_tgt, B, M, Ht, Wt, H, W, alpha_batched, s);
     SCAE_BWD_CASE(1)
     SCAE_BWD_CASE(2)
     SCAE_BWD_CASE(3)
     SCAE_BWD_CASE(4)
 #undef SCAE_BWD_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks of the backward kernel that fit on one SM at these sizes
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a cudaError_t.
+int scae_decoder_ll_gather_bwd_occupancy(int C, int Ht, int Wt) {
+  const size_t smem = shared_floats(C, Ht, Wt) * sizeof(float);
+  switch (C) {
+    case 1: return occupancy<1>(smem);
+    case 2: return occupancy<2>(smem);
+    case 3: return occupancy<3>(smem);
+    case 4: return occupancy<4>(smem);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

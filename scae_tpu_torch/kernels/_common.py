@@ -2,11 +2,14 @@
 
 Every decoder-likelihood kernel takes the argument contract of
 ``scae_tpu/ops/decoder_ll.py::fused_decoder_ll``; these helpers check it
-on the host before a launch, pack the three scalars for the kernel, and
-turn a launcher's error code into an exception.
+on the host before a launch, pack the three scalars for the kernel, pass
+it the plain version's output grid, and turn a launcher's error code into
+an exception.
 """
 
 import torch
+
+from scae_tpu_torch.ops.warp import _base_grid
 
 MAX_CHANNELS = 4                 # the kernels are instantiated for C = 1..4
 SMEM_LIMIT = 232448              # 227 KB: the most a block can have on Hopper
@@ -65,6 +68,14 @@ def check_inputs(templates, alpha, pose, presence, target, out_size,
         raise ValueError(f"the kernel takes 1..{MAX_CHANNELS} channels, got {C}")
     if B > MAX_GRID_Y or M < 1 or P < 1:
         raise ValueError(f"unsupported sizes B={B}, M={M}, P={P}")
+
+
+def output_grid(out_size, device):
+    """The plain version's output grid (x, then y), each flattened to (P,),
+    so that a kernel computes the same source coordinates and picks the
+    same taps."""
+    return [v.reshape(-1).contiguous()
+            for v in _base_grid(out_size, torch.float32, device)]
 
 
 def check_smem(smem, what):

@@ -44,12 +44,13 @@ from scae_tpu_torch.kernels import _build
 from scae_tpu_torch.kernels._common import (
     check_inputs,
     check_smem,
+    output_grid,
     raise_on,
     scalar_tensor,
     scalars,
 )
 from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
-from scae_tpu_torch.ops.warp import _axis, _base_grid
+from scae_tpu_torch.ops.warp import _axis
 
 SOURCE = "decoder_ll_banded.cu"
 BWD_SOURCE = "decoder_ll_banded_bwd.cu"
@@ -291,10 +292,6 @@ def _check(templates, alpha, pose, presence, target, out_size, **extra):
     return B, M, C, Ht, Wt, H, W
 
 
-def _grid(out_size, device):
-    return [v.reshape(-1).contiguous()
-            for v in _base_grid(out_size, torch.float32, device)]
-
 
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
             scale, target, out_size, win=None):
@@ -306,7 +303,7 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
     device = templates.device
     rows, win = _windows(pose, templates, out_size, win)
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = _grid(out_size, device)
+    grid_x, grid_y = output_grid(out_size, device)
     f32 = dict(dtype=torch.float32, device=device)
     ll = torch.empty((B, C, H, W), **f32)
     num = torch.empty((B, C, H * W), **f32)
@@ -343,7 +340,7 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
     rows, win = _windows(pose, templates, out_size, win)
     NB = H // rows
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = _grid(out_size, device)
+    grid_x, grid_y = output_grid(out_size, device)
     f32 = dict(dtype=torch.float32, device=device)
     gtab = torch.empty((B, NB, M, C + 1, Ht, Wt), **f32)
     gpose = torch.empty((B, NB, M, 6), **f32)

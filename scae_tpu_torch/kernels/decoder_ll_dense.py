@@ -30,12 +30,12 @@ from scae_tpu_torch.kernels import _build
 from scae_tpu_torch.kernels._common import (
     check_inputs,
     check_smem,
+    output_grid,
     raise_on,
     scalar_tensor,
     scalars,
 )
 from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
-from scae_tpu_torch.ops.warp import _base_grid
 
 SOURCE = "decoder_ll_dense.cu"
 BWD_SOURCE = "decoder_ll_dense_bwd.cu"
@@ -142,12 +142,6 @@ def build_info(source=SOURCE) -> _build.BuiltLibrary:
     return _build.load(source, *_SIGNATURES[source])[2]
 
 
-def _grid(out_size, device):
-    """The plain version's output grid, flattened, so that both pick the
-    same taps."""
-    return [v.reshape(-1).contiguous()
-            for v in _base_grid(out_size, torch.float32, device)]
-
 
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
             scale, target, out_size):
@@ -161,7 +155,7 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
     check_smem(shared_memory_bytes(C, Ht, Wt),
                 "K4f's two staged capsule tables")
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = _grid(out_size, device)
+    grid_x, grid_y = output_grid(out_size, device)
 
     f32 = dict(dtype=torch.float32, device=device)
     ll = torch.empty((B, C, H, W), **f32)
@@ -196,7 +190,7 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 "K4b's capsule table, texel sums and staged pixels")
     device = templates.device
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = _grid(out_size, device)
+    grid_x, grid_y = output_grid(out_size, device)
     f32 = dict(dtype=torch.float32, device=device)
     gtab = torch.empty((B, M, C + 1, Ht, Wt), **f32)
     gpose = torch.empty((B, M, 6), **f32)

@@ -23,6 +23,7 @@ See the sources for each kernel's bound on the H100 and how its design
 meets it.
 """
 
+import ctypes
 import math
 
 import torch
@@ -32,12 +33,13 @@ from scae_tpu_torch.kernels._common import (
     SMEM_LIMIT,
     check_inputs,
     check_smem,
+    output_grid,
     raise_on,
     scalar_tensor,
     scalars,
 )
 from scae_tpu_torch.ops.math_ops import log_safe
-from scae_tpu_torch.ops.warp import _base_grid, source_coordinates
+from scae_tpu_torch.ops.warp import source_coordinates
 
 SOURCE = "decoder_ll_gather.cu"
 BWD_SOURCE = "decoder_ll_gather_bwd.cu"
@@ -132,35 +134,74 @@ def decoder_ll_gather_plain(templates, alpha, pose, presence, bg_value,
     return ll.reshape(B, C, H, W), num, den
 
 
-def shared_memory_bytes(M, C, Ht, Wt) -> int:
-    """Dynamic shared memory of one K1 block: the capsule tables, poses and
-    log-presences of one example."""
-    return 4 * (M * (C + 1) * Ht * Wt + M * 7)
+FWD_THREADS = 256      # K1's threads per block: one pixel each
+BWD_WARPS = 4          # warps per backward block, each with its own table
 
 
-def bwd_shared_memory_bytes(M, C, Ht, Wt) -> int:
-    """Dynamic shared memory of one backward block that takes M capsules:
-    K1's, plus a gradient table the size of the capsule tables and 7 pixel
-    sums per capsule (6 pose entries and the presence)."""
-    return 4 * (2 * M * (C + 1) * Ht * Wt + M * 14)
+def _pad4(n):
+    return -(-n // 4) * 4
 
 
-def bwd_capsules_per_block(M, C, Ht, Wt) -> int:
-    """Capsules per backward block: all M where their tables fit in a
-    block's shared memory, else the largest even share of M over as few
-    blocks as fit (the cifar10 shape, M=64, C=3, 11x11: two blocks of 32
-    per pixel tile). 0 where not even one capsule fits."""
-    for groups in range(1, M + 1):
-        per_block = -(-M // groups)
-        if bwd_shared_memory_bytes(per_block, C, Ht, Wt) <= SMEM_LIMIT:
-            return per_block
+def shared_memory_bytes(M, C, Ht, Wt, alpha_batched=False, buffers=2) -> int:
+    """Dynamic shared memory of one K1 block: a batch-shared alpha table
+    (alpha of batch 1), then ``buffers`` example buffers, each holding an
+    example's templates, its alpha where alpha is per example, poses,
+    presences and log-presences; every region padded to 4 floats."""
+    T = Ht * Wt
+    buf = (_pad4(M * C * T) + (_pad4(M * T) if alpha_batched else 0)
+           + _pad4(6 * M) + 2 * _pad4(M))
+    return 4 * ((0 if alpha_batched else _pad4(M * T)) + buffers * buf)
+
+
+def forward_buffers(M, C, Ht, Wt, alpha_batched=False) -> int:
+    """K1's example buffers: 2 (the next example loaded while the current
+    one is computed) where they fit in a block's shared memory, else 1; 0
+    where not even one does."""
+    for buffers in (2, 1):
+        if shared_memory_bytes(M, C, Ht, Wt, alpha_batched,
+                               buffers) <= SMEM_LIMIT:
+            return buffers
     return 0
+
+
+def forward_tiles(P) -> int:
+    """K1's pixel tiles per example: as few as hold P pixels at one per
+    thread; the tiles are of equal size."""
+    return -(-P // FWD_THREADS)
+
+
+def bwd_shared_memory_bytes(C, Ht, Wt) -> int:
+    """Dynamic shared memory of one backward block (one capsule of one
+    example): the capsule table (C + 1 planes a texel, padded to 2, 4 or 8
+    floats), and for each warp a gradient table (C + 1 planes) and a
+    scratch of its 32 pixels' 4 (C + 1) tap values and keys."""
+    T, CC = Ht * Wt, C + 1
+    tex = 2 if CC <= 2 else (4 if CC <= 4 else 8)
+    return 4 * (T * tex + BWD_WARPS * (CC * T + (4 * CC + 1) * 32))
+
+
+def bwd_tap_keys(pose, tex_size, out_size):
+    """The backward's scatter keys, as the .cu computes them: for each
+    capsule and output pixel, (row (Ht + 1) + floor(iy) + 1) (Wt + 1) +
+    floor(ix) + 1, the output row and the cell of the pixel's 4 taps; -1
+    where no tap lies in the template. (B, M, P) int64. Pixels of one warp
+    pass with equal keys must be neighbours: each run is summed by one
+    lane."""
+    Ht, Wt = tex_size
+    H, W = out_size
+    ix, iy = source_coordinates(pose.to(torch.float32), tex_size, out_size)
+    h0, w0 = torch.floor(iy), torch.floor(ix)
+    hit = (h0 >= -1) & (h0 <= Ht - 1) & (w0 >= -1) & (w0 <= Wt - 1)
+    row = torch.arange(H * W, device=pose.device) // W
+    key = ((row * (Ht + 1) + h0.clamp(-1, Ht - 1).long() + 1) * (Wt + 1)
+           + w0.clamp(-1, Wt - 1).long() + 1)
+    return torch.where(hit, key, torch.full_like(key, -1))
 
 
 # symbol, pointer arguments and int arguments of each library's launcher
 _SIGNATURES = {
-    SOURCE: ("scae_decoder_ll_gather_fwd", 9, 8),
-    BWD_SOURCE: ("scae_decoder_ll_gather_bwd", 16, 9),
+    SOURCE: ("scae_decoder_ll_gather_fwd", 11, 10),
+    BWD_SOURCE: ("scae_decoder_ll_gather_bwd", 17, 8),
 }
 
 
@@ -177,6 +218,22 @@ def build_info(source=SOURCE) -> _build.BuiltLibrary:
     return _library(source)[2]
 
 
+def blocks_per_sm(source, *sizes) -> int:
+    """Blocks of a kernel that fit on one SM of the current card
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the kernel's
+    registers and shared memory). K1 (``SOURCE``) takes (M, C, Ht, Wt,
+    alpha_batched, buffers), the backward (``BWD_SOURCE``) (C, Ht, Wt);
+    builds the kernel if needed."""
+    lib = ctypes.CDLL(build_info(source).path)
+    fn = getattr(lib, _SIGNATURES[source][0] + "_occupancy")
+    fn.argtypes = [ctypes.c_int] * len(sizes)
+    fn.restype = ctypes.c_int
+    blocks = fn(*(int(a) for a in sizes))
+    if blocks <= 0:
+        raise RuntimeError(f"occupancy query failed ({blocks})")
+    return blocks
+
+
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
             scale, target, out_size):
     """Launch K1 on CUDA tensors: (ll, num, den)."""
@@ -186,22 +243,30 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
     H, W = out_size
     P = H * W
     device = templates.device
-    check_smem(shared_memory_bytes(M, C, Ht, Wt), "K1's capsule tables")
+    batched = alpha.shape[0] != 1
+    buffers = forward_buffers(M, C, Ht, Wt, batched)
+    if buffers == 0:
+        check_smem(shared_memory_bytes(M, C, Ht, Wt, batched, 1),
+                   "K1's capsule tables")
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
+    grid_x, grid_y = output_grid(out_size, device)
 
-    ll = torch.empty((B, C, H, W), dtype=torch.float32, device=device)
-    num = torch.empty((B, C, P), dtype=torch.float32, device=device)
-    den = torch.empty((B, 1, P), dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    ll = torch.empty((B, C, H, W), **f32)
+    num = torch.empty((B, C, P), **f32)
+    den = torch.empty((B, 1, P), **f32)
     fn, err, _ = _library(SOURCE)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
                 presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
-                ll.data_ptr(), num.data_ptr(), den.data_ptr(),
-                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), stream)
+                grid_x.data_ptr(), grid_y.data_ptr(), ll.data_ptr(),
+                num.data_ptr(), den.data_ptr(), B, M, C, Ht, Wt, H, W,
+                int(batched), forward_tiles(P), buffers, stream)
     raise_on(rc, err, "decoder_ll_gather")
     launches += 1
     return ll, num, den
+
 
 
 # ------------------------------------------------------------- backward
@@ -249,7 +314,10 @@ def decoder_ll_gather_bwd_plain(g, num, den, templates, alpha, pose,
 def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 bg_mixing_logit, scale, target, out_size, target_grad=True):
     """Launch the backward kernel on CUDA tensors; returns what
-    ``decoder_ll_gather_bwd`` does."""
+    ``decoder_ll_gather_bwd`` does. The scalar gradients and alpha's batch
+    sum are taken here, over the kernel's per-capsule terms, in a fixed
+    order; every buffer is written in full by the kernel, so none is
+    zeroed."""
     global bwd_launches
     B, M, C, Ht, Wt = templates.shape
     H, W = out_size
@@ -257,23 +325,18 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
     check_inputs(templates, alpha, pose, presence, target, out_size,
                   g=(g, (B, C, H, W)),
                   num=(num, (B, C, P)), den=(den, (B, 1, P)))
-    per_block = bwd_capsules_per_block(M, C, Ht, Wt)
-    if per_block == 0:
-        check_smem(bwd_shared_memory_bytes(1, C, Ht, Wt),
-                   "the backward's capsule and gradient tables of one capsule")
+    check_smem(bwd_shared_memory_bytes(C, Ht, Wt),
+               "the backward's capsule and gradient tables")
     device = templates.device
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
+    grid_x, grid_y = output_grid(out_size, device)
     f32 = dict(dtype=torch.float32, device=device)
-    gtab = torch.zeros((B, M, C + 1, Ht, Wt), **f32)
-    gpose = torch.zeros((B, M, 6), **f32)
-    gpres = torch.zeros((B, M), **f32)
-    gscal = torch.zeros((3,), **f32)
-    # split capsule groups add their shares of the target gradient
-    gtarget = (torch.zeros if per_block < M else torch.empty)(
-        (B, C, H, W), **f32) if target_grad else None
-    # the plain version's grid, so that both pick the same taps
-    grid_x, grid_y = (v.reshape(-1).contiguous()
-                      for v in _base_grid((H, W), torch.float32, device))
+    gtab = torch.empty((B, M, C + 1, Ht, Wt), **f32)
+    gpose = torch.empty((B, M, 6), **f32)
+    gpres = torch.empty((B, M), **f32)
+    cscal = torch.empty((B, M + 1, 3), **f32)
+    tpart = torch.empty((B, M, C, P), **f32) if target_grad else None
+    gtarget = torch.empty((B, C, H, W), **f32) if target_grad else None
     fn, err, _ = _library(BWD_SOURCE)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -281,15 +344,16 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
                 g.data_ptr(), num.data_ptr(), den.data_ptr(),
                 grid_x.data_ptr(), grid_y.data_ptr(), gtab.data_ptr(),
-                gpose.data_ptr(), gpres.data_ptr(),
+                gpose.data_ptr(), gpres.data_ptr(), cscal.data_ptr(),
+                tpart.data_ptr() if target_grad else None,
                 gtarget.data_ptr() if target_grad else None,
-                gscal.data_ptr(), B, M, per_block, C, Ht, Wt, H, W,
-                int(alpha.shape[0] != 1), stream)
+                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), stream)
     raise_on(rc, err, "decoder_ll_gather backward")
     bwd_launches += 1
     g_alpha = gtab[:, :, C:]
     if alpha.shape[0] == 1:
         g_alpha = g_alpha.sum(dim=0, keepdim=True)
+    gscal = cscal.sum(dim=(0, 1))
     return (gtab[:, :, :C], g_alpha, gpose, gpres, gscal[0], gscal[1],
             gscal[2], gtarget)
 

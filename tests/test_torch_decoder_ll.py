@@ -129,8 +129,13 @@ def test_plain_never_counts_a_launch():
 
 
 def test_shared_memory_size():
-    # the flagship's capsule tables, poses and log-presences: 39,840 bytes
-    assert k1.shared_memory_bytes(40, 1, 11, 11) == 4 * (40 * 2 * 121 + 280)
+    # the flagship's batch-shared alpha table, then two example buffers of
+    # templates, poses, presences and log-presences: 60,640 bytes
+    assert k1.shared_memory_bytes(40, 1, 11, 11) == \
+        4 * (40 * 121 + 2 * (40 * 121 + 240 + 80))
+    # one buffer: the earlier design's 39,840 bytes and one float per capsule
+    assert k1.shared_memory_bytes(40, 1, 11, 11, buffers=1) == \
+        4 * (40 * 2 * 121 + 280) + 4 * 40
     assert k1.shared_memory_bytes(16, 3, 14, 14) > 48 * 1024
 
 
@@ -299,21 +304,24 @@ def test_cpu_tensors_never_reach_the_function(monkeypatch):
 
 
 def test_backward_shared_memory_size():
-    # K1's 39,840 bytes, plus the gradient table and 7 sums per capsule
-    assert k1.bwd_shared_memory_bytes(40, 1, 11, 11) == 79680
-    assert k1.bwd_capsules_per_block(40, 1, 11, 11) == 40   # one group
-    # shapes whose forward fits in a block and whose backward's tables for
-    # all capsules do not: the backward splits the capsules into groups
-    for M, C, Ht, Wt, per_block in ((60, 3, 15, 15, 30),
-                                    (64, 3, 11, 11, 32)):   # cifar10
-        assert k1.shared_memory_bytes(M, C, Ht, Wt) <= k1.SMEM_LIMIT
-        assert k1.bwd_shared_memory_bytes(M, C, Ht, Wt) > k1.SMEM_LIMIT
-        assert k1.bwd_capsules_per_block(M, C, Ht, Wt) == per_block
-        assert k1.bwd_shared_memory_bytes(per_block, C, Ht, Wt) \
-            <= k1.SMEM_LIMIT
-    assert k1.bwd_shared_memory_bytes(64, 3, 11, 11) == 251392
+    # one block per (capsule, example): the table (2 floats a texel), then
+    # for each of 4 warps a gradient table and a scratch of 32 pixels'
+    # 8 tap values and keys: 9,448 bytes
+    assert k1.bwd_shared_memory_bytes(1, 11, 11) == 9448
+    assert k1.BWD_WARPS == 4
+    # the shapes whose tables of all capsules did not fit in one block of
+    # the earlier design (it split their capsules into groups): every
+    # capsule now has its own block, whatever M is
+    for M, C, Ht, Wt in ((60, 3, 15, 15), (64, 3, 11, 11)):   # cifar10
+        assert k1.forward_buffers(M, C, Ht, Wt) >= 1   # K1 fits
+        smem = k1.bwd_shared_memory_bytes(C, Ht, Wt)
+        assert smem <= k1.SMEM_LIMIT
+        assert smem == 4 * (Ht * Wt * 4 + 4 * (4 * Ht * Wt + 17 * 32))
+    assert k1.bwd_shared_memory_bytes(3, 11, 11) == 18384
+    # a colour template of 40x40 texels still fits
+    assert k1.bwd_shared_memory_bytes(4, 40, 40) <= k1.SMEM_LIMIT
     # not even one capsule's tables fit
-    assert k1.bwd_capsules_per_block(1, 4, 77, 77) == 0
+    assert k1.bwd_shared_memory_bytes(4, 77, 77) > k1.SMEM_LIMIT
 
 
 def test_jax_stays_on_cpu():

@@ -16,9 +16,9 @@ in the kernel, whole-axis in the plain version) and in fused multiply-adds,
 each worth a few f32 ulps of values of order 10. The backward's outputs:
 1e-4 of each output's largest |entry| (of max(|value|, 1) for the three
 0-d scalar gradients); they are f32 sums over pixels (and, for a shared
-alpha, examples), the kernel's taken through atomics in an order that
-changes from run to run. K4b's and K5b's the same, and their repeats bit for
-bit: they add in a fixed order, without atomics. K6: 1e-5 absolute on
+alpha, examples) taken in another order than autograd's. K2+K3's, K4b's
+and K5b's repeats bit for bit: they add in a fixed order, without atomics
+since the gather backward's redesign. K6: 1e-5 absolute on
 outputs of order 1 (the same f32 scores, softmax and products, summed in
 another order), and the same bits on repeat. P1: exact (one rounding
 either way). P2: 1e-4 absolute, the JAX probe's tolerance, on f32 sums of
@@ -321,6 +321,86 @@ def test_flagship_train_step_runs_through_kernels(cuda):
     moved = [not torch.equal(a, b) for a, b in zip(before,
                                                    model.parameters())]
     assert sum(moved) > len(moved) // 2
+
+
+# identity on a canvas of the template's size puts every pixel on a texel
+# centre; the zero pose puts every pixel on the template's centre; twice
+# the identity's scale, and a shift by half a texel, put pixels on texel
+# edges (whole-number source coordinates) along one or both axes
+EDGE_POSES = {
+    "identity": ([1, 0, 0, 0, 1, 0], (11, 11)),
+    "zero": ([0] * 6, (40, 40)),
+    "twice the scale": ([2, 0, 0, 0, 2, 0], (22, 22)),
+    "half-texel shift": ([1, 0, 1 / 11, 0, 1, 0], (11, 11)),
+}
+
+
+def edge_inputs(kind, M=40, seed=4):
+    one, out_size = EDGE_POSES[kind]
+    inputs = make_inputs((4, M, 1, 11, 11) + out_size, seed=seed)
+    inputs["pose"] = torch.tensor(one, dtype=torch.float32).repeat(4, M, 1)
+    # a checkerboard of 0 and 1 in every template, so that neighbouring
+    # taps differ by a whole unit
+    board = (torch.arange(11)[:, None] + torch.arange(11)) % 2
+    inputs["templates"] = board.float().expand(4, M, 1, 11, 11).contiguous()
+    return inputs, out_size
+
+
+@pytest.mark.parametrize("kind", sorted(EDGE_POSES))
+def test_kernel_matches_plain_on_texel_edges(cuda, kind):
+    """K1 takes its coordinates from common.cuh::source_coord on the
+    wrapper's grid, as the backward does, so at whole-number coordinates
+    it picks the plain version's taps. A bilinear sample is continuous
+    there, so a forward that picked the other taps would differ only by a
+    coordinate's rounding: the check is the tolerance, and the backward's
+    at the same poses (test_bwd_kernel_matches_plain_on_texel_centres)."""
+    inputs, out_size = edge_inputs(kind)
+    got = run(k1.decoder_ll_gather, inputs, cuda, out_size)
+    torch.cuda.synchronize()
+    want = run(k1.decoder_ll_gather_plain, inputs, cuda, out_size)
+    assert all(torch.isfinite(g).all() for g in got)
+    assert max_err(got, want) < TOL
+
+
+@pytest.mark.parametrize("kind", sorted(EDGE_POSES))
+def test_bwd_kernel_matches_plain_on_texel_centres(cuda, kind):
+    """At whole-number source coordinates the bilinear derivative jumps:
+    the backward's texel gather must take the taps phase 1 took."""
+    inputs, out_size = edge_inputs(kind)
+    g, args = bwd_args(inputs, cuda)
+    _, num, den = k1.decoder_ll_gather(*args)
+    got = k1.decoder_ll_gather_bwd(g, num, den, *args)
+    torch.cuda.synchronize()
+    check_bwd(got, k1.decoder_ll_gather_bwd_plain(g, num, den, *args))
+
+
+@pytest.mark.parametrize("shape,alpha_batched", [
+    ((8, 40, 1, 11, 11, 40, 40), False),     # flagship widths
+    ((4, 64, 3, 11, 11, 32, 32), True),      # cifar10, per-example alpha
+])
+def test_bwd_kernel_repeats_bit_for_bit(cuda, shape, alpha_batched):
+    """No floating-point atomics: the same inputs give the same bits, with
+    and without the target's gradient."""
+    g, args = bwd_args(make_inputs(shape, alpha_batched=alpha_batched), cuda)
+    _, num, den = k1.decoder_ll_gather(*args)
+    first = k1.decoder_ll_gather_bwd(g, num, den, *args)
+    again = k1.decoder_ll_gather_bwd(g, num, den, *args)
+    part = k1.decoder_ll_gather_bwd(g, num, den, *args, target_grad=False)
+    for a, b, c in zip(first, again, part):
+        assert torch.equal(a, b)
+        assert c is None or torch.equal(a, c)
+    _, num2, den2 = k1.decoder_ll_gather(*args)
+    assert torch.equal(num, num2) and torch.equal(den, den2)
+
+
+@pytest.mark.parametrize("shape", [(128, 40, 1, 11, 11, 40, 40),
+                                   (128, 64, 3, 11, 11, 32, 32)])
+def test_gather_kernels_fit_on_an_sm(cuda, shape):
+    B, M, C, Ht, Wt, H, W = shape
+    fwd = k1.blocks_per_sm(k1.SOURCE, M, C, Ht, Wt, 0,
+                           k1.forward_buffers(M, C, Ht, Wt))
+    bwd = k1.blocks_per_sm(k1.BWD_SOURCE, C, Ht, Wt)
+    assert fwd >= 1 and bwd >= 2
 
 
 # ------------------------------------------------------------ K4f and K4b
