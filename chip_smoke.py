@@ -23,7 +23,9 @@ Phases, each announced when it starts and when it ends, with its seconds:
           K5f and K5b the banded ones (fused_impl="pallas_banded") at the
           flagship, cifar10, M=13, edge and off-canvas poses (empty row
           windows), identity and zero poses, 17x17 templates and
-          per-example alpha, K5b twice for the same bits; K6 the set
+          per-example alpha, K5b twice for the same bits (K4b and K5b are
+          one run-scatter kernel, printed beside their previous designs'
+          times and timed at the cifar10 shape too); K6 the set
           attention at the flagship's two shapes, with soft presences and
           with a set whose presence is all 0, twice for the same bits,
           beside PyTorch's scaled_dot_product_attention on the same inputs
@@ -273,10 +275,12 @@ def unrecorded_launches(torch, prof):
             f"have no device record: {where or 'none'}.")
 
 
-# Device time per launch of the gather kernels' previous designs at the
-# flagship, as PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W):
-# the yardstick the redesigned kernels are printed beside.
-PREVIOUS_MS = {"K1": (0.0593, 0.0606), "K2+K3": (0.5929, 0.6075)}
+# Device time per launch of the redesigned kernels' previous designs at the
+# flagship, as PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W;
+# K1 and K2+K3 before PR 9, K4b and K5b before PR 10): the yardstick the
+# redesigned kernels are printed beside.
+PREVIOUS_MS = {"K1": (0.0593, 0.0606), "K2+K3": (0.5929, 0.6075),
+               "K4b": (0.6580, 0.6623), "K5b": (0.6667, 0.6711)}
 IDENTITY_POSE = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
 ZERO_POSE = [0.0] * 6
 
@@ -386,10 +390,11 @@ def bwd_bound_ms(torch, args, target_grad):
     where asked for).
     Operations per (capsule, pixel) pair: the function's work, as it was
     fixed when the backward was first ported and kept since, so that the
-    shares of every design of the kernel compare (the texel gather's
-    interval and candidate tests of the present design are its own cost and
-    are not counted; the four scatter products and adds below are the
-    template gradient's, whichever way it is summed):
+    shares of every design of the kernel compare (the run scatter's keys,
+    run sums and tap-by-tap writes of the present designs, K2+K3's and
+    K4b's and K5b's, are their own cost and are not counted; the four
+    scatter products and adds below are the template gradient's, whichever
+    way it is summed):
       16  source coordinates, as K1
       18  taps (2 floors, 2 fractions, 8 bound tests, 6 for the four
           validity-folded weights)
@@ -432,6 +437,26 @@ def bwd_bound_ms(torch, args, target_grad):
     t_ops = ops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), n_bytes, ops, n_hit
+
+
+def cifar10_bwd_time(torch, card, name, fwd, bwd, kernel, note,
+                     layout=None):
+    """Prints a backward kernel's device time per launch at its main-path
+    call (upstream gradient -1/B, no target gradient) on the cifar10 shape
+    at batch 128, beside bwd_bound_ms of those inputs; ``layout`` turns the
+    inputs into the kernel's own (the banded wrapper's sort and pad)."""
+    cifar = (BATCH,) + CIFAR10_SHAPE[1:]
+    raw = k1_inputs(torch, cifar, seed=2)
+    args = layout(raw) if layout else raw
+    _, num, den = fwd(*args)
+    g = torch.full((BATCH, 3, 32, 32), -1.0 / BATCH, device="cuda")
+    ms = kernel_device_ms(
+        torch, lambda: bwd(g, num, den, *args, target_grad=False), kernel)
+    bound = bwd_bound_ms(torch, raw, target_grad=False)
+    say(f"{name} cifar10 time {cifar}: kernel {ms:.4f} ms (device time per "
+        f"launch over 200 launches, torch.profiler; {note}), bound "
+        f"{bound[0] * 1e3:.2f} us by {bound[1]} ({bound[3] / 1e9:.3f} GFLOP), "
+        f"roofline share {bound[0] / ms:.1%} [{card}]")
 
 
 def bwd_kernel_phase(torch, card):
@@ -500,21 +525,10 @@ def bwd_kernel_phase(torch, card):
 
     # the main path's call: the loss's constant upstream gradient -1/B,
     # no target gradient; and the same call at the cifar10 shape, batch 128
-    cifar = (BATCH,) + CIFAR10_SHAPE[1:]
-    args = k1_inputs(torch, cifar, seed=2)
-    _, num, den = k1.decoder_ll_gather(*args)
-    g = torch.full((BATCH, 3, 32, 32), -1.0 / BATCH, device="cuda")
-    cifar_ms = kernel_device_ms(
-        torch, lambda: k1.decoder_ll_gather_bwd(g, num, den, *args,
-                                                target_grad=False),
-        "decoder_ll_gather_bwd_kernel")
-    cifar_bound = bwd_bound_ms(torch, args, target_grad=False)
-    say(f"K2+K3 cifar10 time {cifar}: kernel {cifar_ms:.4f} ms (device time "
-        f"per launch over 200 launches, torch.profiler; the previous design "
-        f"took 1.5733-1.5896 ms, PERF.md section 6), bound "
-        f"{cifar_bound[0] * 1e3:.2f} us by {cifar_bound[1]} "
-        f"({cifar_bound[3] / 1e9:.3f} GFLOP), roofline share "
-        f"{cifar_bound[0] / cifar_ms:.1%} [{card}]")
+    cifar10_bwd_time(torch, card, "K2+K3", k1.decoder_ll_gather,
+                     k1.decoder_ll_gather_bwd, "decoder_ll_gather_bwd_kernel",
+                     "the previous design took 1.5733-1.5896 ms, PERF.md "
+                     "section 6")
 
     args = k1_inputs(torch, FLAGSHIP_SHAPE, seed=2)
     _, num, den = k1.decoder_ll_gather(*args)
@@ -662,19 +676,21 @@ def dense_kernel_phase(torch, card):
     plain_ms = time_cuda(torch, lambda: k4.decoder_ll_dense_bwd_plain(
         g, num, den, *args, target_grad=False), iters=10, warmup=2)
     # the same function on the same inputs as the gather backward's, so the
-    # same count of what these inputs need: the dense formulation's texel
-    # scan (3 operations for each (texel, pixel) pair of every capsule) is
-    # this kernel's own cost, not the function's, and is reported apart
+    # same count of what these inputs need; the run scatter's bookkeeping
+    # (keys, run sums, the writes tap by tap) is this kernel's own cost
     bound_ms, bound_by, n_bytes, ops, n_hit = bwd_bound_ms(
         torch, args, target_grad=False)
-    scan = 3 * BATCH * 40 * 121 * 1600
     say(f"K4b flagship time: kernel {ms:.4f} ms (device time per launch "
         f"over 200 launches, torch.profiler), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms * 1e3:.2f} us by {bound_by} ({n_bytes / 1e6:.2f} MB, "
         f"{ops / 1e9:.3f} GFLOP: bwd_bound_ms's count, {n_hit} of "
         f"{BATCH * 40 * 1600} capsule-pixel pairs touch their template; the "
-        f"texel scan's {scan / 1e9:.3f} G tests not counted), library_ms: "
-        f"none, roofline share {bound_ms / ms:.1%} [{card}]")
+        f"run scatter's keys, run sums and tap-by-tap writes not counted), "
+        f"library_ms: none, roofline share {bound_ms / ms:.1%}; "
+        f"{yardstick('K4b', ms, bound_ms)} [{card}]")
+    cifar10_bwd_time(torch, card, "K4b", k4.decoder_ll_dense_fwd,
+                     k4.decoder_ll_dense_bwd, "decoder_ll_dense_bwd_kernel",
+                     "the previous design was not timed at this shape")
     rows.append(dict(name="decoder_ll_dense_bwd", route="cuda",
                      source="scae_tpu_torch/csrc/decoder_ll_dense_bwd.cu",
                      replaces="scae_tpu/ops/pallas_decoder_ll.py:414",
@@ -763,7 +779,7 @@ def banded_kernel_phase(torch, card):
                                    f"{gerr} exceeds {tol}")
             worst = max(worst, gerr / scale if scale else gerr)
         say(f"K5b {name} {shape}: shared memory "
-            f"{k5.bwd_shared_memory_bytes(*shape[2:7])} B, worst err "
+            f"{k5.bwd_shared_memory_bytes(*shape[2:5])} B, worst err "
             f"{worst:.3e} of each gradient's largest |entry| (tolerance "
             f"{BWD_TOL:.0e}), a second run bit-identical [{card}]")
         errs.setdefault("bwd", max(float((a - b).abs().max())
@@ -804,16 +820,18 @@ def banded_kernel_phase(torch, card):
     # K2+K3's and K4b's count on the unsorted inputs: the same function
     bound_ms, bound_by, n_bytes, ops, n_hit = bwd_bound_ms(
         torch, raw, target_grad=False)
-    win = k5.h_windows(args[2], 11, 40, 40, k5.band_rows(40, 40))
-    scan = 8 * 11 * int(win[..., 1].sum()) * 320
     say(f"K5b flagship time: kernel {ms:.4f} ms (device time per launch "
         f"over 200 launches, torch.profiler), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms * 1e3:.2f} us by {bound_by} ({n_bytes / 1e6:.2f} MB, "
         f"{ops / 1e9:.3f} GFLOP: bwd_bound_ms's count, {n_hit} of "
-        f"{BATCH * 40 * 1600} capsule-pixel pairs touch their template; the "
-        f"texel scan's {scan / 1e9:.3f} G tests over the windows' rows not "
-        f"counted), library_ms: none, roofline share {bound_ms / ms:.1%} "
-        f"[{card}]")
+        f"{BATCH * 40 * 1600} capsule-pixel pairs touch their template; "
+        f"K4b's run scatter, with its window tests, not counted), "
+        f"library_ms: none, roofline share {bound_ms / ms:.1%}; "
+        f"{yardstick('K5b', ms, bound_ms)} [{card}]")
+    cifar10_bwd_time(torch, card, "K5b", k5.decoder_ll_banded_fwd,
+                     k5.decoder_ll_banded_bwd, "decoder_ll_banded_bwd_kernel",
+                     "the previous design was not timed at this shape",
+                     layout=lambda a: (*k5.sort_and_pad(*a[:4]), *a[4:]))
     rows.append(dict(name="decoder_ll_banded_bwd", route="cuda",
                      source="scae_tpu_torch/csrc/decoder_ll_banded_bwd.cu",
                      replaces="scae_tpu/ops/pallas_decoder_ll_banded.py:549",

@@ -1,6 +1,7 @@
-// What the banded kernels K5f (decoder_ll_banded.cu) and K5b
-// (decoder_ll_banded_bwd.cu) share: the group size, the staging of one
-// group's window rows, and the row taps masked by the window.
+// The banded kernels' group size and row taps masked by the window, which
+// K5f (decoder_ll_banded.cu) and K5b (decoder_ll_banded_bwd.cu, through
+// decoder_ll_tap_bwd.cuh) share, and K5f's band plan and staging of one
+// group's window rows.
 #pragma once
 
 #include "common.cuh"
@@ -19,8 +20,8 @@ inline size_t group_smem_floats(int C, int Ht, int Wt) {
   return static_cast<size_t>(kGroup) * ((C + 1) * Ht * Wt + kExtra);
 }
 
-// The sizes both kernels take: whole groups, bands that tile the canvas,
-// a band of at most kMaxThreads pixels.
+// The sizes K5f takes: whole groups, bands that tile the canvas, a band of
+// at most kMaxThreads pixels.
 inline bool valid_sizes(int B, int M, int Ht, int Wt, int H, int W, int R) {
   return B >= 1 && B <= 65535 && M >= kGroup && M % kGroup == 0 && Ht >= 1 && Wt >= 1 &&
          W >= 1 && R >= 1 && H % R == 0 && R * W <= kMaxThreads;
@@ -58,8 +59,8 @@ __device__ __forceinline__ void stage_group(float* tab, float* extra,
 
 // The two row taps of iy (two_taps), the weight and the slope of a row
 // outside the window [lo, lo + trips) set to 0, and in[j] false for it: the
-// plain version's window-masked y-taps. A tap with in[j] false must not
-// read the staged table (its row was not staged).
+// plain version's window-masked y-taps. In K5f a tap with in[j] false must
+// not read the staged table (its row was not staged).
 __device__ __forceinline__ void window_taps(float iy, int Ht, int lo, int trips, float w[2],
                                             float dw[2], int k[2], bool in[2]) {
   two_taps(iy, Ht, w, dw, k);

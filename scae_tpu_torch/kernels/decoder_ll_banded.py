@@ -33,9 +33,11 @@ and their plain version are float32 throughout.
 ``decoder_ll_banded`` goes through ``DecoderLLBanded`` on every device: the
 plain version for CPU tensors, K5f and K5b (``csrc/decoder_ll_banded.cu``,
 ``csrc/decoder_ll_banded_bwd.cu``) for CUDA tensors, which raise on
-anything the kernels do not take. K5b uses no floating-point atomics: its
-per-band partial gradients are summed over the bands here, in a fixed
-order, so its results repeat bit for bit.
+anything the kernels do not take. K5b is K4b's run scatter
+(``csrc/decoder_ll_tap_bwd.cuh``) with the y-taps masked by the windows:
+one block per (capsule, example), no floating-point atomics, so its
+results repeat bit for bit; ``bwd_tap_keys`` computes its scatter keys on
+the CPU.
 """
 
 import torch
@@ -46,8 +48,10 @@ from scae_tpu_torch.kernels._common import (
     check_smem,
     output_grid,
     raise_on,
+    run_scatter_shared_memory_bytes,
     scalar_tensor,
     scalars,
+    scatter_keys,
 )
 from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
 from scae_tpu_torch.ops.warp import _axis
@@ -56,11 +60,10 @@ SOURCE = "decoder_ll_banded.cu"
 BWD_SOURCE = "decoder_ll_banded_bwd.cu"
 GROUP = 8                 # capsules per group (kGroup in the sources)
 MAX_BAND_PIXELS = 512     # one thread per band pixel (kMaxThreads)
-_EXTRA = 8                # per staged capsule: 6 pose entries, log-presence, pad
-_SUMS = 7                 # per capsule and band in K5b: 6 pose sums, gmix
+_EXTRA = 8                # per capsule K5f stages: pose, log-presence, pad
 _SIGNATURES = {
     SOURCE: ("scae_decoder_ll_banded_fwd", 12, 8),
-    BWD_SOURCE: ("scae_decoder_ll_banded_bwd", 17, 8),
+    BWD_SOURCE: ("scae_decoder_ll_banded_bwd", 18, 8),
 }
 
 # Kernel launches since a counter was last set to 0: ``launches`` for K5f,
@@ -244,8 +247,8 @@ def decoder_ll_banded_bwd_plain(g, num, den, templates, alpha, pose,
 
 
 def threads_per_block(H, W) -> int:
-    """Threads of a K5f or K5b block: one per band pixel, rounded up to
-    whole warps."""
+    """Threads of a K5f block: one per band pixel, rounded up to whole
+    warps."""
     return -(-band_rows(H, W) * W // 32) * 32
 
 
@@ -255,14 +258,25 @@ def shared_memory_bytes(C, Ht, Wt) -> int:
     return 4 * GROUP * ((C + 1) * Ht * Wt + _EXTRA)
 
 
-def bwd_shared_memory_bytes(C, Ht, Wt, H, W) -> int:
-    """Dynamic shared memory of one K5b block: K5f's, plus each capsule's
-    coordinates and upstream values at every band pixel, and the per-warp
-    partial sums of its pose and presence gradients."""
-    pixels = band_rows(H, W) * W
-    warps = threads_per_block(H, W) // 32
-    return shared_memory_bytes(C, Ht, Wt) + 4 * GROUP * (
-        pixels * (C + 3) + _SUMS * warps)
+# one K5b block's shared memory: K4b's (csrc/decoder_ll_tap_bwd.cuh)
+bwd_shared_memory_bytes = run_scatter_shared_memory_bytes
+
+
+def window_rows(win, Ht, H, W):
+    """(lo, hi), each (B, M, P) int64: the template rows [lo, hi) a tap of
+    each pixel may land on in K5b, the window of the capsule's group for
+    the pixel's band (``win``, ``h_windows``) clipped to the template."""
+    rows = band_rows(H, W)
+    w = win.long().repeat_interleave(GROUP, dim=2)            # (B, NB, M, 2)
+    w = w.transpose(1, 2).repeat_interleave(rows * W, dim=2)  # (B, M, P, 2)
+    return w[..., 0].clamp(min=0), (w[..., 0] + w[..., 1]).clamp(max=Ht)
+
+
+def bwd_tap_keys(pose, tex_size, out_size, win):
+    """K5b's scatter keys for the sorted, padded poses (B, M, 6): K4b's
+    rule with the row taps limited to ``window_rows``. (B, M, P) int64."""
+    return scatter_keys(pose, tex_size, out_size,
+                        rows=window_rows(win, tex_size[0], *out_size))
 
 
 def build_info(source=SOURCE) -> _build.BuiltLibrary:
@@ -325,27 +339,26 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 bg_mixing_logit, scale, target, out_size, target_grad=True,
                 win=None):
     """Launch K5b on sorted, padded CUDA tensors; returns what
-    ``decoder_ll_banded_bwd`` does. The kernel writes partial gradients
-    per (example, band) and per-pixel scalar rows; the sums over bands,
-    pixels and examples are taken here, in a fixed order."""
+    ``decoder_ll_banded_bwd`` does. The scalar gradients are taken here,
+    over the kernel's per-capsule terms, in a fixed order."""
     global bwd_launches
     B, M, C, Ht, Wt = templates.shape
     H, W = out_size
     P = H * W
     _check(templates, alpha, pose, presence, target, out_size,
            g=(g, (B, C, H, W)), num=(num, (B, C, P)), den=(den, (B, 1, P)))
-    check_smem(bwd_shared_memory_bytes(C, Ht, Wt, H, W),
-               "K5b's staged group, band pixels and partial sums")
+    check_smem(bwd_shared_memory_bytes(C, Ht, Wt),
+               "K5b's capsule table and warp tables")
     device = templates.device
     rows, win = _windows(pose, templates, out_size, win)
-    NB = H // rows
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
     grid_x, grid_y = output_grid(out_size, device)
     f32 = dict(dtype=torch.float32, device=device)
-    gtab = torch.empty((B, NB, M, C + 1, Ht, Wt), **f32)
-    gpose = torch.empty((B, NB, M, 6), **f32)
-    gmix = torch.empty((B, NB, M), **f32)
-    grow = torch.empty((B, 3, P), **f32)
+    gtab = torch.empty((B, M, C + 1, Ht, Wt), **f32)
+    gpose = torch.empty((B, M, 6), **f32)
+    gpres = torch.empty((B, M), **f32)
+    cscal = torch.empty((B, M + 1, 3), **f32)
+    tpart = torch.empty((B, M, C, P), **f32) if target_grad else None
     gtarget = torch.empty((B, C, H, W), **f32) if target_grad else None
     fn, err, _ = _build.load(BWD_SOURCE, *_SIGNATURES[BWD_SOURCE])
     with torch.cuda.device(device):
@@ -354,18 +367,16 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
                 g.data_ptr(), num.data_ptr(), den.data_ptr(),
                 grid_x.data_ptr(), grid_y.data_ptr(), win.data_ptr(),
-                gtab.data_ptr(), gpose.data_ptr(), gmix.data_ptr(),
+                gtab.data_ptr(), gpose.data_ptr(), gpres.data_ptr(),
+                cscal.data_ptr(),
+                tpart.data_ptr() if target_grad else None,
                 gtarget.data_ptr() if target_grad else None,
-                grow.data_ptr(), B, M, C, Ht, Wt, H, W, rows, stream)
+                B, M, C, Ht, Wt, H, W, rows, stream)
     raise_on(rc, err, "decoder_ll_banded backward")
     bwd_launches += 1
-    gtab = gtab.sum(dim=1)
-    gmix = gmix.sum(dim=1)
-    gpres = torch.where(presence < 1e-16, torch.zeros_like(presence),
-                        gmix / presence)
-    gscal = grow.sum(dim=(0, 2))
-    return (gtab[:, :, :C], gtab[:, :, C:], gpose.sum(dim=1), gpres,
-            gscal[0], gscal[1], gscal[2], gtarget)
+    gscal = cscal.sum(dim=(0, 1))
+    return (gtab[:, :, :C], gtab[:, :, C:], gpose, gpres, gscal[0], gscal[1],
+            gscal[2], gtarget)
 
 
 class DecoderLLBanded(torch.autograd.Function):

@@ -19,9 +19,12 @@ MXU; these kernels and their plain version are float32 throughout.
 forward and backward take the plain version for CPU tensors and launch
 K4f and K4b (``csrc/decoder_ll_dense.cu``, ``csrc/decoder_ll_dense_bwd.cu``)
 for CUDA tensors. A CUDA wrapper raises on anything its kernel does not
-take rather than falling back. K4b uses no floating-point atomics, so its
-results are the same bit for bit from run to run. See the sources for each
-kernel's bound on the H100 and how its design meets it.
+take rather than falling back. K4b is the run scatter of
+``csrc/decoder_ll_tap_bwd.cuh``, which K5b shares: one block per (capsule,
+example), no floating-point atomics, so its results are the same bit for
+bit from run to run; ``bwd_tap_keys`` computes its scatter keys on the
+CPU. See the sources for each kernel's bound on the H100 and how its
+design meets it.
 """
 
 import torch
@@ -32,18 +35,18 @@ from scae_tpu_torch.kernels._common import (
     check_smem,
     output_grid,
     raise_on,
+    run_scatter_shared_memory_bytes,
     scalar_tensor,
     scalars,
+    scatter_keys,
 )
 from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
 
 SOURCE = "decoder_ll_dense.cu"
 BWD_SOURCE = "decoder_ll_dense_bwd.cu"
-BWD_CHUNK = 2048     # pixels K4b stages per pass (kChunk in its source)
-_THREADS = 256       # threads per block of both kernels
 _SIGNATURES = {
     SOURCE: ("scae_decoder_ll_dense_fwd", 11, 8),
-    BWD_SOURCE: ("scae_decoder_ll_dense_bwd", 17, 9),
+    BWD_SOURCE: ("scae_decoder_ll_dense_bwd", 17, 8),
 }
 
 # Kernel launches since a counter was last set to 0: ``launches`` for K4f,
@@ -120,19 +123,12 @@ def shared_memory_bytes(C, Ht, Wt) -> int:
     return 4 * 2 * ((C + 1) * Ht * Wt + 8)
 
 
-def bwd_pixel_slices(Ht, Wt) -> int:
-    """Pixel slices of K4b's texel scan: as many as keep every thread of a
-    block busy when the template has fewer texels than a block threads."""
-    return max(1, _THREADS // (Ht * Wt))
+# one K4b block's shared memory: K2+K3's layout (csrc/decoder_ll_tap_bwd.cuh)
+bwd_shared_memory_bytes = run_scatter_shared_memory_bytes
 
 
-def bwd_shared_memory_bytes(C, Ht, Wt) -> int:
-    """Dynamic shared memory of one K4b block: the capsule's table, the
-    texel-gradient sums of each pixel slice, and the staged pixels'
-    coordinates and upstream values."""
-    T = Ht * Wt
-    return 4 * ((1 + bwd_pixel_slices(Ht, Wt)) * (C + 1) * T
-                + BWD_CHUNK * (C + 3))
+# K4b's scatter keys: K2+K3's rule (csrc/decoder_ll_tap_bwd.cuh)
+bwd_tap_keys = scatter_keys
 
 
 def build_info(source=SOURCE) -> _build.BuiltLibrary:
@@ -187,7 +183,7 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                   g=(g, (B, C, H, W)),
                   num=(num, (B, C, P)), den=(den, (B, 1, P)))
     check_smem(bwd_shared_memory_bytes(C, Ht, Wt),
-                "K4b's capsule table, texel sums and staged pixels")
+                "K4b's capsule table and warp tables")
     device = templates.device
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
     grid_x, grid_y = output_grid(out_size, device)
@@ -208,8 +204,7 @@ def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 gpose.data_ptr(), gpres.data_ptr(), cscal.data_ptr(),
                 tpart.data_ptr() if target_grad else None,
                 gtarget.data_ptr() if target_grad else None,
-                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1),
-                bwd_pixel_slices(Ht, Wt), stream)
+                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), stream)
     raise_on(rc, err, "decoder_ll_dense backward")
     bwd_launches += 1
     g_alpha = gtab[:, :, C:]

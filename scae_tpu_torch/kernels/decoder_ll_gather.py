@@ -30,13 +30,16 @@ import torch
 
 from scae_tpu_torch.kernels import _build
 from scae_tpu_torch.kernels._common import (
+    RUN_SCATTER_WARPS,
     SMEM_LIMIT,
     check_inputs,
     check_smem,
     output_grid,
     raise_on,
+    run_scatter_shared_memory_bytes,
     scalar_tensor,
     scalars,
+    scatter_keys,
 )
 from scae_tpu_torch.ops.math_ops import log_safe
 from scae_tpu_torch.ops.warp import source_coordinates
@@ -135,7 +138,7 @@ def decoder_ll_gather_plain(templates, alpha, pose, presence, bg_value,
 
 
 FWD_THREADS = 256      # K1's threads per block: one pixel each
-BWD_WARPS = 4          # warps per backward block, each with its own table
+BWD_WARPS = RUN_SCATTER_WARPS  # backward warps, each with its own table
 
 
 def _pad4(n):
@@ -170,32 +173,12 @@ def forward_tiles(P) -> int:
     return -(-P // FWD_THREADS)
 
 
-def bwd_shared_memory_bytes(C, Ht, Wt) -> int:
-    """Dynamic shared memory of one backward block (one capsule of one
-    example): the capsule table (C + 1 planes a texel, padded to 2, 4 or 8
-    floats), and for each warp a gradient table (C + 1 planes) and a
-    scratch of its 32 pixels' 4 (C + 1) tap values and keys."""
-    T, CC = Ht * Wt, C + 1
-    tex = 2 if CC <= 2 else (4 if CC <= 4 else 8)
-    return 4 * (T * tex + BWD_WARPS * (CC * T + (4 * CC + 1) * 32))
+# one backward block's shared memory (the layout K4b and K5b share)
+bwd_shared_memory_bytes = run_scatter_shared_memory_bytes
 
 
-def bwd_tap_keys(pose, tex_size, out_size):
-    """The backward's scatter keys, as the .cu computes them: for each
-    capsule and output pixel, (row (Ht + 1) + floor(iy) + 1) (Wt + 1) +
-    floor(ix) + 1, the output row and the cell of the pixel's 4 taps; -1
-    where no tap lies in the template. (B, M, P) int64. Pixels of one warp
-    pass with equal keys must be neighbours: each run is summed by one
-    lane."""
-    Ht, Wt = tex_size
-    H, W = out_size
-    ix, iy = source_coordinates(pose.to(torch.float32), tex_size, out_size)
-    h0, w0 = torch.floor(iy), torch.floor(ix)
-    hit = (h0 >= -1) & (h0 <= Ht - 1) & (w0 >= -1) & (w0 <= Wt - 1)
-    row = torch.arange(H * W, device=pose.device) // W
-    key = ((row * (Ht + 1) + h0.clamp(-1, Ht - 1).long() + 1) * (Wt + 1)
-           + w0.clamp(-1, Wt - 1).long() + 1)
-    return torch.where(hit, key, torch.full_like(key, -1))
+# the backward's scatter keys (the rule K4b and K5b share)
+bwd_tap_keys = scatter_keys
 
 
 # symbol, pointer arguments and int arguments of each library's launcher

@@ -283,16 +283,18 @@ def test_windows_computed_once_per_step(monkeypatch):
 
 
 def test_shared_memory_and_threads():
-    # K5f: one group's tables and poses; K5b adds 320 pixels of 4 values
-    # per capsule and 7 sums for each of 10 warps
+    # K5f: one group's tables and poses, one thread per band pixel; K5b:
+    # K4b's block, one capsule's table and 4 warps' gradient tables and
+    # scratch, whatever the band
     assert k5.threads_per_block(40, 40) == 320
     assert k5.threads_per_block(32, 32) == 256
     assert k5.shared_memory_bytes(1, 11, 11) == 4 * 8 * (2 * 121 + 8)
-    assert k5.bwd_shared_memory_bytes(1, 11, 11, 40, 40) == \
-        4 * 8 * (2 * 121 + 8) + 4 * 8 * (320 * 4 + 7 * 10)
-    # cifar10's backward needs more than the 48 KB default; all fit a block
-    assert k5.bwd_shared_memory_bytes(3, 11, 11, 32, 32) > 48 * 1024
-    assert k5.bwd_shared_memory_bytes(3, 17, 17, 32, 32) <= SMEM_LIMIT
+    assert k5.bwd_shared_memory_bytes(1, 11, 11) == \
+        k4.bwd_shared_memory_bytes(1, 11, 11) == \
+        4 * (2 * 121 + 4 * (2 * 121 + 9 * 32))
+    # cifar10's backward fits the 48 KB default now; all fit a block
+    assert k5.bwd_shared_memory_bytes(3, 11, 11) <= 48 * 1024
+    assert k5.bwd_shared_memory_bytes(3, 17, 17) <= SMEM_LIMIT
 
 
 def test_decoder_pallas_banded_matches_jax():

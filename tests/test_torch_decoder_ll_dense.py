@@ -221,14 +221,15 @@ def arrays_t(arrays):
 
 
 def test_shared_memory_does_not_grow_with_capsules():
-    # K4f: two staged capsule tables; K4b: one table, the texel sums of its
-    # pixel slices, and 2048 staged pixels
+    # K4f: two staged capsule tables; K4b: one capsule's table (2 floats a
+    # texel at C = 1, 4 at C = 3), and for each of 4 warps a gradient table
+    # of C + 1 planes and 32 pixels' 4 (C + 1) tap values and keys
     assert k4.shared_memory_bytes(1, 11, 11) == 4 * 2 * (2 * 121 + 8)
-    assert k4.bwd_pixel_slices(11, 11) == 2
-    assert k4.bwd_pixel_slices(17, 17) == 1
     assert k4.bwd_shared_memory_bytes(1, 11, 11) == \
-        4 * (3 * 2 * 121 + 2048 * 4)
-    # a 17x17 colour template, which the gather kernels refuse, fits
+        4 * (2 * 121 + 4 * (2 * 121 + 9 * 32))
+    assert k4.bwd_shared_memory_bytes(3, 17, 17) == \
+        4 * (4 * 289 + 4 * (4 * 289 + 17 * 32))
+    # a 17x17 colour template, which K1 refuses at M = 64, fits
     assert k4.bwd_shared_memory_bytes(3, 17, 17) <= SMEM_LIMIT
 
 

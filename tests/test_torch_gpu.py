@@ -374,22 +374,35 @@ def test_bwd_kernel_matches_plain_on_texel_centres(cuda, kind):
     check_bwd(got, k1.decoder_ll_gather_bwd_plain(g, num, den, *args))
 
 
+# the run-scatter backwards: their forward, their backward, and whether they
+# take the banded wrapper's sorted, padded layout
+BWD_KERNELS = {
+    "K2+K3": (k1.decoder_ll_gather, k1.decoder_ll_gather_bwd, False),
+    "K4b": (k4.decoder_ll_dense_fwd, k4.decoder_ll_dense_bwd, False),
+    "K5b": (k5.decoder_ll_banded_fwd, k5.decoder_ll_banded_bwd, True),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(BWD_KERNELS))
 @pytest.mark.parametrize("shape,alpha_batched", [
     ((8, 40, 1, 11, 11, 40, 40), False),     # flagship widths
     ((4, 64, 3, 11, 11, 32, 32), True),      # cifar10, per-example alpha
 ])
-def test_bwd_kernel_repeats_bit_for_bit(cuda, shape, alpha_batched):
+def test_bwd_kernel_repeats_bit_for_bit(cuda, kernel, shape, alpha_batched):
     """No floating-point atomics: the same inputs give the same bits, with
     and without the target's gradient."""
+    fwd, bwd, banded = BWD_KERNELS[kernel]
     g, args = bwd_args(make_inputs(shape, alpha_batched=alpha_batched), cuda)
-    _, num, den = k1.decoder_ll_gather(*args)
-    first = k1.decoder_ll_gather_bwd(g, num, den, *args)
-    again = k1.decoder_ll_gather_bwd(g, num, den, *args)
-    part = k1.decoder_ll_gather_bwd(g, num, den, *args, target_grad=False)
+    if banded:
+        args = (*k5.sort_and_pad(*args[:4]), *args[4:])
+    _, num, den = fwd(*args)
+    first = bwd(g, num, den, *args)
+    again = bwd(g, num, den, *args)
+    part = bwd(g, num, den, *args, target_grad=False)
     for a, b, c in zip(first, again, part):
         assert torch.equal(a, b)
         assert c is None or torch.equal(a, c)
-    _, num2, den2 = k1.decoder_ll_gather(*args)
+    _, num2, den2 = fwd(*args)
     assert torch.equal(num, num2) and torch.equal(den, den2)
 
 
@@ -411,7 +424,7 @@ DENSE_SHAPES = [
     ((2, 16, 3, 14, 14, 32, 32), 0.6, False),    # colour
     ((3, 8, 2, 7, 9, 20, 28), 0.6, True),        # per-example alpha
     ((2, 6, 1, 17, 17, 24, 24), 0.6, False),     # 289 texels: gather refuses
-    ((2, 5, 3, 9, 9, 3000, 1), 0.6, False),      # two pixel chunks in K4b
+    ((2, 5, 3, 9, 9, 3000, 1), 0.6, False),      # one output column
 ]
 
 
@@ -548,6 +561,12 @@ BANDED_SHAPES = [
     # every capsule off the canvas but the first: empty windows (trips = 0)
     ((2, 16, 1, 11, 11, 40, 40), 0.6, False,
      ([1, 0, 3.0, 0, 1, 3.0], [1, 0, 0, 0, 1, 0])),
+    # bands of 280 pixels, so warp passes straddle a band boundary, and
+    # capsules rotated by 15 degrees spanning both bands, whose windows
+    # differ on the two sides (rows 0-4 and 2-6)
+    ((2, 8, 1, 7, 9, 20, 28), 0.6, False,
+     ([0.9659258, -0.2588190, 0, 0.2588190, 0.9659258, 0], None)),
+    ((2, 16, 4, 11, 11, 40, 40), 0.6, False, None),   # C = 4
 ]
 
 
