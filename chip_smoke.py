@@ -19,16 +19,20 @@ Phases, each announced when it starts and when it ends, with its seconds:
           same bits; the two printed beside their previous designs' times,
           with their occupancy and waves); K4f and K4b the dense forward and
           backward (fused_impl="pallas"), also at the identity and zero
-          poses and at a 17x17 template, K4b run twice for the same bits;
+          poses and at a 17x17 template, each run twice for the same bits
+          (K4f printed beside its previous design's time with its plan,
+          occupancy and waves, and timed at the cifar10 shape too);
           K5f and K5b the banded ones (fused_impl="pallas_banded") at the
           flagship, cifar10, M=13, edge and off-canvas poses (empty row
           windows), identity and zero poses, 17x17 templates and
           per-example alpha, K5b twice for the same bits (K4b and K5b are
           one run-scatter kernel, printed beside their previous designs'
           times and timed at the cifar10 shape too); K6 the set
-          attention at the flagship's two shapes, with soft presences and
-          with a set whose presence is all 0, twice for the same bits,
-          beside PyTorch's scaled_dot_product_attention on the same inputs
+          attention at the flagship's two shapes under five kinds of
+          presence, twice for the same bits, beside PyTorch's
+          scaled_dot_product_attention on the same inputs (device time
+          from the profiler and CUDA events), its previous design's time,
+          its plan, occupancy and waves
   slice   the flagship SCAE (1x40x40, M=40, O=32, 11x11 templates), built
           on the card from a seeded generator, through the eval step and
           the infer function at batch 128; the kernels' launch counts over
@@ -209,37 +213,63 @@ def time_cuda(torch, fn, iters, warmup):
     return start.elapsed_time(end) / iters
 
 
+# Every profiler window opens with LEAD_IN_SPINS launches of PyTorch's spin
+# kernel (torch.cuda._sleep, about 0.1 ms each on the H100), which the host
+# waits for before the timed calls. On the card's machine torch.profiler
+# loses the device records of a window's first launches: 2 to 76 of them in
+# most windows, once every one of a 200-launch window of K6. The spins take
+# that loss and are never timed. A window that still records nothing of what
+# it times is taken again, up to PROFILER_WINDOWS times.
+LEAD_IN_SPINS = 8
+LEAD_IN_CYCLES = 200_000
+SPIN_KERNEL = "spin_kernel"
+PROFILER_WINDOWS = 3
+
+
+def profiler_window(torch, fn, iters):
+    """One torch.profiler window over ``iters`` calls of ``fn``, opened by
+    the lead-in spins and closed by one more spin."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN_SPINS):
+            torch.cuda._sleep(LEAD_IN_CYCLES)
+        torch.cuda.synchronize()
+        for _ in range(iters):
+            fn()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    return prof
+
+
 def kernel_device_ms(torch, fn, kernel, iters=200, warmup=20):
     """Device time per launch of the CUDA kernel whose name contains
     ``kernel``, over ``iters`` calls of ``fn``, from torch.profiler: the
     kernel alone, without the wrapper's checks and allocations on the host
     or its small PyTorch kernels (zeroing, the alpha sum) on the card.
 
-    The time is the mean over the launches the profiler recorded. On the
-    card's machine it now and then records fewer than were made (windows
-    of 200 launches have read 193 to 199 of one kernel); such a window is
-    reported with the positions of the launches that lack a record
-    (``unrecorded_launches``), and one that recorded none, or more than
-    ``iters``, is an error. A small fill kernel opens and closes the
-    window."""
-    from torch.profiler import ProfilerActivity, profile
-
-    marker = torch.empty(1, device="cuda")
+    The time is the mean over the launches the profiler recorded. A window
+    that recorded fewer than were made is reported with the positions of
+    the launches that lack a record (``unrecorded_launches``); one that
+    recorded none is taken again (``PROFILER_WINDOWS``), and one that
+    recorded more than ``iters`` is an error."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        marker.zero_()
-        for _ in range(iters):
-            fn()
-        marker.zero_()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in events)
+    for window in range(1, PROFILER_WINDOWS + 1):
+        prof = profiler_window(torch, fn, iters)
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in events)
+        if count or window == PROFILER_WINDOWS:
+            break
+        say(f"profiler window {window} of {PROFILER_WINDOWS} recorded no "
+            f"launch of {kernel}; {unrecorded_launches(torch, prof)} "
+            f"Taking another window.")
     if not 0 < count <= iters:
         raise RuntimeError(f"{count} profiler records match {kernel} over "
-                           f"{iters} launches")
+                           f"{iters} launches, in the last of {window} "
+                           f"windows")
     if count < iters:
         say(f"the profiler recorded {count} of the {iters} launches of "
             f"{kernel}; the time is the mean over those {count}. "
@@ -249,10 +279,51 @@ def kernel_device_ms(torch, fn, kernel, iters=200, warmup=20):
     return total_us / count / 1e3
 
 
+def device_ms_per_call(torch, fn, iters=200, warmup=20):
+    """Device time per call of ``fn``: every device operation (kernels,
+    copies, fills) that torch.profiler records over ``iters`` calls, the
+    lead-in spins excepted, a library call's counterpart of
+    ``kernel_device_ms``. Each operation adds the mean over the records it
+    has times its records per call (its count over ``iters``, rounded), so
+    that records the profiler loses (see ``profiler_window``) do not bias
+    the time down; a loss is reported, and a window with no device
+    operation is taken again."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for window in range(1, PROFILER_WINDOWS + 1):
+        prof = profiler_window(torch, fn, iters)
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and SPIN_KERNEL not in e.key]
+        if device:
+            break
+        say(f"profiler window {window} of {PROFILER_WINDOWS} recorded no "
+            f"device operation of the call; "
+            f"{unrecorded_launches(torch, prof)}")
+    else:
+        raise RuntimeError(f"the profiler recorded no device operation in "
+                           f"{PROFILER_WINDOWS} windows")
+    total_us = 0.0
+    for e in device:
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0.0))
+        per_call = round(e.count / iters)
+        if per_call == 0:       # not in every call: its share of the calls
+            total_us += us / iters
+            continue
+        if e.count != per_call * iters:
+            say(f"the profiler recorded {e.count} of the {per_call * iters} "
+                f"records of {e.key} over {iters} calls; its time is the "
+                f"mean over those {e.count}")
+        total_us += us / e.count * per_call
+    return total_us / 1e3
+
+
 def unrecorded_launches(torch, prof):
     """Which kernel launches of a profiler window have no device record:
     their positions, in launch order, among all the window's launches
-    (the opening fill kernel is the first), from the runtime calls'
+    (the ``LEAD_IN_SPINS`` spins are the first), from the runtime calls'
     correlation ids."""
     try:
         raw = list(prof.profiler.kineto_results.events())
@@ -277,10 +348,13 @@ def unrecorded_launches(torch, prof):
 
 # Device time per launch of the redesigned kernels' previous designs at the
 # flagship, as PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W;
-# K1 and K2+K3 before PR 9, K4b and K5b before PR 10): the yardstick the
+# each the range over the calls that timed that design): the yardstick the
 # redesigned kernels are printed beside.
 PREVIOUS_MS = {"K1": (0.0593, 0.0606), "K2+K3": (0.5929, 0.6075),
-               "K4b": (0.6580, 0.6623), "K5b": (0.6667, 0.6711)}
+               "K4b": (0.6580, 0.6623), "K5b": (0.6667, 0.6711),
+               "K4f": (0.0794, 0.0825),
+               "K6 set-attention block": (0.0114, 0.0116),
+               "K6 final attention": (0.0539, 0.0551)}
 IDENTITY_POSE = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
 ZERO_POSE = [0.0] * 6
 
@@ -568,6 +642,23 @@ def bwd_kernel_phase(torch, card):
 
 # ------------------------------------------------------------ K4f, K4b
 
+def dense_plan_text(k4, shape):
+    """K4f's plan for a shape, as text."""
+    p = k4.forward_plan(shape)
+    return (f"{p['tiles']} tile(s) of {p['threads']} threads x "
+            f"{k4.FWD_PIXELS} pixels, ring of {k4.FWD_STAGES} x "
+            f"{p['chunk']} capsules, shared memory {p['smem']} B")
+
+
+def dense_occupancy_text(torch, k4, shape):
+    """K4f's plan for a shape with its blocks per SM and waves."""
+    p = k4.forward_plan(shape)
+    per_sm = k4.blocks_per_sm(shape[2], shape[3], shape[4], p["threads"],
+                              p["chunk"])
+    return (f"plan: {dense_plan_text(k4, shape)}; "
+            f"{occupancy(torch, per_sm, p['blocks'])}")
+
+
 def dense_kernel_phase(torch, card):
     """K4f and K4b against their plain version (ops/decoder_ll.py with f32
     taps and its hand-derived backward) at the main path's shape and at
@@ -598,15 +689,18 @@ def dense_kernel_phase(torch, card):
                          alpha_batched=alpha_batched, fixed_pose=fixed)
         B, C, H, W = shape[0], shape[2], shape[5], shape[6]
         got = k4.decoder_ll_dense_fwd(*args)
+        repeat = k4.decoder_ll_dense_fwd(*args)
         torch.cuda.synchronize()
         want = k4.decoder_ll_dense_plain(*args)
-        for x in got:
+        for x, y in zip(got, repeat):
             if not bool(torch.isfinite(x).all()):
                 raise RuntimeError(f"K4f {name}: non-finite output")
+            if not torch.equal(x, y):
+                raise RuntimeError(f"K4f {name}: two runs differ")
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        say(f"K4f {name} {shape}: shared memory "
-            f"{k4.shared_memory_bytes(*shape[2:5])} B, max abs err "
-            f"{err:.3e} (tolerance {KERNEL_TOL:.0e}) [{card}]")
+        say(f"K4f {name} {shape}: {dense_plan_text(k4, shape)}, max abs "
+            f"err {err:.3e} (tolerance {KERNEL_TOL:.0e}), a second run "
+            f"bit-identical [{card}]")
         if not err < KERNEL_TOL:
             raise RuntimeError(f"K4f {name}: max abs err {err} exceeds "
                                f"{KERNEL_TOL}")
@@ -656,7 +750,21 @@ def dense_kernel_phase(torch, card):
         f"{ops / 1e9:.3f} GFLOP: K1's count, the taps of nonzero weight; the "
         f"TPU's dense count {dense_ops / 1e9:.3f} GFLOP would give "
         f"{dense_ops / PEAK_F32_FLOPS * 1e6:.2f} us), library_ms: none, "
-        f"roofline share {bound_ms / ms:.1%} [{card}]")
+        f"roofline share {bound_ms / ms:.1%}; "
+        f"{yardstick('K4f', ms, bound_ms)}; "
+        f"{dense_occupancy_text(torch, k4, FLAGSHIP_SHAPE)} [{card}]")
+    cifar = (BATCH,) + CIFAR10_SHAPE[1:]
+    cifar_args = k1_inputs(torch, cifar, seed=2)
+    cifar_ms = kernel_device_ms(
+        torch, lambda: k4.decoder_ll_dense_fwd(*cifar_args),
+        "decoder_ll_dense_fwd_kernel")
+    cifar_bound = k1_bound_ms(cifar)
+    say(f"K4f cifar10 time {cifar}: kernel {cifar_ms:.4f} ms (device time "
+        f"per launch over 200 launches, torch.profiler; the previous design "
+        f"was not timed at this shape), bound {cifar_bound[0] * 1e3:.2f} us "
+        f"by {cifar_bound[1]} ({cifar_bound[3] / 1e9:.3f} GFLOP), roofline "
+        f"share {cifar_bound[0] / cifar_ms:.1%}; "
+        f"{dense_occupancy_text(torch, k4, cifar)} [{card}]")
     rows = [dict(name="decoder_ll_dense_fwd", route="cuda",
                  source="scae_tpu_torch/csrc/decoder_ll_dense.cu",
                  replaces="scae_tpu/ops/pallas_decoder_ll.py:390",
@@ -901,6 +1009,24 @@ def attention_inputs(torch, shape, seed, kind):
              p)]
 
 
+def attention_plan_text(k6, shape):
+    """K6's plan for a shape (B, N, M, d_k, d_v), as text."""
+    p = k6.plan(*shape[1:])
+    return (f"{p['tiles']} tile(s) per batch row of {p['warps']} warps x "
+            f"{p['rows_per_warp']} query rows, "
+            f"{'16-byte' if p['vec'] else '4-byte'} copies, shared memory "
+            f"{p['smem']} B")
+
+
+def attention_occupancy_text(torch, k6, shape):
+    """K6's plan for a shape with its blocks per SM and waves."""
+    p = k6.plan(*shape[1:])
+    per_sm = k6.blocks_per_sm(*shape[1:], p["rows_per_warp"], p["warps"],
+                              p["vec"])
+    return (f"plan: {attention_plan_text(k6, shape)}; "
+            f"{occupancy(torch, per_sm, shape[0] * p['tiles'])}")
+
+
 def attention_kernel_phase(torch, card):
     """K6 against its plain version at the flagship's two shapes, under
     each kind of presence of ``ATTENTION_PRESENCES``, twice for the same
@@ -922,10 +1048,9 @@ def attention_kernel_phase(torch, card):
             if not torch.equal(got, again):
                 raise RuntimeError(f"K6 {label}: two runs differ")
             err = float((got - want).abs().max())
-            say(f"K6 {label} {shape}, {what}: shared memory "
-                f"{k6.shared_memory_bytes(*shape[1:])} B, max abs err "
-                f"{err:.3e} (tolerance {KERNEL_TOL:.0e}), a second run "
-                f"bit-identical [{card}]")
+            say(f"K6 {label} {shape}, {what}: {attention_plan_text(k6, shape)}"
+                f", max abs err {err:.3e} (tolerance {KERNEL_TOL:.0e}), a "
+                f"second run bit-identical [{card}]")
             if not err < KERNEL_TOL:
                 raise RuntimeError(f"K6 {label}: max abs err {err} exceeds "
                                    f"{KERNEL_TOL}")
@@ -943,16 +1068,24 @@ def attention_kernel_phase(torch, card):
                              iters=50, warmup=5)
         library_ms = time_cuda(torch, lambda: sdpa(q, k, v, attn_mask=mask),
                                iters=200, warmup=20)
+        library_device_ms = device_ms_per_call(
+            torch, lambda: sdpa(q, k, v, attn_mask=mask))
         bound_ms, bound_by, n_bytes, ops = attention_bound_ms(shape)
+        short = label.split(" (")[0]
         say(f"K6 {label} time: kernel {ms:.4f} ms (device time per launch "
             f"over 200 launches, torch.profiler), plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {library_ms:.4f} ms (200 calls, "
-            f"CUDA events, TF32 off, max abs diff from the plain version "
-            f"{sdpa_err:.3e}), bound {bound_ms * 1e3:.2f} us by {bound_by} "
-            f"({n_bytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP), roofline "
-            f"share {bound_ms / ms:.1%} [{card}]")
-        times[label] = (ms, plain_ms, library_ms, bound_ms, bound_by)
-    # the row: the final attention, the largest of the four launches
+            f"scaled_dot_product_attention {library_device_ms:.4f} ms of "
+            f"device time per call (every device operation of 200 calls, "
+            f"torch.profiler) and {library_ms:.4f} ms per call on CUDA "
+            f"events (200 calls; TF32 off, max abs diff from the plain "
+            f"version {sdpa_err:.3e}), bound {bound_ms * 1e3:.2f} us by "
+            f"{bound_by} ({n_bytes / 1e6:.2f} MB, {ops / 1e9:.4f} GFLOP), "
+            f"roofline share {bound_ms / ms:.1%}; "
+            f"{yardstick('K6 ' + short, ms, bound_ms)}; "
+            f"{attention_occupancy_text(torch, k6, shape)} [{card}]")
+        times[label] = (ms, plain_ms, library_device_ms, bound_ms, bound_by)
+    # the row: the final attention, the largest of the four launches; its
+    # library time is device time, as the kernel's
     ms, plain_ms, library_ms, bound_ms, bound_by = times[
         ATTENTION_SHAPES[1][0]]
     return dict(name="attention_fwd", route="cuda",
@@ -1437,12 +1570,15 @@ def probe_phase(torch, card, rows):
                                f"version by {lib_err}")
         ms = kernel_device_ms(torch, fn, kernel)
         plain_ms = time_cuda(torch, plain, iters=200, warmup=20)
-        library_ms = time_cuda(torch, library, iters=200, warmup=20)
+        library_ms = device_ms_per_call(torch, library)
+        library_event_ms = time_cuda(torch, library, iters=200, warmup=20)
         bound_ms, bound_by, n_bytes, ops = bounds[kid]
         say(f"{kid} time: kernel {ms:.4f} ms (device time per launch over "
             f"200 launches, torch.profiler), plain {plain_ms:.4f} ms (200 "
-            f"calls, CUDA events), library {what} {library_ms:.4f} ms "
-            f"(200 calls, CUDA events; {lib_err:.1e} from the plain "
+            f"calls, CUDA events), library {what} {library_ms:.4f} ms of "
+            f"device time per call (every device operation of 200 calls, "
+            f"torch.profiler) and {library_event_ms:.4f} ms per call on "
+            f"CUDA events (200 calls; {lib_err:.1e} from the plain "
             f"version), bound {bound_ms * 1e6:.2f} ns by {bound_by} "
             f"({n_bytes} B, "
             f"{ops} FLOP), roofline share {bound_ms / ms:.2%} [{card}]")

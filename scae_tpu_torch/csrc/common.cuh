@@ -7,6 +7,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -33,6 +35,45 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   return v;
 }
+
+// Asynchronous copies from global to shared memory (cp.async, sm_80 and
+// up): a thread issues them and goes on; cp_async_wait<N> waits until at
+// most N of its committed groups are still in flight, and a barrier then
+// makes every thread's copies visible to the block.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Starts copying n floats from global src to shared dst, 16 bytes a thread
+// where both are 16-byte aligned, else 4.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
+  const bool wide = ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
+  int i = 0;
+  if (wide) {
+    for (int k = threadIdx.x; 4 * k + 3 < n; k += blockDim.x) cp_async16(dst + 4 * k, src + 4 * k);
+    i = n & ~3;
+  }
+  for (int k = i + threadIdx.x; k < n; k += blockDim.x) cp_async4(dst + k, src + k);
+}
+
+// Floats of a region, rounded up to 4 so that every region starts 16-byte
+// aligned.
+__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
 // ((a x + b y + t + 1) n - 1) / 2 with every operation rounded on its own,
 // as PyTorch evaluates it (no fused multiply-adds), from the plain version's

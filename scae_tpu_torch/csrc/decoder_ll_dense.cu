@@ -18,11 +18,12 @@
 // (2 Ht Wt (C+1) operations per capsule-pixel pair: 484 at the flagship).
 // relu(1 - |ix - w|) is nonzero only for w = floor(ix) and floor(ix) + 1, so
 // this kernel evaluates those two columns and two rows, each weight by the
-// same formula as the plain version; the other taps have weight exactly 0
-// and add nothing. What differs from the gather kernel (K1) is the memory
-// plan: shared memory holds one capsule's table at a time (double
-// buffered, 2 (C+1) Ht Wt floats), not all M of them, so any template size
-// whose two tables fit in a block's 227 KB runs, for any M.
+// same formula as the plain version (common.cuh::two_taps); the other taps
+// have weight exactly 0 and add nothing. What differs from the gather
+// kernel (K1) is the memory plan: shared memory holds a ring of a few
+// chunks of capsules, never all M of them, so its size does not depend on
+// M, and every template size whose two one-capsule chunks fit in a block's
+// 227 KB runs, for any M.
 //
 // Bound on the H100 SXM (flagship: B=128, M=40, C=1, 11x11 -> 40x40): the
 // same function as K1's, ~5.9 MB of inputs and outputs (1.8 us at 3.35
@@ -30,8 +31,26 @@
 // us at 67 TFLOP/s; chip_smoke.py's k1_bound_ms counts them), so the kernel
 // is bound by f32 operations. The dense count of the TPU's formulation
 // would be ~4 GFLOP, 60 us.
-// Grid: (pixel tiles of 256, B); one thread per output pixel; the LSEs are
-// streamed over the capsules, as in K1.
+//
+// Design. A block takes one tile of an example's pixels, kPixels = 2 a
+// thread (the wrapper's planner picks the tiles and the threads so that few
+// lanes idle: at the flagship 2 tiles of 800 pixels, 416 threads of 2
+// pixels each). It streams the example's capsules through a ring of two
+// shared-memory buffers of `chunk` capsules each (tables, poses,
+// presences; the tables texel-major, all planes of a texel side by side,
+// so that a tap is one 8-byte load at C = 1, where the earlier plane-major
+// layout took two loads and two addresses): every thread issues cp.async
+// copies (4 bytes each, scattered into that layout) of the next chunk and
+// goes on to the chunk that has landed, so no thread waits on its own
+// copies before its pixels' work, and the block meets at one barrier per
+// chunk, where the chunk it reads has landed and the buffer it refills has
+// been read. (Three buffers, which put two chunks' copies in flight before
+// the first is read, were 3% slower at the flagship and no faster at the
+// cifar10 shape: PERF.md, section 6.) A lane of each warp takes one
+// capsule's log-presence (a logf) and the warp shares them by shuffles.
+// The per-pixel log-sum-exps are streamed over the capsules without a
+// branch (common.cuh::lse_push), as in K1; each thread's pixels are
+// independent chains that overlap their latencies.
 //
 // The output grid comes from the wrapper (scae_tpu_torch/ops/warp.py's
 // float64-rounded _base_grid) and the coordinates are evaluated with
@@ -45,29 +64,79 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kExtra = 8;  // per staged capsule: 6 pose entries, log-presence, pad
+constexpr int kMaxThreads = 512;
+constexpr int kPixels = 2;  // pixels a thread, independent chains
+constexpr int kStages = 2;  // buffers of the ring
 
-// Copy capsule m of example b into `buf`: C template planes, the alpha
-// plane, the pose and the log-presence.
-template <int C>
-__device__ __forceinline__ void stage_capsule(float* buf, const float* __restrict__ templates,
-                                              const float* __restrict__ alpha,
-                                              const float* __restrict__ pose,
-                                              const float* __restrict__ presence, int b, int m,
-                                              int M, int T, int alpha_batched) {
-  const size_t bm = static_cast<size_t>(b) * M + m;
-  const float* tm = templates + bm * C * T;
-  for (int i = threadIdx.x; i < C * T; i += blockDim.x) buf[i] = tm[i];
-  const float* am = alpha + (alpha_batched ? bm : static_cast<size_t>(m)) * T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) buf[C * T + i] = am[i];
-  float* extra = buf + (C + 1) * T;
-  if (threadIdx.x < 6) extra[threadIdx.x] = pose[bm * 6 + threadIdx.x];
-  if (threadIdx.x == 6) extra[6] = log_safe(presence[bm]);
+// One ring buffer of `chunk` capsules: their tables texel by texel, the C
+// template channels and the alpha logit of a texel side by side (chunk, T,
+// C + 1), so that a tap is one 8-byte load at C = 1 and one 16-byte load at
+// C = 3; then from a 16-byte boundary the poses (chunk, 6) and presences
+// (chunk,).
+struct Stage {
+  int pose, pres, size;
+  __host__ __device__ Stage(int chunk, int C, int T) {
+    pose = pad4(chunk * (C + 1) * T);
+    pres = pose + 6 * chunk;
+    size = pad4(pres + chunk);
+  }
+};
+
+// q = i / T and r = i % T for 0 <= i < 2^24, from a float reciprocal of T
+// and one correction step.
+__device__ __forceinline__ int div_t(int i, int T, float inv_t, int& r) {
+  int q = __float2int_rz(__int2float_rn(i) * inv_t);
+  r = i - q * T;
+  if (r < 0) {
+    --q;
+    r += T;
+  } else if (r >= T) {
+    ++q;
+    r -= T;
+  }
+  return q;
+}
+
+// Start copying `n` floats that lie (planes, T) in global memory, Per
+// planes a capsule (plane k = j Per + c of capsule j), into the texel-major
+// table of CC floats a texel: float c of texel t of capsule j to
+// (j T + t) CC + c0 + c.
+template <int CC, int Per>
+__device__ __forceinline__ void stage_planes(float* tab, const float* __restrict__ src, int n,
+                                             int c0, int T, float inv_t) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    int t;
+    const int k = div_t(i, T, inv_t, t);
+    const int j = k / Per;
+    cp_async4(tab + (j * T + t) * CC + c0 + (k - j * Per), src + i);
+  }
+}
+
+// The C + 1 floats of one texel of a texel-major table.
+template <int CC>
+__device__ __forceinline__ void load_texel(const float* p, float (&v)[CC]) {
+  if constexpr (CC == 2) {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+  } else if constexpr (CC == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < CC; ++c) v[c] = p[c];
+  }
+}
+
+__host__ __device__ inline size_t shared_bytes(int C, int T, int chunk) {
+  return static_cast<size_t>(kStages) * Stage(chunk, C, T).size * sizeof(float);
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 decoder_ll_dense_fwd_kernel(const float* __restrict__ templates,  // (B, M, C, Ht*Wt)
                             const float* __restrict__ alpha,      // (1 or B, M, Ht*Wt)
                             const float* __restrict__ pose,       // (B, M, 6)
@@ -79,15 +148,36 @@ decoder_ll_dense_fwd_kernel(const float* __restrict__ templates,  // (B, M, C, H
                             float* __restrict__ ll,               // (B, C, P)
                             float* __restrict__ num,              // (B, C, P)
                             float* __restrict__ den,              // (B, 1, P)
-                            int M, int Ht, int Wt, int H, int W, int alpha_batched) {
+                            int M, int Ht, int Wt, int H, int W, int alpha_batched, int tiles,
+                            int chunk) {
   constexpr int CC = C + 1;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int T = Ht * Wt;
   const int P = H * W;
-  const int b = blockIdx.y;
-  const int stride = CC * T + kExtra;  // one staged capsule
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = p < P;  // every thread stages and syncs; only active ones compute
+  const Stage L(chunk, C, T);
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int tile_px = (P + tiles - 1) / tiles;
+  const int p_end = min(P, (tile + 1) * tile_px);
+  const int p0 = tile * tile_px + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int nchunks = (M + chunk - 1) / chunk;
+  const float inv_t = 1.0f / static_cast<float>(T);
+
+  auto load = [&](int ch) {
+    if (ch >= nchunks) return;
+    float* buf = smem + (ch % kStages) * L.size;
+    const int m0 = ch * chunk;
+    const int n = min(chunk, M - m0);
+    const size_t bm = static_cast<size_t>(b) * M + m0;
+    stage_planes<CC, C>(buf, templates + bm * C * T, n * C * T, 0, T, inv_t);
+    stage_planes<CC, 1>(buf, alpha + (alpha_batched ? bm : static_cast<size_t>(m0)) * T,
+                        n * T, C, T, inv_t);
+    copy_async(buf + L.pose, pose + bm * 6, n * 6);
+    copy_async(buf + L.pres, presence + bm, n);
+    cp_async_commit();
+  };
+  load(0);
 
   const float bg_value = scal[0];
   const float bg_mix = scal[1];
@@ -96,89 +186,133 @@ decoder_ll_dense_fwd_kernel(const float* __restrict__ templates,  // (B, M, C, H
   const float neg_const = -logf(scale) - kLogSqrt2Pi;
   const float fHt = static_cast<float>(Ht);
   const float fWt = static_cast<float>(Wt);
-  const float gx = active ? grid_x[p] : 0.0f;
-  const float gy = active ? grid_y[p] : 0.0f;
 
   // the background component enters every LSE once, as its first term
-  float t[C], nm[C], ns[C];
+  float gx[kPixels], gy[kPixels], t[kPixels][C], nm[kPixels][C], ns[kPixels][C], dm[kPixels],
+      ds[kPixels];
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    t[c] = active ? target[(static_cast<size_t>(b) * C + c) * P + p] : 0.0f;
-    const float d = t[c] - bg_value;
-    nm[c] = bg_mix + (-(d * d) * inv_2var + neg_const);
-    ns[c] = 1.0f;
+  for (int k = 0; k < kPixels; ++k) {
+    const int p = p0 + k * blockDim.x;
+    const bool active = p < p_end;
+    gx[k] = active ? grid_x[p] : 0.0f;
+    gy[k] = active ? grid_y[p] : 0.0f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      t[k][c] = active ? target[(static_cast<size_t>(b) * C + c) * P + p] : 0.0f;
+      const float d = t[k][c] - bg_value;
+      nm[k][c] = bg_mix + (-(d * d) * inv_2var + neg_const);
+      ns[k][c] = 1.0f;
+    }
+    dm[k] = bg_mix;
+    ds[k] = 1.0f;
   }
-  float dm = bg_mix;
-  float ds = 1.0f;
 
-  stage_capsule<C>(smem, templates, alpha, pose, presence, b, 0, M, T, alpha_batched);
-  __syncthreads();
-  for (int m = 0; m < M; ++m) {
-    // stage the next capsule into the other buffer while this one is read;
-    // the sync at the end of the last iteration freed that buffer
-    if (m + 1 < M) {
-      stage_capsule<C>(smem + ((m + 1) & 1) * stride, templates, alpha, pose, presence, b,
-                       m + 1, M, T, alpha_batched);
-    }
-    const float* tab = smem + (m & 1) * stride;
-    if (active) {
-      const float* pm = tab + CC * T;
-      const float ix = source_coord(pm[0], pm[1], pm[2], gx, gy, fWt);
-      const float iy = source_coord(pm[3], pm[4], pm[5], gx, gy, fHt);
-      float wx[2], wy[2];
-      int kx[2], ky[2];
-      two_taps(ix, Wt, wx, kx);
-      two_taps(iy, Ht, wy, ky);
-      float v[CC];
-#pragma unroll
-      for (int cc = 0; cc < CC; ++cc) {
-        const float* tc = tab + cc * T;
-        // S[h] = sum_w T[h, w] wx[w], then V = sum_h S[h] wy[h]
-        const float s0 = tc[ky[0] * Wt + kx[0]] * wx[0] + tc[ky[0] * Wt + kx[1]] * wx[1];
-        const float s1 = tc[ky[1] * Wt + kx[0]] * wx[0] + tc[ky[1] * Wt + kx[1]] * wx[1];
-        v[cc] = s0 * wy[0] + s1 * wy[1];
-      }
-      const float mix = v[C] + pm[6];
-      lse_push(mix, dm, ds);
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float d = t[c] - v[c];
-        lse_push(mix + (-(d * d) * inv_2var + neg_const), nm[c], ns[c]);
-      }
-    }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<0>();
+    // chunk ch has landed for every thread, and every thread is done with
+    // chunk ch - 1, whose buffer the next load refills
     __syncthreads();
-  }
-  if (!active) return;
+    load(ch + 1);
 
-  const float den_lse = logf(ds) + dm;
-  den[static_cast<size_t>(b) * P + p] = den_lse;
+    const float* buf = smem + (ch % kStages) * L.size;
+    const int n = min(chunk, M - ch * chunk);
+    const float lp_lane = lane < n ? log_safe(buf[L.pres + lane]) : 0.0f;
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      const float lp = __shfl_sync(kFull, lp_lane, j);
+      const float2* pj = reinterpret_cast<const float2*>(buf + L.pose + 6 * j);
+      const float2 p01 = pj[0], p23 = pj[1], p45 = pj[2];
+      const float* tab = buf + j * T * CC;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
-    const float num_lse = logf(ns[c]) + nm[c];
-    num[o] = num_lse;
-    ll[o] = num_lse - den_lse;
+      for (int k = 0; k < kPixels; ++k) {
+        const float ix = source_coord(p01.x, p01.y, p23.x, gx[k], gy[k], fWt);
+        const float iy = source_coord(p23.y, p45.x, p45.y, gx[k], gy[k], fHt);
+        float wx[2], wy[2];
+        int kx[2], ky[2];
+        two_taps(ix, Wt, wx, kx);
+        two_taps(iy, Ht, wy, ky);
+        const int r0 = ky[0] * Wt;
+        const int r1 = ky[1] * Wt;
+        float t00[CC], t01[CC], t10[CC], t11[CC], v[CC];
+        load_texel<CC>(tab + (r0 + kx[0]) * CC, t00);
+        load_texel<CC>(tab + (r0 + kx[1]) * CC, t01);
+        load_texel<CC>(tab + (r1 + kx[0]) * CC, t10);
+        load_texel<CC>(tab + (r1 + kx[1]) * CC, t11);
+#pragma unroll
+        for (int cc = 0; cc < CC; ++cc) {
+          // S[h] = sum_w T[h, w] wx[w], then V = sum_h S[h] wy[h]
+          const float s0 = t00[cc] * wx[0] + t01[cc] * wx[1];
+          const float s1 = t10[cc] * wx[0] + t11[cc] * wx[1];
+          v[cc] = s0 * wy[0] + s1 * wy[1];
+        }
+        const float mix = v[C] + lp;
+        lse_push(mix, dm[k], ds[k]);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float d = t[k][c] - v[c];
+          lse_push(mix + (-(d * d) * inv_2var + neg_const), nm[k][c], ns[k][c]);
+        }
+      }
+    }
   }
+
+#pragma unroll
+  for (int k = 0; k < kPixels; ++k) {
+    const int p = p0 + k * blockDim.x;
+    if (p >= p_end) continue;
+    const float den_lse = logf(ds[k]) + dm[k];
+    den[static_cast<size_t>(b) * P + p] = den_lse;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const size_t o = (static_cast<size_t>(b) * C + c) * P + p;
+      const float num_lse = logf(ns[k][c]) + nm[k][c];
+      num[o] = num_lse;
+      ll[o] = num_lse - den_lse;
+    }
+  }
+}
+
+template <int C>
+cudaError_t set_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(decoder_ll_dense_fwd_kernel<C>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <int C>
 int launch(const float* templates, const float* alpha, const float* pose,
            const float* presence, const float* target, const float* scal,
            const float* grid_x, const float* grid_y, float* ll, float* num, float* den, int B,
-           int M, int Ht, int Wt, int H, int W, int alpha_batched, cudaStream_t stream) {
-  const size_t smem =
-      2 * (static_cast<size_t>(C + 1) * Ht * Wt + kExtra) * sizeof(float);
-  auto kernel = decoder_ll_dense_fwd_kernel<C>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((H * W + kThreads - 1) / kThreads, B);
-  kernel<<<grid, kThreads, smem, stream>>>(templates, alpha, pose, presence, target, scal,
-                                           grid_x, grid_y, ll, num, den, M, Ht, Wt, H, W,
-                                           alpha_batched);
+           int M, int Ht, int Wt, int H, int W, int alpha_batched, int tiles, int threads,
+           int chunk, cudaStream_t stream) {
+  const size_t smem = shared_bytes(C, Ht * Wt, chunk);
+  const cudaError_t e = set_smem<C>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  decoder_ll_dense_fwd_kernel<C><<<B * tiles, threads, smem, stream>>>(
+      templates, alpha, pose, presence, target, scal, grid_x, grid_y, ll, num, den, M, Ht, Wt,
+      H, W, alpha_batched, tiles, chunk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int C>
+int occupancy(int Ht, int Wt, int threads, int chunk) {
+  const size_t smem = shared_bytes(C, Ht * Wt, chunk);
+  cudaError_t e = set_smem<C>(smem);
+  int blocks = 0;
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, decoder_ll_dense_fwd_kernel<C>, threads, smem);
+  }
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
+bool valid_plan(int C, int H, int W, int tiles, int threads, int chunk) {
+  if (C < 1 || C > 4 || tiles < 1 || chunk < 1 || chunk > 32) return false;
+  if (threads < 32 || threads > kMaxThreads || threads % 32) return false;
+  // the tiles' pixels fit the threads
+  const int tile_px = (H * W + tiles - 1) / tiles;
+  return tile_px <= threads * kPixels;
 }
 
 }  // namespace
@@ -189,12 +323,19 @@ extern "C" {
 // success). Every pointer is a contiguous float32 device array (see the
 // kernel's parameter comments for the shapes); grid_x and grid_y are the
 // output grid as scae_tpu_torch/ops/warp.py::_base_grid gives it,
-// flattened. C must be 1..4.
+// flattened. The plan comes from the wrapper's planner: `tiles` pixel tiles
+// per example of at most 2 x threads pixels, threads a multiple of 32 up
+// to 512, chunks of 1..32 capsules in a ring of two buffers. C must be
+// 1..4.
 int scae_decoder_ll_dense_fwd(const void* templates, const void* alpha, const void* pose,
                               const void* presence, const void* target, const void* scal,
                               const void* grid_x, const void* grid_y, void* ll, void* num,
                               void* den, int B, int M, int C, int Ht, int Wt, int H, int W,
-                              int alpha_batched, void* stream) {
+                              int alpha_batched, int tiles, int threads, int chunk,
+                              void* stream) {
+  if (B < 1 || M < 1 || !valid_plan(C, H, W, tiles, threads, chunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto* t = static_cast<const float*>(templates);
   const auto* a = static_cast<const float*>(alpha);
   const auto* po = static_cast<const float*>(pose);
@@ -207,18 +348,23 @@ int scae_decoder_ll_dense_fwd(const void* templates, const void* alpha, const vo
   auto* o_num = static_cast<float*>(num);
   auto* o_den = static_cast<float*>(den);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-#define SCAE_FWD_CASE(N)                                                                  \
-  case N:                                                                                 \
-    return launch<N>(t, a, po, pr, tg, sc, gxs, gys, o_ll, o_num, o_den, B, M, Ht, Wt, H, \
-                     W, alpha_batched, s);
-    SCAE_FWD_CASE(1)
-    SCAE_FWD_CASE(2)
-    SCAE_FWD_CASE(3)
-    SCAE_FWD_CASE(4)
+#define SCAE_FWD_CASE(N)                                                                      \
+  if (C == N)                                                                                 \
+    return launch<N>(t, a, po, pr, tg, sc, gxs, gys, o_ll, o_num, o_den, B, M, Ht, Wt, H, W, \
+                     alpha_batched, tiles, threads, chunk, s);
+  SCAE_FWD_CASE(1) SCAE_FWD_CASE(2) SCAE_FWD_CASE(3) SCAE_FWD_CASE(4)
 #undef SCAE_FWD_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Blocks of the forward kernel that fit on one SM for this plan
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a cudaError_t.
+int scae_decoder_ll_dense_fwd_occupancy(int C, int Ht, int Wt, int threads, int chunk) {
+#define SCAE_OCC_CASE(N) \
+  if (C == N) return occupancy<N>(Ht, Wt, threads, chunk);
+  SCAE_OCC_CASE(1) SCAE_OCC_CASE(2) SCAE_OCC_CASE(3) SCAE_OCC_CASE(4)
+#undef SCAE_OCC_CASE
+  return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -46,48 +46,11 @@
 // Built by scae_tpu_torch/kernels/_build.py with plain nvcc into a shared
 // library; scae_tpu_torch/kernels/decoder_ll_gather.py binds it with ctypes.
 
-#include <cstdint>
-
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Starts copying n floats from global src to shared dst, 16 bytes a thread
-// where both are 16-byte aligned, else 4.
-__device__ __forceinline__ void copy_async(float* dst, const float* src, int n) {
-  const bool wide = ((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
-  int i = 0;
-  if (wide) {
-    for (int k = threadIdx.x; 4 * k + 3 < n; k += blockDim.x) cp_async16(dst + 4 * k, src + 4 * k);
-    i = n & ~3;
-  }
-  for (int k = i + threadIdx.x; k < n; k += blockDim.x) cp_async4(dst + k, src + k);
-}
-
-// Floats of a region, rounded up to 4 so that every region starts 16-byte
-// aligned.
-__host__ __device__ __forceinline__ int pad4(int n) { return (n + 3) & ~3; }
 
 // Layout of one example's buffer: templates (M, C, T), alpha (M, T) where
 // alpha is per example, poses (M, 6), presences (M,), log-presences (M,).

@@ -114,3 +114,18 @@ def load(source_name: str, symbol: str, n_ptr: int, n_int: int):
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err, built
+
+
+def occupancy(source_name: str, symbol: str, *sizes) -> int:
+    """Blocks of a kernel that fit on one SM of the current card: its
+    library's ``symbol`` (a C function of ints that returns
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor's count for the
+    kernel's registers and shared memory at these sizes, or minus a
+    cudaError_t). Builds the kernel if needed."""
+    fn = getattr(ctypes.CDLL(build(source_name).path), symbol)
+    fn.argtypes = [ctypes.c_int] * len(sizes)
+    fn.restype = ctypes.c_int
+    blocks = fn(*(int(a) for a in sizes))
+    if blocks <= 0:
+        raise RuntimeError(f"{symbol}: occupancy query failed ({blocks})")
+    return blocks

@@ -27,6 +27,8 @@ CPU. See the sources for each kernel's bound on the H100 and how its
 design meets it.
 """
 
+import functools
+
 import torch
 
 from scae_tpu_torch.kernels import _build
@@ -45,7 +47,7 @@ from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
 SOURCE = "decoder_ll_dense.cu"
 BWD_SOURCE = "decoder_ll_dense_bwd.cu"
 _SIGNATURES = {
-    SOURCE: ("scae_decoder_ll_dense_fwd", 11, 8),
+    SOURCE: ("scae_decoder_ll_dense_fwd", 11, 11),
     BWD_SOURCE: ("scae_decoder_ll_dense_bwd", 17, 8),
 }
 
@@ -117,10 +119,76 @@ def decoder_ll_dense_bwd_plain(g, num, den, templates, alpha, pose,
         target, out_size, torch.float32, target_grad)
 
 
-def shared_memory_bytes(C, Ht, Wt) -> int:
-    """Dynamic shared memory of one K4f block: two capsules' tables (the
-    one being read and the next), each with its pose and log-presence."""
-    return 4 * 2 * ((C + 1) * Ht * Wt + 8)
+FWD_MAX_THREADS = 512          # threads of a K4f block, at most
+FWD_PIXELS = 2                 # pixels of a K4f thread (kPixels)
+FWD_CHUNK = 32                 # capsules of a K4f ring buffer, at most
+FWD_STAGES = 2                 # buffers of the ring (kStages)
+FWD_SMEM_BUDGET = 100 * 1024   # the ring's bytes (two blocks to an SM),
+                               # where one capsule allows
+
+
+def _pad4(n):
+    return -(-n // 4) * 4
+
+
+def shared_memory_bytes(C, Ht, Wt, chunk=None) -> int:
+    """Dynamic shared memory of one K4f block: a ring of ``FWD_STAGES``
+    buffers of ``chunk`` capsules, each buffer the capsules' template and
+    alpha tables (texel-major: C + 1 floats a texel), then from a 16-byte
+    boundary their poses and presences. It does not depend on M. Without a
+    chunk, the planner's (``forward_ring``)."""
+    if chunk is None:
+        chunk = forward_ring(C, Ht, Wt)
+    T = Ht * Wt
+    return 4 * FWD_STAGES * _pad4(_pad4(chunk * (C + 1) * T) + 7 * chunk)
+
+
+@functools.cache
+def forward_ring(C, Ht, Wt):
+    """Capsules of a buffer of K4f's ring: ``FWD_CHUNK``, halved while the
+    ring exceeds ``FWD_SMEM_BUDGET``, down to 1. Two one-capsule buffers
+    take what the earlier double-buffered design took, so every size it
+    ran still runs; a size whose two one-capsule buffers do not fit is
+    refused by the wrapper."""
+    chunk = FWD_CHUNK
+    while chunk > 1 and shared_memory_bytes(C, Ht, Wt, chunk) \
+            > FWD_SMEM_BUDGET:
+        chunk //= 2
+    return chunk
+
+
+@functools.cache
+def pixel_tiling(P):
+    """K4f's pixel tiling of one example's P pixels: (tiles, threads),
+    threads a multiple of 32 up to ``FWD_MAX_THREADS``, each with
+    ``FWD_PIXELS`` pixels of a tile of ceil(P / tiles): the fewest tiles
+    (each tile reads every capsule) whose idle pixel slots are at most an
+    eighth of P, else the tiling with the fewest idle slots."""
+    best = None
+    for tiles in range(1, P + 1):
+        tile_px = -(-P // tiles)
+        threads = max(32, -(-tile_px // (32 * FWD_PIXELS)) * 32)
+        if threads > FWD_MAX_THREADS:
+            continue
+        idle = tiles * threads * FWD_PIXELS - P
+        if 8 * idle <= P:
+            return tiles, threads
+        if best is None or idle < best[0]:
+            best = (idle, tiles, threads)
+        if threads == 32:
+            break
+    return best[1], best[2]
+
+
+def forward_plan(shape):
+    """K4f's launch plan for (B, M, C, Ht, Wt, H, W): tiles and threads
+    (``pixel_tiling``), chunk (``forward_ring``), blocks (B x tiles) and
+    smem (bytes, the same for every M)."""
+    B, M, C, Ht, Wt, H, W = shape
+    tiles, threads = pixel_tiling(H * W)
+    chunk = forward_ring(C, Ht, Wt)
+    return dict(tiles=tiles, threads=threads, chunk=chunk, blocks=B * tiles,
+                smem=shared_memory_bytes(C, Ht, Wt, chunk))
 
 
 # one K4b block's shared memory: K2+K3's layout (csrc/decoder_ll_tap_bwd.cuh)
@@ -138,18 +206,26 @@ def build_info(source=SOURCE) -> _build.BuiltLibrary:
     return _build.load(source, *_SIGNATURES[source])[2]
 
 
+def blocks_per_sm(C, Ht, Wt, threads, chunk) -> int:
+    """Blocks of K4f that fit on one SM of the current card for this plan
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); builds K4f if
+    needed."""
+    return _build.occupancy(SOURCE, "scae_decoder_ll_dense_fwd_occupancy",
+                            C, Ht, Wt, threads, chunk)
+
 
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
             scale, target, out_size):
-    """Launch K4f on CUDA tensors: (ll, num, den)."""
+    """Launch K4f on CUDA tensors: (ll, num, den), with the planner's
+    plan (``forward_plan``)."""
     global launches
     check_inputs(templates, alpha, pose, presence, target, out_size)
     B, M, C, Ht, Wt = templates.shape
     H, W = out_size
     P = H * W
     device = templates.device
-    check_smem(shared_memory_bytes(C, Ht, Wt),
-                "K4f's two staged capsule tables")
+    p = forward_plan((B, M, C, Ht, Wt, H, W))
+    check_smem(p["smem"], "K4f's ring of staged capsule tables")
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
     grid_x, grid_y = output_grid(out_size, device)
 
@@ -164,7 +240,8 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
                 presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
                 grid_x.data_ptr(), grid_y.data_ptr(), ll.data_ptr(),
                 num.data_ptr(), den.data_ptr(),
-                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), stream)
+                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), p["tiles"],
+                p["threads"], p["chunk"], stream)
     raise_on(rc, err, "decoder_ll_dense")
     launches += 1
     return ll, num, den

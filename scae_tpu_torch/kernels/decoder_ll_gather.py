@@ -23,7 +23,6 @@ See the sources for each kernel's bound on the H100 and how its design
 meets it.
 """
 
-import ctypes
 import math
 
 import torch
@@ -207,14 +206,8 @@ def blocks_per_sm(source, *sizes) -> int:
     registers and shared memory). K1 (``SOURCE``) takes (M, C, Ht, Wt,
     alpha_batched, buffers), the backward (``BWD_SOURCE``) (C, Ht, Wt);
     builds the kernel if needed."""
-    lib = ctypes.CDLL(build_info(source).path)
-    fn = getattr(lib, _SIGNATURES[source][0] + "_occupancy")
-    fn.argtypes = [ctypes.c_int] * len(sizes)
-    fn.restype = ctypes.c_int
-    blocks = fn(*(int(a) for a in sizes))
-    if blocks <= 0:
-        raise RuntimeError(f"occupancy query failed ({blocks})")
-    return blocks
+    return _build.occupancy(source, _SIGNATURES[source][0] + "_occupancy",
+                            *sizes)
 
 
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,

@@ -10,10 +10,11 @@ alpha-channel or temperature mixing logits, presence folded into the
 mixing logits through log_safe, scalar output scale. With a target, the
 per-pixel log-likelihood comes from the fused path, by ``fused_impl``:
 
-  * "auto" or "gather": the gather likelihood
-    (``kernels/decoder_ll_gather.py``): for CUDA tensors its autograd
-    Function, K1 forward and K2+K3 backward; for CPU tensors its plain
-    version, which autograd differentiates;
+  * "gather", and "auto" where the template has at most ``TBL_MAX``
+    texels (``gather_supports``, as the reference's auto picks): the
+    gather likelihood (``kernels/decoder_ll_gather.py``): for CUDA tensors
+    its autograd Function, K1 forward and K2+K3 backward; for CPU tensors
+    its plain version, which autograd differentiates;
   * "pallas": the dense likelihood (``kernels/decoder_ll_dense.py``): K4f
     forward and K4b backward for CUDA tensors, the plain version
     (``ops/decoder_ll.py`` with float32 taps and its hand-derived
@@ -22,8 +23,9 @@ per-pixel log-likelihood comes from the fused path, by ``fused_impl``:
     (``kernels/decoder_ll_banded.py``): the capsules padded and sorted, K5f
     forward and K5b backward for CUDA tensors, the plain version (the dense
     one with the y-taps masked by the row windows) for CPU tensors;
-  * "xla": ``ops/decoder_ll.py::fused_decoder_ll`` with ``fused_tap_dtype``
-    taps, on any device.
+  * "xla", and "auto" above ``TBL_MAX`` texels:
+    ``ops/decoder_ll.py::fused_decoder_ll`` with ``fused_tap_dtype`` taps,
+    on any device.
 
 The likelihood, like the rendered components, is computed when it is
 first read, so a forward whose caller never reads it (the infer function)
@@ -45,6 +47,17 @@ from scae_tpu_torch.ops.decoder_ll import fused_decoder_ll
 from scae_tpu_torch.ops.gmm import GaussianMixture
 from scae_tpu_torch.ops.math_ops import log_safe
 from scae_tpu_torch.ops.warp import affine_warp
+
+# the most texels a template may have for "auto" to take the gather route:
+# the reference's gather kernel holds a template in two 128-lane vector
+# registers (scae_tpu/ops/pallas_decoder_ll_gather.py, TBL_MAX), and its
+# auto takes "xla" above that
+TBL_MAX = 256
+
+
+def gather_supports(template_size) -> bool:
+    """Whether "auto" takes the gather route for templates of this size."""
+    return template_size[0] * template_size[1] <= TBL_MAX
 
 
 def qr_template_init(n_templates, n_channels, template_size, generator):
@@ -204,11 +217,14 @@ class TemplateBasedImageDecoder(nn.Module):
                     torch.sigmoid(self.bg_value)[0],
                     F.softplus(self.bg_mixing_logit)[0], scale,
                     target.contiguous(), self.output_size)
-            if self.fused_impl == "xla":
+            impl = self.fused_impl
+            if impl == "auto":
+                impl = "gather" if gather_supports((Ht, Wt)) else "xla"
+            if impl == "xla":
                 return fused_decoder_ll(*args, self.fused_tap_dtype)
-            if self.fused_impl == "pallas":
+            if impl == "pallas":
                 return decoder_ll_dense(*args)[0]
-            if self.fused_impl == "pallas_banded":
+            if impl == "pallas_banded":
                 return decoder_ll_banded(*args)[0]
             return decoder_ll_gather(*args)[0]
 

@@ -221,10 +221,16 @@ def arrays_t(arrays):
 
 
 def test_shared_memory_does_not_grow_with_capsules():
-    # K4f: two staged capsule tables; K4b: one capsule's table (2 floats a
+    # K4f: a ring of 2 buffers of 32 capsules' tables (2 floats a texel
+    # at C = 1), from a 16-byte boundary their 6 pose entries and presence,
+    # the same bytes for every M; K4b: one capsule's table (2 floats a
     # texel at C = 1, 4 at C = 3), and for each of 4 warps a gradient table
     # of C + 1 planes and 32 pixels' 4 (C + 1) tap values and keys
-    assert k4.shared_memory_bytes(1, 11, 11) == 4 * 2 * (2 * 121 + 8)
+    assert k4.shared_memory_bytes(1, 11, 11) == \
+        4 * 2 * (32 * 2 * 121 + 32 * 7)
+    assert {k4.forward_plan((128, M, 1, 11, 11, 40, 40))["smem"]
+            for M in (1, 13, 40, 64, 1000)} == \
+        {k4.shared_memory_bytes(1, 11, 11)}
     assert k4.bwd_shared_memory_bytes(1, 11, 11) == \
         4 * (2 * 121 + 4 * (2 * 121 + 9 * 32))
     assert k4.bwd_shared_memory_bytes(3, 17, 17) == \

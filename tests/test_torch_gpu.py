@@ -423,7 +423,7 @@ DENSE_SHAPES = [
     ((4, 13, 1, 5, 5, 24, 24), 4.0, False),      # extreme poses, M = 13
     ((2, 16, 3, 14, 14, 32, 32), 0.6, False),    # colour
     ((3, 8, 2, 7, 9, 20, 28), 0.6, True),        # per-example alpha
-    ((2, 6, 1, 17, 17, 24, 24), 0.6, False),     # 289 texels: gather refuses
+    ((2, 6, 1, 17, 17, 24, 24), 0.6, False),     # 289 texels: auto takes xla
     ((2, 5, 3, 9, 9, 3000, 1), 0.6, False),      # one output column
 ]
 
@@ -451,6 +451,34 @@ def test_dense_kernels_match_plain(cuda, shape, pose_noise, alpha_batched):
     assert part[7] is None
     for a, b in zip(part[:7], got[:7]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape,pose_noise,alpha_batched", DENSE_SHAPES)
+def test_dense_forward_repeats_bit_for_bit(cuda, shape, pose_noise,
+                                           alpha_batched):
+    """K4f's ring and pixel tiles sum each pixel's capsules in one order:
+    the same inputs give the same bits."""
+    _, args = bwd_args(make_inputs(shape, pose_noise=pose_noise,
+                                   alpha_batched=alpha_batched), cuda)
+    first = k4.decoder_ll_dense_fwd(*args)
+    again = k4.decoder_ll_dense_fwd(*args)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4])
+@pytest.mark.parametrize("plan", [(7, 9), (17, 17), (40, 40), (60, 75),
+                                  (75, 75)])
+def test_dense_forward_plans_match_plain(cuda, C, plan):
+    """Every instantiation (C) and the rings the planner picks for these
+    template sizes (``plan``: Ht x Wt; chunks of 32, 16, 8, 2 and 1
+    capsules, rings of up to 225,088 B), M = 13 (a last chunk that is not
+    full), per-example alpha, a canvas of 19 x 21 pixels that no tiling
+    covers exactly."""
+    shape = (3, 13, C) + plan + (19, 21)
+    _, args = bwd_args(make_inputs(shape, alpha_batched=True), cuda)
+    got = k4.decoder_ll_dense_fwd(*args)
+    assert max_err(got, k4.decoder_ll_dense_plain(*args)) < TOL
 
 
 @pytest.mark.parametrize("kind", ["identity", "zero"])
@@ -705,6 +733,68 @@ def test_attention_kernel_matches_plain(cuda, B, N, M, dk, dv, presence):
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) < 1e-5
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B,N,M,dk,dv", [
+    (3, 17, 45, 68, 132),    # a last tile of one row, keys past 32, values past 128
+    (2, 9, 33, 12, 12),      # value teams of 4 lanes, a V row padded to 16
+    (2, 33, 70, 20, 260),    # keys past 64, a second pass of values
+    (2, 7, 5, 4, 8),         # value teams of 1 and 2 lanes
+])
+@pytest.mark.parametrize("presence", ["binary", "near one", "zero"])
+def test_attention_kernel_matches_plain_across_tiles(cuda, B, N, M, dk, dv,
+                                                     presence):
+    """Shapes whose N, M, d_k and d_v straddle K6's tiles: rows per block,
+    keys per lane pass, value chunks per lane and lane teams."""
+    args = [x.to(cuda) for x in
+            attention_inputs(B, N, M, dk, dv, seed=2, presence=presence)]
+    got = k6.attention(*args)
+    again = k6.attention(*args)
+    want = k6.attention_plain(*args)
+    assert float((got - want).abs().max()) < 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("tile_plan", [
+    ((1, 40, 256, 256), dict(rows_per_warp=1, warps=1, vec=True)),
+    ((32, 40, 256, 256), dict(rows_per_warp=2, warps=8, vec=True)),
+    ((5, 40, 20, 20), dict(rows_per_warp=2, warps=3, vec=True)),
+    ((32, 40, 255, 256), dict(rows_per_warp=2, warps=8, vec=False)),
+    ((1, 40, 255, 257), dict(rows_per_warp=1, warps=1, vec=False)),
+])
+def test_attention_kernel_plans_match_plain(cuda, tile_plan):
+    """Every instantiation (rows per warp, 16-byte or 4-byte), reached
+    through shapes (N, M, d_k, d_v) whose plan the test names: one query
+    row, the flagship's final attention, a tile of 3 warps whose last
+    warp has one row, d_k not a multiple of 4."""
+    shape, want = tile_plan
+    assert {k: k6.plan(*shape)[k] for k in want} == want
+    args = [x.to(cuda) for x in
+            attention_inputs(4, *shape, seed=3, presence="binary")]
+    got = k6.attention(*args)
+    assert float((got - k6.attention_plain(*args)).abs().max()) < 1e-5
+
+
+def test_attention_kernel_takes_unaligned_inputs(cuda):
+    """Contiguous inputs at a storage offset of one float, off the 16-byte
+    boundary: K6 takes its 4-byte path and agrees with the plain
+    version."""
+    args = attention_inputs(4, 40, 40, 16, 16, seed=4, presence="binary")
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, device=cuda)
+        view = store[1:].view(x.shape)
+        view.copy_(x.to(cuda))
+        return view
+
+    q, k, v = (shifted(x) for x in args[:3])
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    p = args[3].to(cuda)
+    assert not k6.plan(40, 40, 16, 16, False)["vec"]
+    got = k6.attention(q, k, v, p)
+    want = k6.attention_plain(q, k, v, p)
+    assert float((got - want).abs().max()) < 1e-5
+    assert torch.equal(got, k6.attention(q, k, v, p))
 
 
 @pytest.mark.parametrize("presence", ["soft", "binary"])

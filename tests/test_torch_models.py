@@ -252,6 +252,96 @@ def test_part_decoder_golden(name, C):
     close(dres.pdf.mode(), g["mode"])
 
 
+# F1: which likelihood route fused_impl="auto" takes, by template size.
+# Above TBL_MAX (256) texels the reference's auto takes "xla"
+# (scae_tpu/models/part_decoder.py), fused_decoder_ll with the decoder's
+# fused_tap_dtype, whose tap slope is 0 at a texel centre; the gather
+# route's one-sided slopes would give a zero-pose capsule (every source
+# coordinate on the template's centre texel) another pose gradient.
+# Tolerances: float32 taps, values 2e-5 absolute and every gradient within
+# 1e-4 of its largest |entry| (the same f32 sums in another order);
+# bfloat16 taps, values 5e-2 absolute and gradients within 2e-2 of their
+# largest |entry|, the bars of tests/test_torch_decoder_ll_dense.py.
+
+def _f1_case(template_size, fused_tap_dtype, seed=0):
+    """A JAX decoder on "xla" and the port's on "auto", the same perturbed
+    flax weights, inputs from numpy with capsule 0 of every example at the
+    zero pose."""
+    B, M, C, (H, W) = 2, 4, 1, (20, 20)
+    Ht, Wt = template_size
+    kw = dict(n_templates=M, template_size=template_size, output_size=(H, W),
+              use_alpha_channel=True, learn_output_scale=True,
+              use_fused_ll=True, fused_tap_dtype=fused_tap_dtype)
+    jd = j_pd.TemplateBasedImageDecoder(fused_impl="xla", **kw)
+    td = t_pd.TemplateBasedImageDecoder(fused_impl="auto", **kw)
+    rng = np.random.RandomState(seed)
+    pose = np.array(j_od.geometric_transform(
+        jnp.asarray(rng.randn(B, M, 6) * 0.5, jnp.float32)))
+    pose[:, 0] = 0.0                          # the zero pose
+    arrays = [rand(B, M, C, Ht, Wt, seed=seed + 1), pose,
+              rand(B, M, seed=seed + 2), rand(B, C, H, W, seed=seed + 3)]
+    params = perturbed(jd.init(jax.random.PRNGKey(0), *map(
+        jnp.asarray, arrays[:3]), target=jnp.asarray(arrays[3]))["params"],
+        seed + 4)
+    load_flax_params(td, params)
+    return jd, td, params, arrays
+
+
+@pytest.mark.parametrize("fused_tap_dtype,val_tol,grad_tol", [
+    ("float32", 2e-5, 1e-4), ("bfloat16", 5e-2, 2e-2)])
+def test_auto_above_256_texels_takes_xla_as_the_reference(
+        fused_tap_dtype, val_tol, grad_tol):
+    jd, td, params, arrays = _f1_case((17, 17), fused_tap_dtype)
+    cot = np.cos(np.arange(arrays[3].size, dtype=np.float32)).reshape(
+        arrays[3].shape)
+
+    def j_loss(p, *a):
+        ll = jd.apply({"params": p}, *a[:3], target=a[3]).target_ll
+        return jnp.sum(ll * cot), ll
+
+    (j_gp, *j_ga), want = jax.jit(jax.grad(
+        j_loss, argnums=tuple(range(5)), has_aux=True))(
+        params, *map(jnp.asarray, arrays))
+    leaves = [torch.from_numpy(a.copy()).requires_grad_() for a in arrays]
+    ll = td(*leaves[:3], target=leaves[3]).target_ll
+    np.testing.assert_allclose(ll.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=val_tol)
+    (ll * torch.from_numpy(cot)).sum().backward()
+    got = {n: p.grad for n, p in td.named_parameters()}
+    want_grads = {n: np.asarray(j_gp[n]) for n in got}
+    assert sorted(got) == ["bg_mixing_logit", "bg_value", "scale",
+                           "templates_alpha"]
+    for name, leaf, ref in zip(("templates", "pose", "presence", "target"),
+                               leaves, j_ga):
+        got[name], want_grads[name] = leaf.grad, np.asarray(ref)
+    assert len(got) == 8
+    for name, g in got.items():
+        ref = want_grads[name]
+        scale = max(float(np.abs(ref).max()), 1.0 if ref.size == 1 else 0.0)
+        err = float(np.abs(g.numpy() - ref).max())
+        assert err <= grad_tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("template_size,route", [((11, 11), "gather"),
+                                                 ((16, 16), "gather"),
+                                                 ((17, 17), "xla")])
+def test_auto_route_by_template_size(monkeypatch, template_size, route):
+    """"auto" calls the gather wrapper up to 256 texels and the plain
+    fused_decoder_ll above, and never the dense wrapper."""
+    calls = []
+    for name in ("decoder_ll_gather", "fused_decoder_ll", "decoder_ll_dense"):
+        def spy(*a, _name=name, _fn=getattr(t_pd, name)):
+            calls.append(_name)
+            return _fn(*a)
+        monkeypatch.setattr(t_pd, name, spy)
+    assert t_pd.gather_supports(template_size) == (route == "gather")
+    _, td, _, arrays = _f1_case(template_size, "float32")
+    ll = td(*map(T, arrays[:3]), target=T(arrays[3])).target_ll
+    assert bool(torch.isfinite(ll).all())
+    assert calls == ["decoder_ll_gather" if route == "gather"
+                     else "fused_decoder_ll"]
+
+
 # --------------------------------------------------------- set transformer
 
 @pytest.mark.parametrize("layer_norm,n_heads,inducing", [
