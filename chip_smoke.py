@@ -25,9 +25,11 @@ Phases, each announced when it starts and when it ends, with its seconds:
           K5f and K5b the banded ones (fused_impl="pallas_banded") at the
           flagship, cifar10, M=13, edge and off-canvas poses (empty row
           windows), identity and zero poses, 17x17 templates and
-          per-example alpha, K5b twice for the same bits (K4b and K5b are
-          one run-scatter kernel, printed beside their previous designs'
-          times and timed at the cifar10 shape too); K6 the set
+          per-example alpha, each twice for the same bits (K5f printed
+          beside its previous design's time with its plan, registers,
+          occupancy and waves; K4b and K5b are one run-scatter kernel,
+          printed beside their previous designs' times; all three timed at
+          the cifar10 shape too); K6 the set
           attention at the flagship's two shapes under five kinds of
           presence, twice for the same bits, beside PyTorch's
           scaled_dot_product_attention on the same inputs (device time
@@ -56,7 +58,9 @@ Phases, each announced when it starts and when it ends, with its seconds:
           noise off at batch 32 on the card and on the CPU, through K1 and
           K2+K3
   probe   the toolchain probes P1 (x * 2 + 1) and P2 (a float32 product)
-          against their plain versions, timed beside torch.matmul; the
+          against their plain versions, timed beside torch.add and
+          torch.matmul (P2 with its previous design's time, its plan,
+          registers, occupancy and waves); the
           probe entry point (python -m scae_tpu_torch.tools.probe) in this
           process, where it must launch each probe once, and as a
           subprocess, which must exit 0
@@ -352,7 +356,8 @@ def unrecorded_launches(torch, prof):
 # redesigned kernels are printed beside.
 PREVIOUS_MS = {"K1": (0.0593, 0.0606), "K2+K3": (0.5929, 0.6075),
                "K4b": (0.6580, 0.6623), "K5b": (0.6667, 0.6711),
-               "K4f": (0.0794, 0.0825),
+               "K4f": (0.0794, 0.0825), "K5f": (0.0710, 0.0750),
+               "P2": (0.0044, 0.0045),
                "K6 set-attention block": (0.0114, 0.0116),
                "K6 final attention": (0.0539, 0.0551)}
 IDENTITY_POSE = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
@@ -810,6 +815,27 @@ def dense_kernel_phase(torch, card):
 
 # ------------------------------------------------------------ K5f, K5b
 
+def banded_plan_text(k5, shape):
+    """K5f's plan for a shape, as text."""
+    p = k5.forward_plan(shape, k5.fwd_registers(shape[2]))
+    return (f"{p['bands']} bands x {p['threads']} threads x {p['pixels']} "
+            f"pixels, ring of {min(p['chunks'], 2)} x {p['chunk']} capsules "
+            f"({p['chunks']} chunk(s)), shared memory {p['smem']} B")
+
+
+def banded_occupancy_text(torch, k5, shape):
+    """K5f's plan for a shape with its registers, blocks per SM and
+    waves."""
+    B, M, C, Ht, Wt, H, W = shape
+    regs = k5.fwd_registers(C)
+    p = k5.forward_plan(shape, regs)
+    per_sm = k5.blocks_per_sm(C, M, Ht, Wt, p["threads"], p["pixels"],
+                              p["chunk"])
+    return (f"plan: {banded_plan_text(k5, shape)}, {regs} registers (ring "
+            f"sized for {p['register_blocks']} blocks per SM); "
+            f"{occupancy(torch, per_sm, p['blocks'])}")
+
+
 def banded_kernel_phase(torch, card):
     """K5f and K5b against their plain version (ops/decoder_ll.py with f32
     taps, the y-taps masked by the row windows) on the wrapper's sorted,
@@ -847,17 +873,22 @@ def banded_kernel_phase(torch, card):
         win = k5.h_windows(args[2], shape[3], H, W, k5.band_rows(H, W))
         trips = win[..., 1].float()
         got = k5.decoder_ll_banded_fwd(*args)
+        repeat = k5.decoder_ll_banded_fwd(*args)
         torch.cuda.synchronize()
         want = k5.decoder_ll_banded_plain(*args)
-        for x in got:
+        for x, y in zip(got, repeat):
             if not bool(torch.isfinite(x).all()):
                 raise RuntimeError(f"K5f {name}: non-finite output")
+            if not torch.equal(x, y):
+                raise RuntimeError(f"K5f {name}: two runs differ")
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        padded = (shape[0], args[0].shape[1]) + shape[2:]
         say(f"K5f {name} {shape}: {tuple(win.shape[1:3])} bands x groups, "
             f"window rows mean {float(trips.mean()):.2f} of {shape[3]}, "
-            f"{int((trips == 0).sum())} empty windows, shared memory "
-            f"{k5.shared_memory_bytes(*shape[2:5])} B, max abs err "
-            f"{err:.3e} (tolerance {KERNEL_TOL:.0e}) [{card}]")
+            f"{int((trips == 0).sum())} empty windows, "
+            f"{banded_plan_text(k5, padded)}, max abs err {err:.3e} "
+            f"(tolerance {KERNEL_TOL:.0e}), a second run bit-identical "
+            f"[{card}]")
         if not err < KERNEL_TOL:
             raise RuntimeError(f"K5f {name}: max abs err {err} exceeds "
                                f"{KERNEL_TOL}")
@@ -905,7 +936,21 @@ def banded_kernel_phase(torch, card):
         f"200 launches, torch.profiler), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms * 1e3:.2f} us by {bound_by} ({n_bytes / 1e6:.2f} MB, "
         f"{ops / 1e9:.3f} GFLOP: K1's count), library_ms: none, roofline "
-        f"share {bound_ms / ms:.1%} [{card}]")
+        f"share {bound_ms / ms:.1%}; {yardstick('K5f', ms, bound_ms)}; "
+        f"{banded_occupancy_text(torch, k5, FLAGSHIP_SHAPE)} [{card}]")
+    cifar = (BATCH,) + CIFAR10_SHAPE[1:]
+    raw_cifar = k1_inputs(torch, cifar, seed=2)
+    cifar_args = (*k5.sort_and_pad(*raw_cifar[:4]), *raw_cifar[4:])
+    cifar_ms = kernel_device_ms(
+        torch, lambda: k5.decoder_ll_banded_fwd(*cifar_args),
+        "decoder_ll_banded_fwd_kernel")
+    cifar_bound = k1_bound_ms(cifar)
+    say(f"K5f cifar10 time {cifar}: kernel {cifar_ms:.4f} ms (device time "
+        f"per launch over 200 launches, torch.profiler; the previous design "
+        f"was not timed at this shape), bound {cifar_bound[0] * 1e3:.2f} us "
+        f"by {cifar_bound[1]} ({cifar_bound[3] / 1e9:.3f} GFLOP), roofline "
+        f"share {cifar_bound[0] / cifar_ms:.1%}; "
+        f"{banded_occupancy_text(torch, k5, cifar)} [{card}]")
     rows = [dict(name="decoder_ll_banded_fwd", route="cuda",
                  source="scae_tpu_torch/csrc/decoder_ll_banded.cu",
                  replaces="scae_tpu/ops/pallas_decoder_ll_banded.py:523",
@@ -1513,7 +1558,10 @@ def probe_phase(torch, card, rows):
         got = kp.matmul_probe(a, b)
         torch.cuda.synchronize()
         err = float((got - kp.matmul_probe_plain(a, b)).abs().max())
-        say(f"P2 {name}: max abs err {err:.3e} against torch.matmul "
+        p = kp.matmul_plan(*a.shape, b.shape[1])
+        say(f"P2 {name}: {p['blocks']} blocks of {p['bm']}x{p['bn']}, "
+            f"{p['chunks']} chunk(s) of {p['kc']}, max abs err {err:.3e} "
+            f"against torch.matmul "
             f"(f32, TF32 off; tolerance {KERNEL_TOL:.0e}, the JAX probe's "
             f"atol) [{card}]")
         if not err < KERNEL_TOL:
@@ -1573,6 +1621,19 @@ def probe_phase(torch, card, rows):
         library_ms = device_ms_per_call(torch, library)
         library_event_ms = time_cuda(torch, library, iters=200, warmup=20)
         bound_ms, bound_by, n_bytes, ops = bounds[kid]
+        extra = ""
+        if kid == "P2":
+            plan = kp.matmul_plan(*a.shape, b.shape[1])
+            per_sm = kp.matmul_blocks_per_sm(plan, a.shape[1])
+            extra = (f"; {yardstick('P2', ms, bound_ms)}, "
+                     f"{ms / library_ms:.1%} of {what}'s device time; plan: "
+                     f"{plan['bm']}x{plan['bn']} tiles of {plan['tm']}x"
+                     f"{plan['tn']} a thread, depths in {plan['ks']} "
+                     f"slice(s), {plan['threads']} threads, "
+                     f"{plan['chunks']} chunk(s) of {plan['kc']}, "
+                     f"{kp.matmul_registers(plan)} registers, shared memory "
+                     f"{plan['smem']} B; "
+                     f"{occupancy(torch, per_sm, plan['blocks'])}")
         say(f"{kid} time: kernel {ms:.4f} ms (device time per launch over "
             f"200 launches, torch.profiler), plain {plain_ms:.4f} ms (200 "
             f"calls, CUDA events), library {what} {library_ms:.4f} ms of "
@@ -1581,7 +1642,8 @@ def probe_phase(torch, card, rows):
             f"CUDA events (200 calls; {lib_err:.1e} from the plain "
             f"version), bound {bound_ms * 1e6:.2f} ns by {bound_by} "
             f"({n_bytes} B, "
-            f"{ops} FLOP), roofline share {bound_ms / ms:.2%} [{card}]")
+            f"{ops} FLOP), roofline share {bound_ms / ms:.2%}{extra} "
+            f"[{card}]")
         rows.append(dict(
             name="probe_affine" if kid == "P1" else "probe_matmul",
             route="cuda", source="scae_tpu_torch/csrc/probe.cu",

@@ -68,35 +68,6 @@ constexpr int kMaxThreads = 512;
 constexpr int kPixels = 2;  // pixels a thread, independent chains
 constexpr int kStages = 2;  // buffers of the ring
 
-// One ring buffer of `chunk` capsules: their tables texel by texel, the C
-// template channels and the alpha logit of a texel side by side (chunk, T,
-// C + 1), so that a tap is one 8-byte load at C = 1 and one 16-byte load at
-// C = 3; then from a 16-byte boundary the poses (chunk, 6) and presences
-// (chunk,).
-struct Stage {
-  int pose, pres, size;
-  __host__ __device__ Stage(int chunk, int C, int T) {
-    pose = pad4(chunk * (C + 1) * T);
-    pres = pose + 6 * chunk;
-    size = pad4(pres + chunk);
-  }
-};
-
-// q = i / T and r = i % T for 0 <= i < 2^24, from a float reciprocal of T
-// and one correction step.
-__device__ __forceinline__ int div_t(int i, int T, float inv_t, int& r) {
-  int q = __float2int_rz(__int2float_rn(i) * inv_t);
-  r = i - q * T;
-  if (r < 0) {
-    --q;
-    r += T;
-  } else if (r >= T) {
-    ++q;
-    r -= T;
-  }
-  return q;
-}
-
 // Start copying `n` floats that lie (planes, T) in global memory, Per
 // planes a capsule (plane k = j Per + c of capsule j), into the texel-major
 // table of CC floats a texel: float c of texel t of capsule j to
@@ -109,25 +80,6 @@ __device__ __forceinline__ void stage_planes(float* tab, const float* __restrict
     const int k = div_t(i, T, inv_t, t);
     const int j = k / Per;
     cp_async4(tab + (j * T + t) * CC + c0 + (k - j * Per), src + i);
-  }
-}
-
-// The C + 1 floats of one texel of a texel-major table.
-template <int CC>
-__device__ __forceinline__ void load_texel(const float* p, float (&v)[CC]) {
-  if constexpr (CC == 2) {
-    const float2 x = *reinterpret_cast<const float2*>(p);
-    v[0] = x.x;
-    v[1] = x.y;
-  } else if constexpr (CC == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x;
-    v[1] = x.y;
-    v[2] = x.z;
-    v[3] = x.w;
-  } else {
-#pragma unroll
-    for (int c = 0; c < CC; ++c) v[c] = p[c];
   }
 }
 

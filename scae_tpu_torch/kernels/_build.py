@@ -116,16 +116,16 @@ def load(source_name: str, symbol: str, n_ptr: int, n_int: int):
     return fn, err, built
 
 
-def occupancy(source_name: str, symbol: str, *sizes) -> int:
-    """Blocks of a kernel that fit on one SM of the current card: its
-    library's ``symbol`` (a C function of ints that returns
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor's count for the
-    kernel's registers and shared memory at these sizes, or minus a
-    cudaError_t). Builds the kernel if needed."""
+def query(source_name: str, symbol: str, *sizes) -> int:
+    """A positive count that a kernel's library reports for the current
+    card: its ``symbol``, a C function of ints that returns the count or
+    minus a cudaError_t (blocks that fit on one SM at these sizes, from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor; a thread's registers,
+    from cudaFuncGetAttributes). Builds the kernel if needed."""
     fn = getattr(ctypes.CDLL(build(source_name).path), symbol)
     fn.argtypes = [ctypes.c_int] * len(sizes)
     fn.restype = ctypes.c_int
-    blocks = fn(*(int(a) for a in sizes))
-    if blocks <= 0:
-        raise RuntimeError(f"{symbol}: occupancy query failed ({blocks})")
-    return blocks
+    count = fn(*(int(a) for a in sizes))
+    if count <= 0:
+        raise RuntimeError(f"{symbol}: query failed ({count})")
+    return count

@@ -134,8 +134,8 @@ def build_info() -> _build.BuiltLibrary:
 def blocks_per_sm(N, M, d_k, d_v, rows_per_warp, warps, vec) -> int:
     """Blocks of K6 that fit on one SM of the current card for this plan
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); builds K6 if needed."""
-    return _build.occupancy(SOURCE, "scae_attention_fwd_occupancy",
-                            N, M, d_k, d_v, rows_per_warp, warps, int(vec))
+    return _build.query(SOURCE, "scae_attention_fwd_occupancy",
+                        N, M, d_k, d_v, rows_per_warp, warps, int(vec))
 
 
 def _check(queries, keys, values, presence):

@@ -33,12 +33,17 @@ and their plain version are float32 throughout.
 ``decoder_ll_banded`` goes through ``DecoderLLBanded`` on every device: the
 plain version for CPU tensors, K5f and K5b (``csrc/decoder_ll_banded.cu``,
 ``csrc/decoder_ll_banded_bwd.cu``) for CUDA tensors, which raise on
-anything the kernels do not take. K5b is K4b's run scatter
-(``csrc/decoder_ll_tap_bwd.cuh``) with the y-taps masked by the windows:
-one block per (capsule, example), no floating-point atomics, so its
-results repeat bit for bit; ``bwd_tap_keys`` computes its scatter keys on
-the CPU.
+anything the kernels do not take. K5f is K4f's design with the windows: a
+block per (band, example), the capsules' window rows streamed through a
+two-buffer ``cp.async`` ring of capsule chunks that ``forward_plan`` sizes
+by the blocks per SM that the registers allow.
+K5b is K4b's run scatter (``csrc/decoder_ll_tap_bwd.cuh``) with the y-taps
+masked by the windows: one block per (capsule, example), no
+floating-point atomics, so its results repeat bit for bit;
+``bwd_tap_keys`` computes its scatter keys on the CPU.
 """
+
+import functools
 
 import torch
 
@@ -59,10 +64,9 @@ from scae_tpu_torch.ops.warp import _axis
 SOURCE = "decoder_ll_banded.cu"
 BWD_SOURCE = "decoder_ll_banded_bwd.cu"
 GROUP = 8                 # capsules per group (kGroup in the sources)
-MAX_BAND_PIXELS = 512     # one thread per band pixel (kMaxThreads)
-_EXTRA = 8                # per capsule K5f stages: pose, log-presence, pad
+MAX_BAND_PIXELS = 512     # pixels of a band, at most (kMaxBandPixels)
 _SIGNATURES = {
-    SOURCE: ("scae_decoder_ll_banded_fwd", 12, 8),
+    SOURCE: ("scae_decoder_ll_banded_fwd", 12, 11),
     BWD_SOURCE: ("scae_decoder_ll_banded_bwd", 18, 8),
 }
 
@@ -246,16 +250,92 @@ def decoder_ll_banded_bwd_plain(g, num, den, templates, alpha, pose,
         target, out_size, torch.float32, target_grad, row_mask=mask)
 
 
-def threads_per_block(H, W) -> int:
-    """Threads of a K5f block: one per band pixel, rounded up to whole
-    warps."""
-    return -(-band_rows(H, W) * W // 32) * 32
+FWD_PIXELS = 1             # pixels of a K5f thread (the kernel takes 1 or 2)
+FWD_CHUNK = 64             # capsules of a K5f ring buffer, at most (kMaxChunk)
+SM_SHARED = 233472         # shared memory an SM holds for its blocks (228 KB)
+BLOCK_RESERVED = 1024      # of which the runtime takes per block
+SM_REGISTERS = 65536       # registers of an SM, allocated 256 a warp
+SM_THREADS = 2048
+SM_BLOCKS = 32
 
 
-def shared_memory_bytes(C, Ht, Wt) -> int:
-    """Dynamic shared memory of one K5f block: a group's tables (only the
-    window's rows are staged), poses and log-presences."""
-    return 4 * GROUP * ((C + 1) * Ht * Wt + _EXTRA)
+def _pad4(n):
+    return -(-n // 4) * 4
+
+
+def threads_per_block(H, W, pixels=FWD_PIXELS) -> int:
+    """Threads of a K5f block: its band's pixels over ``pixels`` a thread,
+    rounded up to whole warps."""
+    return -(-band_rows(H, W) * W // (32 * pixels)) * 32
+
+
+def shared_memory_bytes(C, Ht, Wt, chunk, M) -> int:
+    """Dynamic shared memory of one K5f block: a ring of buffers of
+    ``chunk`` capsules (two, one when a chunk holds all M), each the
+    capsules' template and alpha tables (texel-major: C + 1 floats a texel;
+    only the window rows are written), then from a 16-byte boundary their
+    poses and presences; then one texel of zeros, which a tap outside its
+    window reads."""
+    buffers = 2 if M > chunk else 1
+    return 4 * (buffers * _pad4(_pad4(chunk * (C + 1) * Ht * Wt) + 7 * chunk)
+                + _pad4(C + 1))
+
+
+def blocks_by_registers(registers, threads) -> int:
+    """Blocks of ``threads`` threads of ``registers`` registers each that
+    one SM holds, by its registers, threads and blocks."""
+    per_warp = -(-registers * 32 // 256) * 256
+    return max(1, min(SM_BLOCKS, SM_THREADS // threads,
+                      SM_REGISTERS // per_warp // (threads // 32)))
+
+
+@functools.cache
+def forward_chunk(C, Ht, Wt, M, blocks):
+    """Capsules of a buffer of K5f's ring when ``blocks`` blocks share an
+    SM: the most (up to ``FWD_CHUNK`` and M) whose ring fits their share of
+    its shared memory, then evened out over the chunks they take; one
+    capsule at the least. Two one-capsule buffers take less than the
+    earlier design's group of 8 tables, so every size it ran still runs; a
+    size whose floor does not fit a block is refused by the wrapper."""
+    budget = SM_SHARED // blocks - BLOCK_RESERVED
+    chunk = min(M, FWD_CHUNK)
+    while chunk > 1 and shared_memory_bytes(C, Ht, Wt, chunk, M) > budget:
+        chunk -= 1
+    chunks = -(-M // chunk)
+    return -(-M // chunks)
+
+
+def forward_plan(shape, registers, pixels=FWD_PIXELS):
+    """K5f's launch plan for (B, M, C, Ht, Wt, H, W), M a multiple of 8,
+    and a thread's ``registers``: the band (rows, bands), threads of
+    ``pixels`` pixels each, the blocks per SM that the registers allow, the
+    chunk for that many blocks (``forward_chunk``) and the chunks M takes,
+    the blocks (bands x B) and smem (bytes)."""
+    B, M, C, Ht, Wt, H, W = shape
+    rows = band_rows(H, W)
+    threads = threads_per_block(H, W, pixels)
+    per_sm = blocks_by_registers(registers, threads)
+    chunk = forward_chunk(C, Ht, Wt, M, per_sm)
+    return dict(rows=rows, bands=H // rows, threads=threads, pixels=pixels,
+                register_blocks=per_sm, chunk=chunk, chunks=-(-M // chunk),
+                blocks=B * (H // rows),
+                smem=shared_memory_bytes(C, Ht, Wt, chunk, M))
+
+
+@functools.cache
+def fwd_registers(C, pixels=FWD_PIXELS) -> int:
+    """Registers a thread of K5f takes on the current card (its built
+    library's cudaFuncGetAttributes); builds K5f if needed."""
+    return _build.query(SOURCE, "scae_decoder_ll_banded_fwd_registers", C,
+                        pixels)
+
+
+def blocks_per_sm(C, M, Ht, Wt, threads, pixels, chunk) -> int:
+    """Blocks of K5f that fit on one SM of the current card for this plan
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); builds K5f if
+    needed."""
+    return _build.query(SOURCE, "scae_decoder_ll_banded_fwd_occupancy", C, M,
+                        Ht, Wt, threads, pixels, chunk)
 
 
 # one K5b block's shared memory: K4b's (csrc/decoder_ll_tap_bwd.cuh)
@@ -308,12 +388,20 @@ def _check(templates, alpha, pose, presence, target, out_size, **extra):
 
 
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
-            scale, target, out_size, win=None):
-    """Launch K5f on sorted, padded CUDA tensors: (ll, num, den)."""
+            scale, target, out_size, win=None, plan=None):
+    """Launch K5f on sorted, padded CUDA tensors: (ll, num, den), with the
+    planner's plan (``forward_plan``) unless ``plan`` gives the threads,
+    pixels and chunk (chip_plans.py and the card's tests time and check
+    other plans)."""
     global launches
     B, M, C, Ht, Wt, H, W = _check(templates, alpha, pose, presence, target,
                                    out_size)
-    check_smem(shared_memory_bytes(C, Ht, Wt), "K5f's staged group")
+    # the planner's ring fits a block whenever its floor, two one-capsule
+    # buffers, does
+    check_smem(shared_memory_bytes(C, Ht, Wt, 1, M),
+               "K5f's ring of one-capsule buffers")
+    if plan is None:
+        plan = forward_plan((B, M, C, Ht, Wt, H, W), fwd_registers(C))
     device = templates.device
     rows, win = _windows(pose, templates, out_size, win)
     scal = scalars(device, bg_value, bg_mixing_logit, scale)
@@ -329,7 +417,8 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
                 presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
                 grid_x.data_ptr(), grid_y.data_ptr(), win.data_ptr(),
                 ll.data_ptr(), num.data_ptr(), den.data_ptr(),
-                B, M, C, Ht, Wt, H, W, rows, stream)
+                B, M, C, Ht, Wt, H, W, rows, plan["threads"], plan["pixels"],
+                plan["chunk"], stream)
     raise_on(rc, err, "decoder_ll_banded")
     launches += 1
     return ll, num, den

@@ -210,8 +210,8 @@ def blocks_per_sm(C, Ht, Wt, threads, chunk) -> int:
     """Blocks of K4f that fit on one SM of the current card for this plan
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); builds K4f if
     needed."""
-    return _build.occupancy(SOURCE, "scae_decoder_ll_dense_fwd_occupancy",
-                            C, Ht, Wt, threads, chunk)
+    return _build.query(SOURCE, "scae_decoder_ll_dense_fwd_occupancy",
+                        C, Ht, Wt, threads, chunk)
 
 
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,

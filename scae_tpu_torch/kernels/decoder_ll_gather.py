@@ -206,8 +206,8 @@ def blocks_per_sm(source, *sizes) -> int:
     registers and shared memory). K1 (``SOURCE``) takes (M, C, Ht, Wt,
     alpha_batched, buffers), the backward (``BWD_SOURCE``) (C, Ht, Wt);
     builds the kernel if needed."""
-    return _build.occupancy(source, _SIGNATURES[source][0] + "_occupancy",
-                            *sizes)
+    return _build.query(source, _SIGNATURES[source][0] + "_occupancy",
+                        *sizes)
 
 
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,

@@ -283,12 +283,18 @@ def test_windows_computed_once_per_step(monkeypatch):
 
 
 def test_shared_memory_and_threads():
-    # K5f: one group's tables and poses, one thread per band pixel; K5b:
-    # K4b's block, one capsule's table and 4 warps' gradient tables and
-    # scratch, whatever the band
+    # K5f: one pixel a thread (or two); a ring of two buffers of `chunk`
+    # capsules (one buffer when a chunk holds every capsule), each the
+    # capsules' texel-major tables, then their poses and presences, padded
+    # to 16 bytes, then a texel of zeros; K5b: K4b's block, one capsule's
+    # table and 4 warps' gradient tables and scratch, whatever the band
     assert k5.threads_per_block(40, 40) == 320
     assert k5.threads_per_block(32, 32) == 256
-    assert k5.shared_memory_bytes(1, 11, 11) == 4 * 8 * (2 * 121 + 8)
+    assert k5.threads_per_block(40, 40, pixels=2) == 160
+    assert k5.shared_memory_bytes(1, 11, 11, 14, 40) == \
+        4 * (2 * (14 * 2 * 121 + 7 * 14 + 2) + 4)
+    assert k5.shared_memory_bytes(1, 11, 11, 40, 40) == \
+        4 * (40 * 2 * 121 + 7 * 40 + 4)
     assert k5.bwd_shared_memory_bytes(1, 11, 11) == \
         k4.bwd_shared_memory_bytes(1, 11, 11) == \
         4 * (2 * 121 + 4 * (2 * 121 + 9 * 32))

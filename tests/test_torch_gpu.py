@@ -692,6 +692,38 @@ def test_banded_kernel_build_reports_registers(cuda, source):
     assert "registers" in info.log or info.cached
 
 
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("pixels", [1, 2])
+@pytest.mark.parametrize("chunk", [1, 3, 8, 13, 40])
+def test_banded_forward_plans_match_plain(cuda, C, pixels, chunk):
+    """K5f's instantiations with rings of ``chunk`` capsules: one (the
+    floor), chunks that straddle groups and end in a partial one, whole
+    groups, and all 40 in one buffer; one or two pixels a thread, and a
+    band of 280 pixels with capsules whose windows differ by band."""
+    g, args = banded_args((2, 40, C, 7, 9, 20, 28), 0.6, False, None, cuda)
+    H, W = args[-1]
+    plan = dict(threads=k5.threads_per_block(H, W, pixels), pixels=pixels,
+                chunk=chunk)
+    got = k5._launch(*args, plan=plan)
+    again = k5._launch(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert max_err(got, k5.decoder_ll_banded_plain(*args)) < TOL
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_banded_forward_plan_fits_on_an_sm(cuda):
+    """The planner's plan at the flagship: blocks per SM on the card at
+    least the registers' count that sized the ring, minus one for the
+    runtime's share."""
+    shape = (128, 40, 1, 11, 11, 40, 40)
+    p = k5.forward_plan(shape, k5.fwd_registers(1))
+    assert p["threads"] == 320 and p["blocks"] == 640
+    per_sm = k5.blocks_per_sm(1, 40, 11, 11, p["threads"], p["pixels"],
+                              p["chunk"])
+    assert per_sm >= p["register_blocks"] - 1
+
+
 # ------------------------------------------------------------------- K6
 
 def attention_inputs(B, N, M, dk, dv, seed=0, presence="soft"):
@@ -890,6 +922,28 @@ def test_matmul_probe_matches_plain(cuda, M, K, N):
     a = torch.from_numpy(rng.randn(M, K).astype(np.float32)).to(cuda)
     b = torch.from_numpy(rng.randn(K, N).astype(np.float32)).to(cuda)
     got = kp.matmul_probe(a, b)
+    assert got.shape == (M, N)
+    assert float((got - kp.matmul_probe_plain(a, b)).abs().max()) < TOL
+
+
+@pytest.mark.parametrize("tile", kp.MATMUL_TILES)
+@pytest.mark.parametrize("kc", [4, 64, 128])
+@pytest.mark.parametrize("M,K,N,offset", [(256, 128, 256, 0),
+                                          (100, 37, 53, 0), (17, 300, 5, 0),
+                                          (33, 132, 68, 1)])
+def test_matmul_probe_tiles_match_plain(cuda, tile, kc, M, K, N, offset):
+    """Every tile P2 is built for, K in one chunk, two or more, ragged
+    edges, and inputs that start 4 bytes past a 16-byte boundary (the
+    4-byte copies though K and N are multiples of 4)."""
+    rng = np.random.RandomState(2)
+
+    def card(shape):
+        flat = torch.from_numpy(rng.randn(offset + shape[0] * shape[1])
+                                .astype(np.float32)).to(cuda)
+        return flat[offset:].view(shape)
+
+    a, b = card((M, K)), card((K, N))
+    got = kp._matmul_launch(a, b, kp.matmul_plan(M, K, N, tile, kc))
     assert got.shape == (M, N)
     assert float((got - kp.matmul_probe_plain(a, b)).abs().max()) < TOL
 
