@@ -2,7 +2,11 @@
 """Smoke run of the PyTorch port (``scae_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py            # the run that proves the port
-    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of
+                                     # the eager steps and the graph scan
+    python3 chip_smoke.py --trainer-steps 8 [--eager-control]
+        # only the training CLI's card-vs-CPU comparison over 8 steps,
+        # each step's gap printed (a measurement; no result line)
 
 Phases, each announced when it starts and when it ends, with its seconds:
 
@@ -54,6 +58,28 @@ Phases, each announced when it starts and when it ends, with its seconds:
           K5b) and the set transformer's use_pallas_attention (K6, four
           launches per step: three set-attention blocks and the final
           attention), and its eval step at batch 128
+  graph   the train scan (make_train_scan), which on the card replays a
+          CUDA graph of one train step per row, on the three paths at batch
+          128 and full width, noise and translation on: gather (K1, K2+K3),
+          dense (K4f, K4b) and banded with the attention flag (K5f, K5b,
+          K6 x 4). From one state, 8 captured and replayed steps against 8
+          eager ones through the fused train step, and a second eager run
+          as the control, once with cuDNN's deterministic algorithms and
+          once with its default ones: the loss within 1e-4 relative per
+          step; each wrapper called once per kernel of a step over the
+          graph scan's run (by the capture: a replay calls none) and once
+          per step eagerly; with the deterministic ones every loss term
+          within 1e-4 and every parameter within 1e-3 of its largest entry
+          (the default ones differ between any two runs: the line prints
+          the control's gaps beside the graph's). Then the kernels that 5
+          replays run, from torch.profiler's device records: each path's
+          kernels as often as 5 eager steps launch them. Then 20 steps of
+          the eager loop and of the graph scan timed in turns (eager,
+          graph, graph, eager): host ms per step, images/s, peak memory.
+          Last, RAdam with LookAhead on the gather path: 12 steps whose
+          replays take three branch graphs in one memory pool, against
+          the eager loop (every term within 1e-4, every parameter within
+          1e-3), and the scan's peak memory
   cifar10 one train step of the shipped cifar10 model (3x32x32, M=64) with
           noise off at batch 32 on the card and on the CPU, through K1 and
           K2+K3
@@ -65,17 +91,20 @@ Phases, each announced when it starts and when it ends, with its seconds:
           process, where it must launch each probe once, and as a
           subprocess, which must exit 0
   trainer the training CLI (scae_tpu_torch.train.cli.main) with the shipped
-          model=mnist config at full width (bf16 convs, fused_impl auto) on
+          model=mnist config at full width (bf16 convs, fused_impl auto),
+          its scans replaying CUDA graphs, on
           synthetic data cut to 2,048 training images: 2 epochs, a resume
           to epoch 3, then mode=test; the metrics JSONL, the image grids,
           train_seed.json, the resume step and the per-class recall are
-          checked, and K1 and K2+K3 must launch once per train step (K1
-          also once per eval batch, never in the grids' forward); the
-          median images/s of the logged chunks and the peak memory. Then 4
-          steps at batch 32 with noise and translation off and f32 convs,
-          on the card and on the CPU: their per-step JSONL losses within
-          1e-3 relative; and the same 4 steps on the card interrupted after
-          2 and resumed, against the uninterrupted card run
+          checked, and K1 and K2+K3 must launch for each scan's warm-up
+          step and its one capture and nowhere else (never in the grids'
+          forward); the median images/s of the logged chunks and the peak
+          memory. Then 4 steps at batch 32 with noise and translation off
+          and f32 convs, on the card (steps 2-4 replayed) and on the CPU:
+          their per-step JSONL losses within 1e-3 relative, and the card's
+          within 1e-3 of a card run through the eager loop; and the same 4
+          steps on the card interrupted after 2 and resumed, against the
+          uninterrupted card run
 
 Every number is printed beside the card's name and power limit. Imports
 torch, numpy, the standard library and scae_tpu_torch only. Exits
@@ -1320,9 +1349,9 @@ def keep_gradients(state):
     kept = []
     step = state.optimizer.step
 
-    def recording(grads):
+    def recording(grads, plan=None):
         kept[:] = [None if g is None else g.detach().clone() for g in grads]
-        step(grads)
+        step(grads, plan)
 
     state.optimizer.step = recording
     return kept
@@ -1484,6 +1513,355 @@ def eval_timing(torch, card, rows, tag, model, per_step):
         f"{BATCH / dt:.1f} images/s, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B [{card}]")
     return eval_step, images, labels
+
+
+# --------------------------------------------------------------- graph
+
+GRAPH_STEPS = 8        # graph-scan steps held to as many eager ones
+TIMED_STEPS = 20       # steps of each timed run, eager and graph in turns
+# graph scan vs eager loop from one state, noise on: the same kernels in
+# the same order; with cuDNN's default algorithms some backward sums change
+# order from run to run, which RMSprop's eps of 1e-2/B^2 turns into
+# parameter gaps between any two runs, so the parameter bound is held
+# under its deterministic ones
+GRAPH_LOSS_RTOL = 1e-4     # per step, relative to max(1, |eager|)
+GRAPH_PARAM_RTOL = 1e-3    # per parameter after the steps, of its largest
+
+
+def param_gap(torch, got, want):
+    """(largest gap of a parameter relative to its largest |entry| in
+    ``want``, that parameter's name) between two models."""
+    worst = (0.0, "")
+    for (name, a), b in zip(got.named_parameters(), want.parameters()):
+        a, b = a.detach(), b.detach()
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"parameter {name} is not finite")
+        gap = float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+        if gap >= worst[0]:
+            worst = (gap, name)
+    return worst
+
+
+def step_gap(got, want, tag, what, enforce):
+    """The largest per-step gap of any loss term between ``got`` (a
+    scan's dict of (K,) tensors) and ``want`` (K eager metric dicts),
+    relative to max(1, |want|). ``enforce``: the terms held to
+    GRAPH_LOSS_RTOL (and the accuracy, if named, to one example)."""
+    worst = (0.0, None, None)
+    for k in want[0]:
+        for j, w in enumerate(want):
+            g, w = float(got[k][j]), float(w[k])
+            if k == "accuracy":
+                tol, gap = 1.0 / BATCH, abs(g - w)
+            else:
+                tol, gap = GRAPH_LOSS_RTOL, abs(g - w) / max(1.0, abs(w))
+            if not math.isfinite(g) or (k in enforce and not gap <= tol):
+                raise RuntimeError(f"{tag} {what}: {k} at step {j + 1}: "
+                                   f"{g!r} vs {w!r}")
+            if k != "accuracy" and gap >= worst[0]:
+                worst = (gap, k, j + 1)
+    return worst
+
+
+def graph_agreement(torch, card, tag, model_params, per_step, attention,
+                    data, idxs, deterministic):
+    """From one state, with noise and translation on: the train scan's
+    warm-up rows, then GRAPH_STEPS rows captured and replayed, against the
+    same rows through the eager fused train step, and through it again
+    from a third copy (the control: what two eager runs differ by). The
+    loss within GRAPH_LOSS_RTOL per step; each wrapper called as often as
+    in one eager step over the graph scan's run (by its one capture: the
+    replays call none) and ``per_step`` times a step in the eager loop;
+    with
+    ``deterministic`` (cuDNN's deterministic algorithms, set for all three
+    runs) every loss term within GRAPH_LOSS_RTOL too, and every parameter
+    within GRAPH_PARAM_RTOL of its largest entry. Returns the scan, its
+    state and the first eager step."""
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = torch.device("cuda")
+    mode = "deterministic cuDNN" if deterministic else "default cuDNN"
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        augment = make_augment_fn(canvas=40, max_shift=6)
+        graph, eager, control = (train_state(torch, cuda, True,
+                                             model_params, attention)
+                                 for _ in range(3))
+        scan = ts.make_train_scan(augment, cuda)
+        steps = [ts.make_fused_train_step(s, augment, cuda)
+                 for s in (eager, control)]
+        on_card = torch.from_numpy(idxs).to(cuda)
+        warm = ts.WARMUP_STEPS
+        # the scan's warm-up rows run eagerly on a side stream; the eager
+        # states take the same rows
+        scan(graph, data, idxs[:warm])
+        for step in steps:
+            for idx in on_card[:warm]:
+                step(data, idx)
+        torch.cuda.synchronize()
+
+        block = slice(warm, warm + GRAPH_STEPS)
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        _, got = scan(graph, data, idxs[block])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        # the wrappers launch into the capture; the replays call none
+        check_kernel_counts(card, None, f"the {tag} graph scan "
+                            f"({GRAPH_STEPS} steps at batch {BATCH}: one "
+                            f"capture, {GRAPH_STEPS} replays; {mode})",
+                            per_step)
+        zero_kernel_counts()
+        want = [steps[0](data, idx) for idx in on_card[block]]
+        torch.cuda.synchronize()
+        check_kernel_counts(card, None, f"the {tag} eager loop "
+                            f"({GRAPH_STEPS} steps; {mode})",
+                            {k: GRAPH_STEPS * v for k, v in per_step.items()})
+        twice = [steps[1](data, idx) for idx in on_card[block]]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = before
+    if not graph.step == eager.step == control.step:
+        raise RuntimeError(f"{tag}: steps {graph.step}, {eager.step}, "
+                           f"{control.step}")
+    # every term with deterministic cuDNN; with its default ones the loss,
+    # the acceptance's bound: some of its terms move between any two eager
+    # runs by half the bound (the control's gap says how much)
+    loss = step_gap(got, want, tag, "graph vs eager",
+                    set(want[0]) if deterministic else {"loss"})
+    loss_c = step_gap({k: torch.stack([t[k] for t in twice])
+                       for k in twice[0]}, want, tag, "eager vs eager", ())
+    par, par_c = (param_gap(torch, s.model, eager.model)
+                  for s in (graph, control))
+    say(f"  {tag} graph vs eager ({mode}), per-step loss: "
+        + ", ".join(f"{float(g)!r}/{float(w['loss'])!r}"
+                    for g, w in zip(got["loss"], want))
+        + f"; largest gap of any term {loss[0]:.3e} relative to max(1, "
+        f"|eager|) ({loss[1]} at step {loss[2]}; tolerance "
+        f"{GRAPH_LOSS_RTOL:.0e}), of a second eager run {loss_c[0]:.3e}; "
+        f"after {GRAPH_STEPS} steps the largest parameter gap "
+        f"{par[0]:.3e} of its largest |entry| ({par[1]}), of a second "
+        f"eager run {par_c[0]:.3e} ({par_c[1]}); the graph scan's first "
+        f"call (capture included) {first_s:.3f} s [{card}]")
+    if deterministic and not par[0] <= GRAPH_PARAM_RTOL:
+        raise RuntimeError(f"{tag} graph vs eager ({mode}): parameter "
+                           f"{par[1]} differs by {par[0]:.3e} of its "
+                           f"largest entry")
+    return scan, graph, steps[0]
+
+
+# the kernels' names in the profiler's records
+KERNEL_NAMES = {"K1": "decoder_ll_gather_fwd_kernel",
+                "K2+K3": "decoder_ll_gather_bwd_kernel",
+                "K4f": "decoder_ll_dense_fwd_kernel",
+                "K4b": "decoder_ll_dense_bwd_kernel",
+                "K5f": "decoder_ll_banded_fwd_kernel",
+                "K5b": "decoder_ll_banded_bwd_kernel",
+                "K6": "attention_fwd_kernel"}
+RECORD_STEPS = 5       # graph steps in each window of kernel records
+
+
+def kernel_records(torch, fn):
+    """How many times each kernel of KERNEL_NAMES ran on the card in one
+    call of ``fn``, from torch.profiler's device records (they hold the
+    kernels of a replayed graph too), in one ``profiler_window``."""
+    events = profiler_window(torch, fn, 1).key_averages()
+    return {k: sum(e.count for e in events if name in e.key)
+            for k, name in KERNEL_NAMES.items()}
+
+
+def check_kernel_records(torch, card, what, fn, expected):
+    """Fail unless ``kernel_records`` of ``fn`` equals ``expected`` (0 for
+    a kernel not named). The profiler may lose a window's first records
+    (see ``profiler_window``): a window that differs is reported and taken
+    again, calling ``fn`` anew, up to PROFILER_WINDOWS windows."""
+    want = {k: expected.get(k, 0) for k in KERNEL_NAMES}
+    for window in range(1, PROFILER_WINDOWS + 1):
+        got = kernel_records(torch, fn)
+        if got == want:
+            break
+        say(f"profiler window {window} of {PROFILER_WINDOWS} over {what} "
+            f"recorded {got}, expected {want}")
+    say(f"kernels run over {what} (torch.profiler's device records): "
+        + ", ".join(f"{k} {got[k]}" for k in KERNEL_NAMES) + f" [{card}]")
+    if got != want:
+        raise RuntimeError(f"kernels run over {what}: {got}, expected "
+                           f"{want}")
+
+
+def graph_path(torch, card, tag, model_params, per_step, attention):
+    """The train scan on the card (``make_train_scan``: a CUDA graph of one
+    step, replayed per row) against the eager loop through the fused
+    train step, at batch 128: ``graph_agreement`` with cuDNN's
+    deterministic algorithms and with its default ones; the kernels that
+    RECORD_STEPS replays run, from the profiler's records: ``per_step``
+    times each; then, on the default run's states, TIMED_STEPS steps of
+    each timed in turns (eager, graph, graph, eager). Returns what the
+    profile phase needs, and the data and a state's unused rows."""
+    import numpy as np
+
+    from scae_tpu_torch.parallel import train_step as ts
+
+    cuda = torch.device("cuda")
+    rng = np.random.RandomState(3)
+    n = 4096
+    data = {"image": torch.from_numpy(rng.randint(
+                0, 256, (n, 28, 28)).astype(np.uint8)).to(cuda),
+            "label": torch.from_numpy(rng.randint(
+                0, 10, (n,)).astype(np.int64)).to(cuda)}
+    warm = ts.WARMUP_STEPS
+    idxs = rng.randint(0, n, (warm + GRAPH_STEPS
+                              + PROFILER_WINDOWS * RECORD_STEPS
+                              + 4 * TIMED_STEPS + 8, BATCH)).astype(np.int64)
+    graph_agreement(torch, card, tag, model_params, per_step, attention,
+                    data, idxs, True)
+    scan, graph_state, eager = graph_agreement(
+        torch, card, tag, model_params, per_step, attention, data, idxs,
+        False)
+    on_card = torch.from_numpy(idxs).to(cuda)
+
+    start = warm + GRAPH_STEPS
+    windows = iter(range(start, start + PROFILER_WINDOWS * RECORD_STEPS,
+                         RECORD_STEPS))
+
+    def record_window():
+        first = next(windows)
+        scan(graph_state, data, idxs[first:first + RECORD_STEPS])
+
+    zero_kernel_counts()
+    check_kernel_records(torch, card, f"{RECORD_STEPS} replayed {tag} "
+                         f"train steps", record_window,
+                         {k: RECORD_STEPS * v for k, v in per_step.items()})
+    check_kernel_counts(card, None, f"the {tag} replays under the profiler "
+                        "(no wrapper called)", {})
+    start += PROFILER_WINDOWS * RECORD_STEPS
+
+    def run_eager(rows_):
+        for idx in on_card[rows_]:
+            eager(data, idx)
+
+    def run_graph(rows_):
+        scan(graph_state, data, idxs[rows_])
+
+    times = {"eager": [], "graph": []}
+    for turn, (kind, fn) in enumerate((("eager", run_eager),
+                                       ("graph", run_graph),
+                                       ("graph", run_graph),
+                                       ("eager", run_eager))):
+        part = slice(start + turn * TIMED_STEPS,
+                     start + (turn + 1) * TIMED_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fn(part)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / TIMED_STEPS
+        times[kind].append(dt)
+        say(f"{tag} {kind} train loop, turn {turn + 1} of 4 (batch "
+            f"{BATCH}, 28x28 uint8 -> 40x40, translate 6, noise on, "
+            f"RMSprop): {dt * 1e3:.4f} ms/step (host clock, {TIMED_STEPS} "
+            f"steps), {BATCH / dt:.1f} images/s, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B, memory_reserved "
+            f"{torch.cuda.memory_reserved()} B [{card}]")
+    e, g = (statistics.mean(times[k]) for k in ("eager", "graph"))
+    say(f"{tag} train step, eager / graph (means of the two turns each): "
+        f"{e * 1e3:.4f} / {g * 1e3:.4f} ms/step, {BATCH / e:.1f} / "
+        f"{BATCH / g:.1f} images/s, x{e / g:.2f} [{card}]")
+    return (scan, graph_state, data, idxs[start + 4 * TIMED_STEPS:]), data
+
+
+BRANCH_STEPS = 12      # RAdam with LookAhead: steps from one state
+
+
+def graph_branches(torch, card, data):
+    """RAdam with LookAhead (k=6, the config's) through the gather path's
+    graph scan at batch 128 and full width, with cuDNN's deterministic
+    algorithms: BRANCH_STEPS steps, the warm-up one and then replays in
+    chunks of 5 and 6, which take three branches (RAdam's SGD steps 2-5,
+    its rectified ones from step 6, LookAhead's syncs at steps 6 and 12),
+    each its own graph, all in one memory pool; against the eager loop
+    from the same state, every loss term within GRAPH_LOSS_RTOL and every
+    parameter within GRAPH_PARAM_RTOL of its largest entry. Prints the
+    peak memory of the graph scan's run, captures included."""
+    import numpy as np
+
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
+    from scae_tpu_torch.optim import make_optimizer
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = torch.device("cuda")
+    rng = np.random.RandomState(4)
+    idxs = rng.randint(0, len(data["label"]),
+                       (BRANCH_STEPS, BATCH)).astype(np.int64)
+    augment = make_augment_fn(canvas=40, max_shift=6)
+    states = [train_state(torch, cuda, True, FLAGSHIP_MODEL_PARAMS)
+              for _ in range(2)]
+    for state in states:
+        state.optimizer = make_optimizer(
+            state.model.parameters(), "radam", 3e-5, batch_size=BATCH,
+            use_lookahead=True, lookahead_k=6)
+    graph, eager = states
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        scan = ts.make_train_scan(augment, cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        zero_kernel_counts()
+        got = [scan(graph, data, idxs[rows])[1]
+               for rows in (slice(0, 1), slice(1, 6), slice(6, 12))]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        captures = kernel_counts()["K2+K3"] - ts.WARMUP_STEPS
+        check_kernel_counts(card, None, f"RAdam with LookAhead's graph scan "
+                            f"({BRANCH_STEPS} steps: {ts.WARMUP_STEPS} "
+                            f"warm-up, 3 captures)",
+                            {"K1": ts.WARMUP_STEPS + 3,
+                             "K2+K3": ts.WARMUP_STEPS + 3})
+        _, want = ts.make_eager_train_scan(augment, cuda)(eager, data, idxs)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = before
+    got = {k: torch.cat([g[k] for g in got]) for k in got[0]}
+    loss = step_gap(got, [{k: v[j] for k, v in want.items()}
+                          for j in range(BRANCH_STEPS)],
+                    "RAdam with LookAhead", "graph vs eager", set(want))
+    par = param_gap(torch, graph.model, eager.model)
+    say(f"RAdam with LookAhead (k=6), gather path, graph vs eager "
+        f"(deterministic cuDNN, {BRANCH_STEPS} steps, {captures} branch "
+        f"graphs in one pool): largest gap of any term {loss[0]:.3e} "
+        f"relative to max(1, |eager|), largest parameter gap {par[0]:.3e} "
+        f"of its largest |entry| ({par[1]}); the graph scan's "
+        f"max_memory_allocated {peak} B, of which {held} B were held "
+        f"before [{card}]")
+    if not par[0] <= GRAPH_PARAM_RTOL:
+        raise RuntimeError(f"RAdam with LookAhead graph vs eager: parameter "
+                           f"{par[1]} differs by {par[0]:.3e} of its "
+                           f"largest entry")
+
+
+def graph_phase(torch, card):
+    """``graph_path`` on the three likelihood paths at full width: gather
+    (K1, K2+K3), dense (K4f, K4b) and banded with the attention flag
+    (K5f, K5b, K6 x 4); then ``graph_branches`` on the gather path.
+    Returns the gather path's."""
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
+
+    gather, data = graph_path(torch, card, "gather", FLAGSHIP_MODEL_PARAMS,
+                              {"K1": 1, "K2+K3": 1}, False)
+    graph_path(torch, card, "pallas", dict(
+        FLAGSHIP_MODEL_PARAMS, pcae_decoder_params=dict(fused_impl="pallas")),
+        {"K4f": 1, "K4b": 1}, False)
+    graph_path(torch, card, "banded", dict(
+        FLAGSHIP_MODEL_PARAMS,
+        pcae_decoder_params=dict(fused_impl="pallas_banded")),
+        {"K5f": 1, "K5b": 1, "K6": 4}, True)
+    graph_branches(torch, card, data)
+    return gather
 
 
 def cifar10_phase(torch, card):
@@ -1700,9 +2078,17 @@ def trainer_phase(torch, card, rows, tmp):
     synthetic data: 2 epochs, a resume to epoch 3, mode=test; the launch
     counts of each, the JSONL, grids, seed record and recall."""
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
     from scae_tpu_torch.train import cli, loop
     from scae_tpu_torch.train.checkpoint import CheckpointManager
 
+    # the scans replay graphs: a wrapper launches for each scan's warm-up
+    # steps and its one capture (one graph: RMSprop has one branch, and a
+    # Trainer's data and state keep their addresses), never in a replay
+    warm = WARMUP_STEPS
+    once_each = {"K1": 2 * (warm + 1), "K2+K3": warm + 1}
+    captured = ("the wrappers launch for the train and eval scans' warm-up "
+                "steps and their one capture each")
     base = ["model=mnist", "data_loader.source=synthetic",
             "data_loader.synthetic_train=2560", "data_loader.val_size=512",
             "data_loader.synthetic_test=512", "trainer.max_epochs=2",
@@ -1745,8 +2131,8 @@ def trainer_phase(torch, card, rows, tmp):
                                f"{len(evals)} evals, {len(viz_calls)} "
                                "grid writes (expected 2 each)")
         check_kernel_counts(card, rows, f"the trainer CLI ({steps} train "
-                            f"steps, {len(evals)} evals of 2 batches)",
-                            {"K1": steps + 2 * len(evals), "K2+K3": steps})
+                            f"steps, {len(evals)} evals of 2 batches; "
+                            f"{captured})", once_each)
         for r in train:
             missing = [k for k in TRAIN_KEYS if k not in r]
             if missing:
@@ -1795,8 +2181,8 @@ def trainer_phase(torch, card, rows, tmp):
             raise RuntimeError(f"resume: saved {saved}, first logged step "
                                f"{resumed[0]['step']}, final {state.step}")
         check_kernel_counts(card, rows, "the resumed trainer CLI (16 train "
-                            "steps, 1 eval of 2 batches)",
-                            {"K1": 16 + 2, "K2+K3": 16})
+                            f"steps, 1 eval of 2 batches; {captured})",
+                            once_each)
         trained, train_s, train_rate = training_wall_time(out)
         say(f"trainer CLI resume: from step {saved} to {state.step}, first "
             f"logged step {resumed[0]['step']}, end to end "
@@ -1816,29 +2202,39 @@ def trainer_phase(torch, card, rows, tmp):
             if not math.isfinite(v):
                 raise RuntimeError(f"test metric {k} = {v}")
         check_kernel_counts(card, rows, "mode=test (4 eval batches; the "
-                            "recall pass reads no likelihood)", {"K1": 4})
+                            "recall pass reads no likelihood; the wrapper "
+                            "launches for the eval scan's warm-up step and "
+                            "its one capture)", {"K1": warm + 1})
         say(f"trainer CLI mode=test: test_loss {metrics['test_loss']!r}, "
             f"test_accuracy {metrics['test_accuracy']!r} [{card}]")
     finally:
         loop.Trainer.write_viz = write_viz
 
 
-def trainer_card_vs_cpu_phase(torch, card, tmp):
-    """4 steps at batch 32 with noise and translation off and f32 convs on
-    the card and on the CPU from the same seed: per-step JSONL losses
-    within TRAINER_RTOL; then the card run interrupted after 2 steps and
-    resumed, against the uninterrupted one (within the same tolerance; it
-    was set while K2+K3 added through atomics, whose order changed the last
-    bits from run to run; the kernel is now deterministic, and the gap the
-    line prints says whether anything else, such as cuDNN's choice of
-    algorithm, still moves them)."""
+def trainer_card_vs_cpu_phase(torch, card, tmp, steps=4, eager=True,
+                              resume=True, held=4):
+    """``steps`` steps at batch 32 with noise and translation off and f32
+    convs on the card and on the CPU from the same seed: per-step JSONL
+    losses within TRAINER_RTOL over the first ``held`` steps (every step's
+    gap is printed). On the card the train scan runs step 1 eagerly (its
+    warm-up) and replays its graph for the others; with ``eager``, a
+    control run with the Trainer's scan swapped for the eager loop
+    (``make_eager_train_scan``) is held to it and to the CPU's too. With
+    ``resume``, the card run interrupted after 2 steps and resumed (a new
+    Trainer: step 3 eager, then replays), against the uninterrupted one
+    (within the same tolerance; it was set while K2+K3 added through
+    atomics, whose order changed the last bits from run to run; the kernel
+    is now deterministic, and the gap the line prints says whether
+    anything else, such as cuDNN's choice of algorithm, still moves
+    them)."""
     from scae_tpu_torch.config import load_config
     from scae_tpu_torch.train import cli, loop
 
     def overrides(tag):
         return ["model=mnist", "data_loader.source=synthetic",
                 "data_loader.batch_size=32",
-                "data_loader.synthetic_train=160", "data_loader.val_size=32",
+                f"data_loader.synthetic_train={32 * steps + 32}",
+                "data_loader.val_size=32",
                 "data_loader.synthetic_test=32", "trainer.max_epochs=1",
                 "trainer.log_every_steps=1", "trainer.max_eval_batches=1",
                 "trainer.augment.max_shift=0",
@@ -1855,37 +2251,58 @@ def trainer_card_vs_cpu_phase(torch, card, tmp):
 
     run_cli(cli, overrides("card"))
     run_cli(cli, overrides("cpu"), device="cpu")
-    trainer = loop.Trainer(load_config("config", overrides("split")))
-    try:
-        trainer.run(max_steps=2)
-    finally:
-        trainer.close()
-    run_cli(cli, overrides("split") + ["resume=true"])
-    on_card, on_cpu, split = losses("card"), losses("cpu"), losses("split")
-    if [r["step"] for r in on_card] != [1, 2, 3, 4] or \
-            [r["step"] for r in split] != [1, 2, 3, 4] or len(on_cpu) != 4:
-        raise RuntimeError(f"steps logged: card "
-                           f"{[r['step'] for r in on_card]}, resumed "
-                           f"{[r['step'] for r in split]}")
-    for what, got, want in (("card vs CPU", on_card, on_cpu),
-                            ("card resumed after 2 vs straight", split,
-                             on_card)):
-        worst = (0.0, None, None)
+    tags = ["card", "cpu"]
+    pairs = [("card vs CPU", "card", "cpu")]
+    if eager:
+        from scae_tpu_torch.parallel.train_step import make_eager_train_scan
+
+        graph_scan = loop.make_train_scan
+        loop.make_train_scan = make_eager_train_scan
+        try:
+            run_cli(cli, overrides("eager"))
+        finally:
+            loop.make_train_scan = graph_scan
+        tags.append("eager")
+        pairs += [("card (graph) vs card eager", "card", "eager"),
+                  ("card eager vs CPU", "eager", "cpu")]
+    if resume:
+        trainer = loop.Trainer(load_config("config", overrides("split")))
+        try:
+            trainer.run(max_steps=2)
+        finally:
+            trainer.close()
+        run_cli(cli, overrides("split") + ["resume=true"])
+        tags.append("split")
+        pairs.append(("card resumed after 2 vs straight", "split", "card"))
+    runs = {tag: losses(tag) for tag in tags}
+    if any([r["step"] for r in v] != list(range(1, steps + 1))
+           for v in runs.values()):
+        raise RuntimeError("steps logged: " + ", ".join(
+            f"{tag} {[r['step'] for r in v]}" for tag, v in runs.items()))
+    failed = []
+    for what, a, b in pairs:
+        got, want = runs[a], runs[b]
+        worst, per_step = (0.0, None, None), []
         for g, w in zip(got, want):
-            for k in LOSS_KEYS:
-                gap = abs(g[k] - w[k]) / max(1.0, abs(w[k]))
-                if gap >= worst[0]:
-                    worst = (gap, k, g["step"])
-                if not gap <= TRAINER_RTOL:
-                    raise RuntimeError(f"trainer {what}: {k} at step "
-                                       f"{g['step']}: {g[k]!r} vs {w[k]!r}")
-        say(f"trainer {what} (batch 32, 4 steps, noise and translation "
-            f"off, f32 convs, TF32 off): per-step losses "
+            gaps = {k: abs(g[k] - w[k]) / max(1.0, abs(w[k]))
+                    for k in LOSS_KEYS}
+            k = max(gaps, key=gaps.get)
+            per_step.append(f"{gaps[k]:.3e} ({k})")
+            if gaps[k] >= worst[0]:
+                worst = (gaps[k], k, g["step"])
+            if g["step"] <= held and not gaps[k] <= TRAINER_RTOL:
+                failed.append(f"trainer {what}: {k} at step {g['step']}: "
+                              f"{g[k]!r} vs {w[k]!r}")
+        say(f"trainer {what} (batch 32, {steps} steps, noise and "
+            f"translation off, f32 convs, TF32 off): per-step losses "
             + ", ".join(f"{g['loss']!r}/{w['loss']!r}"
                         for g, w in zip(got, want))
-            + f"; largest gap {worst[0]:.3e} relative to max(1, |ref|) "
-            f"({worst[1]} at step {worst[2]}; tolerance "
-            f"{TRAINER_RTOL:.0e}) [{card}]")
+            + "; per-step largest gap relative to max(1, |ref|): "
+            + ", ".join(per_step)
+            + f"; largest {worst[0]:.3e} ({worst[1]} at step {worst[2]}; "
+            f"tolerance {TRAINER_RTOL:.0e} over steps 1-{held}) [{card}]")
+    if failed:
+        raise RuntimeError("; ".join(failed))
 
 
 def profile_phase(torch, name, step, images, labels, n, card):
@@ -1916,6 +2333,44 @@ def profile_phase(torch, name, step, images, labels, n, card):
         f"per step, host clock {host_ms:.4f} ms per step under the "
         f"profiler, idle share {1 - busy_ms / host_ms:.1%} [{card}]")
     say(events.table(sort_by="cuda_time_total", row_limit=25))
+    return busy_ms
+
+
+def profile_graph_phase(torch, card, scan, state, data, idxs, n,
+                        eager_busy_ms):
+    """The graph scan's device busy time per step over ``n`` replays, beside
+    the host clock. Where the profiler records no device time inside the
+    graph, the eager train window's busy time (``eager_busy_ms``) stands in
+    for it, and the line says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scan(state, data, idxs[:1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scan(state, data, idxs[1:1 + n])
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in device) / 1e3 / n
+    per_step = sum(e.count for e in device) / n
+    if busy_ms > 0:
+        source = "the profiler's device records inside the graph"
+    else:
+        busy_ms, source = eager_busy_ms, ("the eager train window's device "
+                                          "busy time: the profiler recorded "
+                                          "no device time inside the graph")
+    say(f"profile of {n} graph train step(s) (gather): device busy "
+        f"{busy_ms:.4f} ms per step (from {source}), {per_step:.1f} device "
+        f"operations recorded per step, host clock {host_ms:.4f} ms per step "
+        f"under the profiler, idle share {1 - busy_ms / host_ms:.1%} "
+        f"[{card}]")
+    say(events.table(sort_by="cuda_time_total", row_limit=25))
 
 
 def main(argv=None) -> int:
@@ -1923,6 +2378,15 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler breakdowns of the eval and "
                          "train steps")
+    ap.add_argument("--trainer-steps", type=int, metavar="N",
+                    help="run only the training CLI's card-vs-CPU "
+                         "comparison, over N steps, and print each step's "
+                         "gap (held to its bound over the first 4 steps); "
+                         "prints no result line")
+    ap.add_argument("--eager-control", action="store_true",
+                    help="with --trainer-steps: also run the CLI on the "
+                         "card with its train scan swapped for the eager "
+                         "loop")
     args = ap.parse_args(argv)
 
     import torch
@@ -1952,6 +2416,15 @@ def main(argv=None) -> int:
         version = subprocess.run([nvcc, "--version"], capture_output=True,
                                  text=True, check=True, timeout=60)
         say(f"nvcc {nvcc}: {version.stdout.strip().splitlines()[-1]}")
+
+    if args.trainer_steps:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
+                phase("trainer card vs cpu"):
+            trainer_card_vs_cpu_phase(
+                torch, card, tmp, steps=args.trainer_steps,
+                eager=args.eager_control, resume=False,
+                held=min(4, args.trainer_steps))
+        return 0
 
     with phase("build"):
         sources = {"K1": (k1.build_info, k1.SOURCE),
@@ -2007,6 +2480,9 @@ def main(argv=None) -> int:
         banded_eval, _, _ = eval_timing(torch, card, rows, "banded",
                                         banded_model, {"K5f": 1, "K6": 4})
 
+    with phase("graph"):
+        graph_scan = graph_phase(torch, card)
+
     with phase("cifar10"):
         cifar10_phase(torch, card)
 
@@ -2022,8 +2498,9 @@ def main(argv=None) -> int:
     if args.profile:
         with phase("profile"):
             profile_phase(torch, "eval", eval_step, images, labels, 5, card)
-            profile_phase(torch, "train", train_step, train_images,
-                          train_labels, 5, card)
+            eager_busy = profile_phase(torch, "train", train_step,
+                                       train_images, train_labels, 5, card)
+            profile_graph_phase(torch, card, *graph_scan, 5, eager_busy)
             profile_phase(torch, "pallas eval", pallas_eval, images, labels,
                           5, card)
             profile_phase(torch, "pallas train", pallas_step, train_images,

@@ -10,6 +10,7 @@ block layout and a key rule, given here for their planners and tests.
 
 import torch
 
+from scae_tpu_torch.ops.math_ops import as_scalar
 from scae_tpu_torch.ops.warp import _base_grid, source_coordinates
 
 MAX_CHANNELS = 4                 # the kernels are instantiated for C = 1..4
@@ -55,7 +56,7 @@ def scatter_keys(pose, tex_size, out_size, rows=None):
 def scalar_tensor(v, device):
     """``v`` as a 0-d float32 tensor on ``device``; raises unless it holds
     one value."""
-    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    t = as_scalar(v, torch.float32, device)
     if t.numel() != 1:
         raise ValueError(f"expected a scalar, got shape {tuple(t.shape)}")
     return t.reshape(())

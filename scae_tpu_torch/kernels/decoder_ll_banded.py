@@ -59,6 +59,7 @@ from scae_tpu_torch.kernels._common import (
     scatter_keys,
 )
 from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
+from scae_tpu_torch.ops.math_ops import as_scalar
 from scae_tpu_torch.ops.warp import _axis
 
 SOURCE = "decoder_ll_banded.cu"
@@ -179,7 +180,7 @@ def decoder_ll_banded(templates, alpha, pose, presence, bg_value,
     device = templates.device
     return DecoderLLBanded.apply(
         *sort_and_pad(templates, alpha, pose, presence),
-        *(torch.as_tensor(v, dtype=torch.float32, device=device)
+        *(as_scalar(v, torch.float32, device)
           for v in (bg_value, bg_mixing_logit, scale)),
         target.contiguous(), tuple(out_size))
 

@@ -43,6 +43,7 @@ from scae_tpu_torch.kernels._common import (
     scatter_keys,
 )
 from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
+from scae_tpu_torch.ops.math_ops import as_scalar
 
 SOURCE = "decoder_ll_dense.cu"
 BWD_SOURCE = "decoder_ll_dense_bwd.cu"
@@ -67,7 +68,7 @@ def decoder_ll_dense(templates, alpha, pose, presence, bg_value,
     device = templates.device
     return DecoderLLDense.apply(
         templates, alpha, pose, presence,
-        *(torch.as_tensor(v, dtype=torch.float32, device=device)
+        *(as_scalar(v, torch.float32, device)
           for v in (bg_value, bg_mixing_logit, scale)),
         target, tuple(out_size))
 

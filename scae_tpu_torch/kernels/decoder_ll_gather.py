@@ -40,7 +40,7 @@ from scae_tpu_torch.kernels._common import (
     scalars,
     scatter_keys,
 )
-from scae_tpu_torch.ops.math_ops import log_safe
+from scae_tpu_torch.ops.math_ops import as_scalar, log_safe
 from scae_tpu_torch.ops.warp import source_coordinates
 
 SOURCE = "decoder_ll_gather.cu"
@@ -69,7 +69,7 @@ def decoder_ll_gather(templates, alpha, pose, presence, bg_value,
     device = templates.device
     return DecoderLLGather.apply(
         templates, alpha, pose, presence,
-        *(torch.as_tensor(v, dtype=torch.float32, device=device)
+        *(as_scalar(v, torch.float32, device)
           for v in (bg_value, bg_mixing_logit, scale)),
         target, tuple(out_size))
 

@@ -40,7 +40,7 @@ import math
 
 import torch
 
-from scae_tpu_torch.ops.math_ops import log_safe
+from scae_tpu_torch.ops.math_ops import as_scalar, log_safe
 from scae_tpu_torch.ops.warp import _base_grid, source_coordinates
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -71,7 +71,7 @@ def _mm(equation, a, b, dtype):
 
 
 def _scalar(v, like):
-    return torch.as_tensor(v, dtype=_F32, device=like.device)
+    return as_scalar(v, _F32, like.device)
 
 
 def _warp_values(templates, alpha, Wx, Wy):

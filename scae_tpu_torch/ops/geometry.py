@@ -55,8 +55,10 @@ def geometric_transform(pose: torch.Tensor, similarity: bool = False,
 def affine_to_matrix(flat: torch.Tensor) -> torch.Tensor:
     """[..., 6] row-major 2x3 affine -> [..., 3, 3] homogeneous matrix."""
     mat2x3 = flat.reshape(*flat.shape[:-1], 2, 3)
-    last = torch.tensor([0.0, 0.0, 1.0], dtype=flat.dtype,
-                        device=flat.device).expand(*flat.shape[:-1], 1, 3)
+    # the identity's last row, made on the device (no host copy, which a
+    # CUDA graph could not capture)
+    last = torch.eye(3, dtype=flat.dtype, device=flat.device)[2].expand(
+        *flat.shape[:-1], 1, 3)
     return torch.cat([mat2x3, last], dim=-2)
 
 

@@ -12,12 +12,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from scae_tpu_torch.ops.math_ops import as_scalar
+
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def normal_log_prob(x, loc, scale):
     """Element-wise Normal(loc, scale) log-density."""
-    scale = torch.as_tensor(scale, dtype=loc.dtype, device=loc.device)
+    scale = as_scalar(scale, loc.dtype, loc.device)
     return -((x - loc) ** 2) / (2.0 * scale * scale) - torch.log(scale) \
         - _LOG_SQRT_2PI
 
@@ -63,6 +65,5 @@ class GaussianMixture:
     @classmethod
     def make_from_stats(cls, loc, scale, mixing_logits):
         return cls(loc=loc,
-                   scale=torch.as_tensor(scale, dtype=loc.dtype,
-                                         device=loc.device),
+                   scale=as_scalar(scale, loc.dtype, loc.device),
                    mixing_logits=mixing_logits)

@@ -4,7 +4,19 @@ log floor at -1e8 below eps=1e-16; normalize eps 1e-8; l2 = sum(x^2)/2;
 relu1 = clip(x, 0, 1).
 """
 
+import numbers
+
 import torch
+
+
+def as_scalar(v, dtype, device) -> torch.Tensor:
+    """``torch.as_tensor(v, dtype=dtype, device=device)``, but a Python or
+    numpy number is filled in on the device, not copied from the host: a
+    CUDA graph cannot capture a copy from host memory. The same value
+    either way (rounded once to ``dtype``)."""
+    if isinstance(v, numbers.Number):
+        return torch.full((), v, dtype=dtype, device=device)
+    return torch.as_tensor(v, dtype=dtype, device=device)
 
 
 def log_safe(x: torch.Tensor, eps: float = 1e-16) -> torch.Tensor:

@@ -9,18 +9,34 @@ particular ``optax.rmsprop`` scales by the learning rate before its
 momentum trace (``scale_by_rms -> scale_by_learning_rate -> trace``),
 where ``torch.optim.RMSprop`` scales the momentum buffer by the current
 rate; the two agree while the rate is constant and part once the schedule
-decays. Step counts and learning rates are host numbers, so a step never
-waits for the device. Per-tensor work goes through ``torch._foreach_*``,
-one launch for the whole parameter list.
+decays. Per-tensor work goes through ``torch._foreach_*``, one launch for
+the whole parameter list.
+
+A step is two halves. ``advance()`` is the host's: it counts the step and
+returns its plan, ``(branch, numbers)``: which branch of the update the
+step takes (RAdam's rectified or SGD step, LookAhead's sync every k
+steps; None where there is one) and the step's numbers (the learning
+rate, the bias corrections). ``updates(grads, plan)`` is the device's:
+its numbers are 0-d float32 tensors on the parameters' device, filled in
+from the plan by the eager step, and written before each replay into the
+buffer that a CUDA graph of the train step reads
+(``parallel/train_step.py``), so both run the same kernels. (On the card
+PyTorch divides by a host float in another rounding than by a tensor.)
+Step counts are host numbers, so a step never waits for the device.
 """
 
 import math
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Hashable, Iterable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
+from scae_tpu_torch.ops.math_ops import as_scalar
+
 Schedule = Union[float, Callable[[int], float]]
+# a step's plan: its branch and its numbers (floats, or 0-d float32 tensors)
+Plan = Tuple[Hashable, Tuple[Union[float, torch.Tensor], ...]]
 
 
 def reference_eps(batch_size: int) -> float:
@@ -59,6 +75,18 @@ class Optimizer:
 
     def _zeros(self) -> List[torch.Tensor]:
         return [torch.zeros_like(p) for p in self.params]
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the state (a wrapped optimizer's too), in the
+        order of ``_state``; the parameters are not among them."""
+        out = []
+        for name in self._state:
+            value = getattr(self, name)
+            if isinstance(value, Optimizer):
+                out += value.state_tensors()
+            elif isinstance(value, list):
+                out += value
+        return out
 
     def state_dict(self) -> dict:
         """The state as CPU copies: counts as ints, tensor lists as lists
@@ -103,18 +131,37 @@ class Optimizer:
             else:
                 setattr(self, name, int(saved))
 
-    def updates(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+    def advance(self) -> Plan:
+        """Count one step on the host; its plan (branch, numbers)."""
+        raise NotImplementedError
+
+    def updates(self, grads: List[torch.Tensor],
+                plan: Optional[Plan] = None) -> List[torch.Tensor]:
+        """The step's updates from ``grads``, by ``plan``, whose numbers are
+        0-d float32 tensors (default: the plan of ``advance()``, which
+        counts the step, its numbers filled in on the parameters' device).
+        State tensors are updated in place."""
+        if plan is None:
+            branch, numbers = self.advance()
+            device = self.params[0].device
+            plan = branch, tuple(as_scalar(v, torch.float32, device)
+                                 for v in numbers)
+        return self._updates(grads, *plan)
+
+    def _updates(self, grads, branch, numbers) -> List[torch.Tensor]:
         raise NotImplementedError
 
     @torch.no_grad()
-    def step(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None):
+    def step(self, grads: Optional[Sequence[Optional[torch.Tensor]]] = None,
+             plan: Optional[Plan] = None):
         """Apply one update from ``grads`` (default: each parameter's
-        ``.grad``); a missing gradient counts as zeros, as in JAX."""
+        ``.grad``); a missing gradient counts as zeros, as in JAX.
+        ``plan``: as for ``updates``."""
         if grads is None:
             grads = [p.grad for p in self.params]
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
-        torch._foreach_add_(self.params, self.updates(grads))
+        torch._foreach_add_(self.params, self.updates(grads, plan))
 
 
 class RMSprop(Optimizer):
@@ -133,9 +180,13 @@ class RMSprop(Optimizer):
         self.nu = self._zeros()
         self.trace = self._zeros() if momentum is not None else None
 
-    def updates(self, grads):
+    def advance(self):
         lr = _value(self.lr, self.count)
         self.count += 1
+        return None, (-lr,)
+
+    def _updates(self, grads, branch, numbers):
+        (neg_lr,) = numbers
         sq = torch._foreach_mul(grads, grads)
         torch._foreach_mul_(sq, 1.0 - self.decay)
         torch._foreach_mul_(self.nu, self.decay)
@@ -144,7 +195,7 @@ class RMSprop(Optimizer):
         torch._foreach_add_(scaling, self.eps)
         torch._foreach_reciprocal_(scaling)
         upd = torch._foreach_mul(scaling, grads)
-        torch._foreach_mul_(upd, -lr)
+        torch._foreach_mul_(upd, neg_lr)
         if self.trace is None:
             return upd
         torch._foreach_mul_(self.trace, self.momentum)
@@ -166,16 +217,22 @@ class Adam(Optimizer):
         self.mu = self._zeros()
         self.nu = self._zeros()
 
-    def updates(self, grads):
+    def advance(self):
+        """Numbers: the two bias corrections and -lr."""
         lr = _value(self.lr, self.count)
         self.count += 1
+        return None, (1.0 - self.b1 ** self.count,
+                      1.0 - self.b2 ** self.count, -lr)
+
+    def _updates(self, grads, branch, numbers):
+        bias1, bias2, neg_lr = numbers
         _moments(self.mu, self.nu, grads, self.b1, self.b2)
-        mu_hat = torch._foreach_div(self.mu, 1.0 - self.b1 ** self.count)
-        denom = torch._foreach_div(self.nu, 1.0 - self.b2 ** self.count)
+        mu_hat = torch._foreach_div(self.mu, bias1)
+        denom = torch._foreach_div(self.nu, bias2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(mu_hat, denom)
-        torch._foreach_mul_(upd, -lr)
+        torch._foreach_mul_(upd, neg_lr)
         return upd
 
 
@@ -212,9 +269,11 @@ class RAdam(Optimizer):
         self.mu = self._zeros()
         self.nu = self._zeros()
 
-    def updates(self, grads):
+    def advance(self):
+        """Branch: "rect" once rho_t >= 5, else "sgd" (or "none" without
+        ``degenerated_to_sgd``). Numbers: the step's scale (rect / bias1,
+        1 / bias1, or 0), -lr and -weight_decay lr."""
         self.count += 1
-        _moments(self.mu, self.nu, grads, self.b1, self.b2)
         f32 = np.float32
         t = f32(self.count)
         b2 = f32(self.b2)
@@ -227,19 +286,30 @@ class RAdam(Optimizer):
             rect = np.sqrt((f32(1.0) - beta2_t) * (rho_t - f32(4.0))
                            / (rho_inf - f32(4.0)) * (rho_t - f32(2.0))
                            / rho_t * rho_inf / (rho_inf - f32(2.0)))
+            branch, scale = "rect", float(rect / bias1)
+        elif self.degenerated_to_sgd:
+            branch, scale = "sgd", float(f32(1.0) / bias1)
+        else:
+            branch, scale = "none", 0.0
+        return branch, (scale, -lr, -self.weight_decay * lr)
+
+    def _updates(self, grads, branch, numbers):
+        scale, neg_lr, neg_decay = numbers
+        _moments(self.mu, self.nu, grads, self.b1, self.b2)
+        if branch == "rect":
             denom = torch._foreach_sqrt(self.nu)
             torch._foreach_add_(denom, self.eps)
             upd = torch._foreach_div(self.mu, denom)
-            torch._foreach_mul_(upd, float(rect / bias1))
-            torch._foreach_mul_(upd, -lr)
-        elif self.degenerated_to_sgd:
-            upd = torch._foreach_mul(self.mu, float(f32(1.0) / bias1))
-            torch._foreach_mul_(upd, -lr)
+            torch._foreach_mul_(upd, scale)
+            torch._foreach_mul_(upd, neg_lr)
+        elif branch == "sgd":
+            upd = torch._foreach_mul(self.mu, scale)
+            torch._foreach_mul_(upd, neg_lr)
         else:
             upd = self._zeros()
         if self.weight_decay:
-            torch._foreach_add_(upd, torch._foreach_mul(
-                self.params, -self.weight_decay * lr))
+            torch._foreach_add_(upd, torch._foreach_mul(self.params,
+                                                        neg_decay))
         return upd
 
 
@@ -257,10 +327,16 @@ class Lookahead(Optimizer):
         self.count = 0
         self.slow = [p.detach().clone() for p in self.params]
 
-    def updates(self, grads):
-        upd = self.base.updates(grads)
+    def advance(self):
+        """Branch: (the base's branch, whether this step syncs)."""
+        branch, numbers = self.base.advance()
         self.count += 1
-        if self.count % self.k:
+        return (branch, self.count % self.k == 0), numbers
+
+    def _updates(self, grads, branch, numbers):
+        base_branch, sync = branch
+        upd = self.base._updates(grads, base_branch, numbers)
+        if not sync:
             return upd
         fast = torch._foreach_add(self.params, upd)
         diff = torch._foreach_sub(fast, self.slow)

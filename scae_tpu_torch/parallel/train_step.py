@@ -6,19 +6,35 @@
 The model holds its parameters and the optimizer its state, so a train
 step updates its ``TrainState`` in place and returns it: the raw step is
 ``(images, labels) -> metrics`` on the state it was made for, the scan
-``(state, data, idxs) -> (state, metrics)`` as JAX's. A scan runs K steps
-as a Python loop over the same step, the batches gathered once up front;
-its metrics stay on the device, stacked to (K,), so the host waits for the
-device once per chunk, when it reads them.
+``(state, data, idxs) -> (state, metrics)`` as JAX's. A scan's metrics
+stay on the device, stacked to (K,), so the host waits for the device once
+per chunk, when it reads them.
+
+JAX runs a scan as one compiled program per chunk. On the card the scans
+here replay a CUDA graph of one step per row of ``idxs`` (``graphs.py``):
+one launch from the host per step, its inputs written into the graph's
+static buffers before each replay (the batch's index vector, the
+optimizer's per-step numbers, the seeds of two generators registered with
+the graph), its metrics copied out after. The graph holds one step, not
+K, because the Trainer's chunks take any length. On the CPU a scan is a
+Python loop over the eager step. The raw and fused single-step entry
+points stay eager on every device.
 """
 
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 from torch import nn
 
 from scae_tpu_torch.optim import Optimizer
+from scae_tpu_torch.parallel.graphs import (
+    WARMUP_STEPS,
+    StepGraph,
+    side_stream,
+    tensors_key,
+)
 from scae_tpu_torch.train.data import pad_to_canvas
 from scae_tpu_torch.utils.device import check_model_device, resolve_device
 
@@ -121,41 +137,68 @@ def make_fused_eval_step(model, canvas: int = 0, device=None) -> Callable:
 
 def make_eval_scan(model, canvas: int = 0, device=None) -> Callable:
     """``scan(data, idxs) -> metrics``: the eval step over every row of
-    ``idxs`` (K, B), each metric a (K,) tensor on the device. The K batches
-    are gathered from ``data`` in one indexing up front, as JAX's scan
-    gathers them outside its body."""
+    ``idxs`` (K, B), each metric a (K,) tensor on the device. On the CPU
+    the K batches are gathered from ``data`` in one indexing up front, as
+    JAX's scan gathers them outside its body; on the card each row is a
+    replay of a graph of the eval step, which gathers its own batch (see
+    the module's docstring)."""
     device = resolve_device(device)
     check_model_device(model, device)
+    current = None   # the _Captures of the last call
 
     @torch.inference_mode()
     def scan(data, idxs):
-        images, labels = _gather_chunk(data, idxs, device)
-        return _stack([_eval_step(model, images[k], labels[k], canvas,
-                                  device) for k in range(len(images))])
+        nonlocal current
+        if device.type != "cuda":
+            images, labels = _gather_chunk(data, idxs, device)
+            return _stack([_eval_step(model, images[k], labels[k], canvas,
+                                      device) for k in range(len(images))])
+        idxs = _chunk_indices(idxs, device)
+        key = (tensors_key([*model.parameters(), *model.buffers()]),
+               tensors_key([data["image"], data["label"]]), idxs.shape[1])
+        if current is None or current.key != key:
+            current = None       # free the old graph's memory first
+            current = _Captures(key, device, idxs.shape[1])
+        return _graph_eval_rows(current, model, data, idxs, canvas)
 
     return scan
 
 
-def _train_step(state: TrainState, images, labels, augment_fn, device):
-    """One train step on a raw batch; see ``make_raw_train_step``."""
-    model, optimizer = state.model, state.optimizer
+def _train_body(model, optimizer, images, labels, augment_fn, device,
+                aug_generator, noise_generator, plan=None):
+    """A train step's device work on a raw batch: the augmentation drawn
+    from ``aug_generator``, the noise from ``noise_generator``, the
+    optimizer's update by ``plan`` (see ``Optimizer.updates``)."""
     images = decode_images(torch.as_tensor(images).to(device))
     labels = torch.as_tensor(labels).to(device=device, dtype=torch.long)
     batch = {"image": images, "label": labels}
     if augment_fn is not None:
-        batch = augment_fn(batch, _generator(
-            device, _fold_in(state.seed, state.step, 7)))
+        batch = augment_fn(batch, aug_generator)
     images = batch["image"]
-    res = model(images, deterministic=False, generator=_generator(
-        device, _fold_in(state.seed, state.step)))
+    res = model(images, deterministic=False, generator=noise_generator)
     loss, log = model.loss(res, images, labels)
     metrics = {k: v.detach() for k, v in log.items()}
     if model.n_classes:
         with torch.no_grad():
             metrics["accuracy"] = model.calculate_accuracy(res, labels)
     grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
-    optimizer.step(grads)
+    optimizer.step(grads, plan)
     metrics["loss"] = loss.detach()
+    return metrics
+
+
+def _step_seeds(state: TrainState):
+    """The seeds of step ``state.step``'s augmentation and noise."""
+    return (_fold_in(state.seed, state.step, 7),
+            _fold_in(state.seed, state.step))
+
+
+def _train_step(state: TrainState, images, labels, augment_fn, device):
+    """One eager train step on a raw batch; see ``make_raw_train_step``."""
+    aug_seed, noise_seed = _step_seeds(state)
+    metrics = _train_body(state.model, state.optimizer, images, labels,
+                          augment_fn, device, _generator(device, aug_seed),
+                          _generator(device, noise_seed))
     state.step += 1
     return metrics
 
@@ -185,6 +228,22 @@ def make_raw_train_step(state: TrainState, augment_fn=None,
 
 def _indices(idx, device) -> torch.Tensor:
     return torch.as_tensor(idx).to(device=device, dtype=torch.long)
+
+
+def _to_card(rows, dtype, device) -> torch.Tensor:
+    """Host rows on the card without waiting for it: a copy from pinned
+    memory (a copy from pageable memory waits for the stream to drain)."""
+    host = torch.as_tensor(np.asarray(rows)).to(dtype)
+    return host.pin_memory().to(device, non_blocking=True)
+
+
+def _chunk_indices(idxs, device) -> torch.Tensor:
+    """A chunk's (K, B) indices on the card, copied without waiting."""
+    if not (isinstance(idxs, torch.Tensor) and idxs.device == device):
+        idxs = _to_card(idxs, torch.long, device)
+    if idxs.dim() != 2:
+        raise ValueError(f"idxs must be (K, B), got {tuple(idxs.shape)}")
+    return idxs.to(torch.long)
 
 
 def _gather_chunk(data, idxs, device):
@@ -220,16 +279,13 @@ def make_fused_train_step(state: TrainState, augment_fn=None,
     return train_step
 
 
-def make_train_scan(augment_fn=None, device=None) -> Callable:
-    """``scan(state, data, idxs) -> (state, metrics)``: K train steps, one
-    per row of ``idxs`` (K, B), on device-resident ``data`` = {"image":
-    (N, ...), "label": (N,)}; each metric a (K,) tensor on the device.
-
-    The K batches are gathered in one indexing up front (JAX's scan
-    gathers them outside its body too); the steps are the raw train step
-    in a Python loop, which reads nothing back from the device. ``state``
-    is updated in place and returned. ``device``: CUDA unless given.
-    """
+def make_eager_train_scan(augment_fn=None, device=None) -> Callable:
+    """``scan(state, data, idxs) -> (state, metrics)`` as
+    ``make_train_scan``'s, its K steps the eager train step in a Python
+    loop on any device: what ``make_train_scan`` runs on the CPU, and on
+    the card the loop that its graphs are held to. The K batches are
+    gathered in one indexing up front (JAX's scan gathers them outside its
+    body too)."""
     device = resolve_device(device)
 
     def scan(state: TrainState, data, idxs):
@@ -240,3 +296,184 @@ def make_train_scan(augment_fn=None, device=None) -> Callable:
             for k in range(len(images))])
 
     return scan
+
+
+def make_train_scan(augment_fn=None, device=None) -> Callable:
+    """``scan(state, data, idxs) -> (state, metrics)``: K train steps, one
+    per row of ``idxs`` (K, B), on device-resident ``data`` = {"image":
+    (N, ...), "label": (N,)}; each metric a (K,) tensor on the device.
+    ``state`` is updated in place and returned. ``device``: CUDA unless
+    given.
+
+    On the CPU this is ``make_eager_train_scan``'s loop. On the card each
+    row replays a graph of the train step (see the module's docstring):
+    one graph per branch of the optimizer, captured when a step first
+    takes it, after ``graphs.WARMUP_STEPS`` eager steps on a side stream.
+    A new state object, or a change of the addresses, shapes or dtypes of
+    its tensors or of ``data``, or of the batch size, captures anew; a
+    restore that copies in place (``load_state_dict``) keeps the graphs.
+    Either way a step reads nothing back from the device.
+    """
+    device = resolve_device(device)
+    if device.type != "cuda":
+        return make_eager_train_scan(augment_fn, device)
+    current = None   # the _Captures of the last call
+
+    def scan(state: TrainState, data, idxs):
+        nonlocal current
+        check_model_device(state.model, device)
+        idxs = _chunk_indices(idxs, device)
+        model, optimizer = state.model, state.optimizer
+        key = (id(state), id(model), id(optimizer),
+               tensors_key([*model.parameters(), *model.buffers(),
+                            *optimizer.state_tensors()]),
+               tensors_key([data["image"], data["label"]]), idxs.shape[1])
+        if current is None or current.key != key:
+            current = None       # free the old graphs' memory first
+            # held, so that no new object takes the ids in the key
+            current = _Captures(key, device, idxs.shape[1],
+                                held=(state, model, optimizer), generators=2)
+        return state, _graph_train_rows(current, state, data, idxs,
+                                        augment_fn)
+
+    return scan
+
+
+class _Captures:
+    """What a scan holds on the card for one key (what its graphs depend
+    on): a graph per branch of the step, captured when a step first takes
+    it, all in one memory pool (they never run at once, and each replay's
+    output is copied out before the next replay); the static inputs they
+    read (the batch's index vector, the train step's optimizer numbers and
+    generators); the metrics' names, in the graphs' output order; and the
+    warm-up steps still to run. ``held``: objects kept alive with it."""
+
+    def __init__(self, key, device, batch, held=(), generators=0):
+        self.key, self.device, self.held = key, device, held
+        self.warmup = WARMUP_STEPS
+        self.idx = torch.zeros(batch, dtype=torch.long, device=device)
+        self.generators = tuple(torch.Generator(device=device)
+                                for _ in range(generators))
+        self.numbers = None  # (n,) float32: the train step's numbers
+        self.pool = None
+        self.graphs = {}     # branch -> StepGraph
+        self.names = None
+
+    def batch(self, data):
+        """The batch that the index vector picks from ``data``."""
+        return (data["image"].index_select(0, self.idx),
+                data["label"].index_select(0, self.idx))
+
+    def graph(self, branch, body) -> StepGraph:
+        """The graph of ``branch``: ``body()``'s metrics dict, captured as
+        one stacked vector when first asked for."""
+        if branch in self.graphs:
+            return self.graphs[branch]
+
+        def step():
+            metrics = body()
+            names = list(metrics)
+            if self.names not in (None, names):
+                raise RuntimeError(f"the step's metrics changed from "
+                                   f"{self.names} to {names}")
+            dtypes = {metrics[n].dtype for n in names}
+            if len(dtypes) != 1:
+                raise TypeError(f"the step's metrics have dtypes {dtypes}; "
+                                "a graph returns them in one vector")
+            self.names = names
+            return torch.stack([metrics[n] for n in names])
+
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        self.graphs[branch] = StepGraph(step, self.generators, self.pool)
+        return self.graphs[branch]
+
+    def run(self, idxs, eager_step, replay, prepare=None):
+        """One step per row of ``idxs`` (K, B), its metrics stacked to (K,)
+        each: the rows that the warm-up still holds by ``eager_step(idx)``
+        on a side stream; then ``prepare(n)`` before the n others, each
+        written into the index vector and run by ``replay(j)`` (j counts
+        the replayed rows), which returns its graph's output vector."""
+        K = idxs.shape[0]
+        n_eager = min(self.warmup, K)
+        self.warmup -= n_eager
+        rows = []
+        if n_eager:
+            with side_stream(self.device):
+                rows = [eager_step(idx) for idx in idxs[:n_eager]]
+        if prepare is not None:
+            prepare(K - n_eager)
+        out = None
+        for j in range(K - n_eager):
+            self.idx.copy_(idxs[n_eager + j])
+            vec = replay(j)
+            if out is None:
+                out = torch.empty((len(vec), K - n_eager), dtype=vec.dtype,
+                                  device=self.device)
+            out[:, j].copy_(vec)
+        names = self.names if out is not None else list(rows[0])
+        stacked = {}
+        for i, name in enumerate(names):
+            parts = ([torch.stack([r[name] for r in rows])] if rows else []) \
+                + ([out[i]] if out is not None else [])
+            stacked[name] = parts[0] if len(parts) == 1 else torch.cat(parts)
+        return stacked
+
+
+def _graph_train_rows(captures, state, data, idxs, augment_fn):
+    """The train scan's rows on the card. The plans of a chunk's replays
+    are taken on the host up front (``Optimizer.advance``, which counts the
+    steps), their numbers copied to the card in one (n, len) table, and
+    each replay's row copied into the graphs' number buffer; the graph of
+    the plan's branch is replayed. The two generators registered with every
+    graph are seeded before each replay as the eager step seeds its fresh
+    ones, so a replay draws what it draws."""
+    device, optimizer = captures.device, state.optimizer
+    plans, table = [], None
+
+    def prepare(n):
+        nonlocal plans, table
+        plans = [optimizer.advance() for _ in range(n)]
+        if n:
+            table = _to_card([numbers for _, numbers in plans],
+                             torch.float32, device)
+            if captures.numbers is None:
+                captures.numbers = torch.zeros(table.shape[1],
+                                               dtype=torch.float32,
+                                               device=device)
+
+    def replay(j):
+        branch = plans[j][0]
+        plan = (branch, tuple(captures.numbers.unbind()))
+        graph = captures.graph(branch, lambda: _train_body(
+            state.model, optimizer, *captures.batch(data), augment_fn,
+            device, *captures.generators, plan))
+        captures.numbers.copy_(table[j])
+        for generator, seed in zip(captures.generators, _step_seeds(state)):
+            generator.manual_seed(seed)
+        out = graph.replay()
+        state.step += 1
+        return out
+
+    def eager_step(idx):
+        return _train_step(state, data["image"].index_select(0, idx),
+                           data["label"].index_select(0, idx), augment_fn,
+                           device)
+
+    return captures.run(idxs, eager_step, replay, prepare)
+
+
+def _graph_eval_rows(captures, model, data, idxs, canvas):
+    """The eval scan's rows on the card: one graph of the eval step, run
+    in inference mode."""
+    device = captures.device
+
+    def eager_step(idx):
+        return _eval_step(model, data["image"].index_select(0, idx),
+                          data["label"].index_select(0, idx), canvas, device)
+
+    def replay(j):
+        return captures.graph(None, lambda: _eval_step(
+            model, *captures.batch(data), canvas, device)).replay()
+
+    return captures.run(idxs, eager_step, replay)

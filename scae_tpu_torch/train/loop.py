@@ -86,6 +86,31 @@ def make_center_pad_fn(canvas: int):
     return pad
 
 
+def _start_read(metrics):
+    """Start a chunk's last-step metrics on their way to the host without
+    waiting: (names, host values, event). On the card the values are a
+    copy into pinned memory behind a recorded CUDA event; on the CPU they
+    are the metrics themselves and the event is None."""
+    names = list(metrics)
+    last = torch.stack([metrics[k][-1] for k in names])
+    if last.device.type != "cuda":
+        return names, last, None
+    host = torch.empty(last.shape, dtype=last.dtype, pin_memory=True)
+    host.copy_(last, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return names, host, event
+
+
+def _finish_read(read) -> Dict[str, float]:
+    """The metrics of ``_start_read``, as host floats, once its event has
+    completed."""
+    names, host, event = read
+    if event is not None:
+        event.synchronize()
+    return dict(zip(names, host.tolist()))
+
+
 def _refuse_deferred(cfg: Dict):
     """Raise NotImplementedError for every config key whose feature the
     port does not have yet, rather than ignore it."""
@@ -405,16 +430,16 @@ class Trainer:
         stop = False
 
         # Double-buffered logging, in the JAX loop's order: chunk k+1 is
-        # dispatched BEFORE chunk k's metrics are read on the host.
-        # `pending` holds the not yet read chunk's device metrics. On one
-        # stream the read is queued behind chunk k+1's kernels, so it also
-        # waits for chunk k+1: eagerly the buffer overlaps no device work
-        # with the host. A chunk's images_per_sec is its images over the
-        # wall time from the start of its dispatch to the start of the
-        # next chunk's (eagerly, the host issues a chunk's work while the
-        # device runs it), or, for a chunk with none after it before an
-        # eval, to when its metrics were read.
-        pending = None  # (step_after_chunk, device_metrics, k, t_start)
+        # dispatched BEFORE chunk k's metrics are read on the host. Right
+        # after its dispatch, a chunk's last-step metrics start on their
+        # way to pinned host memory behind an event (``_start_read``); the
+        # read of chunk k, after chunk k+1's dispatch, waits for chunk k's
+        # event only, so the host issues chunk k+1 while the device runs
+        # chunk k. A chunk's images_per_sec is its images over the wall
+        # time from the start of its dispatch to the start of the next
+        # chunk's, or, for a chunk with none after it before an eval, to
+        # when its metrics were read.
+        pending = None  # (step_after_chunk, read, k, t_start)
         # the run's training wall time: each eval period from its first
         # chunk's dispatch to its last chunk's read (evals, grids and
         # checkpoints excluded), and the images trained in it
@@ -424,13 +449,11 @@ class Trainer:
             nonlocal pending
             if pending is None:
                 return
-            p_step, p_metrics, p_k, p_start = pending
+            p_step, p_read, p_k, p_start = pending
             pending = None
-            # log the chunk's last step; this read is the only host sync
+            # log the chunk's last step; this wait is the only host sync
             # in the hot loop
-            keys = list(p_metrics)
-            host = dict(zip(keys, torch.stack(
-                [p_metrics[k][-1] for k in keys]).cpu().tolist()))
+            host = _finish_read(p_read)
             end = time.time() if next_start is None else next_start
             rate = p_k * self.batch_size / max(end - p_start, 1e-9)
             self.writer.scalars(p_step,
@@ -478,11 +501,12 @@ class Trainer:
                     period_start = t_start
                 state, metrics = self.train_scan(state, device_data,
                                                  stream[j:j + k])
+                read = _start_read(metrics)
                 j += k
                 global_step += k
-                # read the previous chunk (this waits for this one too)
+                # read the previous chunk (waits for that chunk only)
                 flush_pending(next_start=t_start)
-                pending = (global_step, metrics, k, t_start)
+                pending = (global_step, read, k, t_start)
                 if profiling:
                     # the trace must not bleed into the next chunk
                     flush_pending()

@@ -1,8 +1,9 @@
 """K1 (the CUDA gather decoder-likelihood kernel) and K2+K3 (its backward),
 K4f and K4b (the dense ones), K5f and K5b (the banded ones), K6 (the set
 attention) and the toolchain probes P1 and P2, against their plain PyTorch
-versions, on the card; the flagship eval and train steps through them, and
-the training CLI.
+versions, on the card; the flagship eval and train steps through them, the
+training CLI, and the train and eval scans' CUDA graphs against the eager
+steps (bit for bit, with cuDNN's deterministic algorithms).
 
 Needs a CUDA device and nvcc; every test skips without a card. The
 decision is taken inside the ``cuda`` fixture, so every pytest worker
@@ -997,7 +998,11 @@ def test_probe_kernel_build_reports_registers(cuda):
 
 def test_trainer_cli_runs_through_kernels(cuda, tmp_path, monkeypatch):
     """The training CLI at small widths on the card: K2+K3 once per train
-    step, K1 once per train step and per eval batch, nothing else."""
+    step, K1 once per train step and per eval batch, nothing else, in the
+    profiler's device records. The scans replay graphs, so the wrappers
+    launch for the warm-up steps and the captures only: the train scan's
+    warm-up step and its one capture, the eval scan's one batch (its
+    warm-up step)."""
     from scae_tpu_torch.train import cli
 
     monkeypatch.setenv("SCAE_TPU_NO_TENSORBOARD", "1")
@@ -1015,12 +1020,373 @@ def test_trainer_cli_runs_through_kernels(cuda, tmp_path, monkeypatch):
     k1.launches = k1.bwd_launches = 0
     k4.launches = k4.bwd_launches = k5.launches = k5.bwd_launches = 0
     k6.launches = 0
-    state = cli.main(argv)
-    torch.cuda.synchronize()
-    assert state.step == 4
-    assert (k1.launches, k1.bwd_launches) == (4 + 1, 4)
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
+
+    run = {}
+    # one window: the CLI runs once
+    ran = kernel_records(lambda: run.update(state=cli.main(argv)), None,
+                         windows=1)
+    assert run["state"].step == 4
+    assert ran == dict(dict.fromkeys(KERNEL_NAMES, 0), K1=4 + 1,
+                       **{"K2+K3": 4})
+    assert (k1.launches, k1.bwd_launches) == (WARMUP_STEPS + 1 + 1,
+                                              WARMUP_STEPS + 1)
     assert (k4.launches, k4.bwd_launches, k5.launches, k5.bwd_launches,
             k6.launches) == (0, 0, 0, 0, 0)
     metrics = cli.main(argv + ["mode=test"])
     assert np.isfinite(metrics["test_loss"])
     assert any(k.startswith("test_class") for k in metrics)
+
+
+# ----------------------------------------------------- graph scans
+
+GRAPH_MODEL = dict(
+    image_shape=(1, 24, 24), n_classes=10, n_part_caps=8, n_obj_caps=4,
+    pcae_cnn_encoder_params=dict(out_channels=[16] * 4),
+    pcae_template_generator_params=dict(template_size=(5, 5)),
+    ocae_encoder_set_transformer_params=dict(dim_hidden=16, dim_out=16),
+    ocae_decoder_capsule_params=dict(dim_caps=8, hidden_sizes=(16,)))
+# per path: fused_impl, the attention flag, launches per train step
+GRAPH_PATHS = {
+    "gather": ("auto", False, {"K1": 1, "K2+K3": 1}),
+    "dense": ("pallas", False, {"K4f": 1, "K4b": 1}),
+    "banded": ("pallas_banded", True, {"K5f": 1, "K5b": 1, "K6": 4}),
+}
+# graph against eager on the card, both with cuDNN's deterministic
+# algorithms: the same kernels in the same order, so the same bits. The
+# eval rows: 1e-4 relative (an eval step's metrics, the same kernels; held
+# loosely, as chip_smoke.py holds a default-cuDNN graph step's losses)
+GRAPH_LOSS_RTOL = 1e-4
+
+
+@pytest.fixture
+def deterministic(cuda):
+    """cuDNN's deterministic algorithms for the test: its default ones may
+    add in another order from run to run, and RMSprop's small eps turns
+    that into visible parameter gaps between any two runs."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = before
+
+
+def graph_counts():
+    return {"K1": k1.launches, "K2+K3": k1.bwd_launches, "K4f": k4.launches,
+            "K4b": k4.bwd_launches, "K5f": k5.launches,
+            "K5b": k5.bwd_launches, "K6": k6.launches}
+
+
+def zero_graph_counts():
+    k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
+    k5.launches = k5.bwd_launches = k6.launches = 0
+
+
+# the kernels' names in the profiler's records
+KERNEL_NAMES = {"K1": "decoder_ll_gather_fwd_kernel",
+                "K2+K3": "decoder_ll_gather_bwd_kernel",
+                "K4f": "decoder_ll_dense_fwd_kernel",
+                "K4b": "decoder_ll_dense_bwd_kernel",
+                "K5f": "decoder_ll_banded_fwd_kernel",
+                "K5b": "decoder_ll_banded_bwd_kernel",
+                "K6": "attention_fwd_kernel"}
+
+
+def kernel_records(fn, want, windows=3):
+    """How many times each kernel ran on the card in one call of ``fn``,
+    from torch.profiler's device records, which also record the kernels
+    of a replayed graph. Each window opens with spins of PyTorch's sleep
+    kernel: the profiler may lose the records of a window's first
+    launches. A window whose counts differ from ``want`` is taken again,
+    up to ``windows`` windows; the last window's counts are returned."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(200_000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        got = {k: sum(e.count for e in events if name in e.key)
+               for k, name in KERNEL_NAMES.items()}
+        if got == want:
+            break
+    return got
+
+
+def graph_state(cuda, path, seed=0):
+    from scae_tpu_torch.factory import make_scae
+    from scae_tpu_torch.optim import make_optimizer
+    from scae_tpu_torch.parallel.train_step import TrainState
+
+    impl, attention, _ = GRAPH_PATHS[path]
+    model = make_scae(dict(GRAPH_MODEL, pcae_decoder_params=dict(
+        fused_impl=impl)), device=cuda, seed=seed)
+    model.obj_encoder.use_pallas_attention = attention
+    return TrainState(model, make_optimizer(model.parameters(), "rmsprop",
+                                            1e-3, batch_size=8), seed=3)
+
+
+def graph_data(cuda, n=64, seed=0):
+    rng = np.random.RandomState(seed)
+    data = {"image": torch.from_numpy(rng.randint(
+                0, 256, (n, 20, 20)).astype(np.uint8)).to(cuda),
+            "label": torch.from_numpy(rng.randint(0, 10, (n,))).to(cuda)}
+    idxs = np.stack([rng.permutation(n)[:8] for _ in range(12)])
+    return data, idxs
+
+
+def eager_rows(state, data, idxs, augment, cuda):
+    from scae_tpu_torch.parallel.train_step import make_fused_train_step
+
+    step = make_fused_train_step(state, augment, cuda)
+    rows = [step(data, idx) for idx in idxs]
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def assert_same_runs(got, want, got_state, want_state):
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for (name, a), b in zip(got_state.model.named_parameters(),
+                            want_state.model.parameters()):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_graph_scan_equals_eager_steps(deterministic, path):
+    """Noise and translation on: the scan's warm-up row runs eagerly, the
+    next 4 replay the captured step; the same rows through the eager fused
+    step from the same state. The wrappers launch once each, into the
+    capture; the replays call none."""
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = deterministic
+    augment = make_augment_fn(canvas=24, max_shift=2)
+    data, idxs = graph_data(cuda)
+    graph, eager = graph_state(cuda, path), graph_state(cuda, path)
+    scan = ts.make_train_scan(augment, cuda)
+    w = ts.WARMUP_STEPS
+    scan(graph, data, idxs[:w])
+    eager_rows(eager, data, idxs[:w], augment, cuda)
+    per_step = GRAPH_PATHS[path][2]
+    zero_graph_counts()
+    _, got = scan(graph, data, idxs[w:w + 4])
+    torch.cuda.synchronize()
+    assert graph_counts() == {k: per_step.get(k, 0)
+                              for k in graph_counts()}
+    want = eager_rows(eager, data, idxs[w:w + 4], augment, cuda)
+    assert graph.step == eager.step == w + 4
+    assert all(v.shape == (4,) for v in got.values())
+    assert_same_runs(got, want, graph, eager)
+
+
+def test_graph_survives_a_restore_in_place(deterministic):
+    """A graph captured before ``load_state_dict`` replays the restored
+    state: the same 2 steps again give the same bits, and no capture is
+    made anew."""
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    captures = []
+
+    class Counting(ts.StepGraph):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            captures.append(self)
+
+    cuda = deterministic
+    augment = make_augment_fn(canvas=24, max_shift=2)
+    data, idxs = graph_data(cuda)
+    state = graph_state(cuda, "gather")
+    scan = ts.make_train_scan(augment, cuda)
+    orig = ts.StepGraph
+    ts.StepGraph = Counting
+    try:
+        scan(state, data, idxs[:5])
+        saved = ({k: v.clone() for k, v in state.model.state_dict().items()},
+                 state.optimizer.state_dict(), state.step)
+        _, first = scan(state, data, idxs[5:7])
+        after = [p.detach().clone() for p in state.model.parameters()]
+        # train on, then restore in place
+        scan(state, data, idxs[7:9])
+        state.model.load_state_dict(saved[0])
+        state.optimizer.load_state_dict(saved[1])
+        state.step = saved[2]
+        _, again = scan(state, data, idxs[5:7])
+    finally:
+        ts.StepGraph = orig
+    assert len(captures) == 1
+    for k in first:
+        assert torch.equal(first[k], again[k]), k
+    for a, b in zip(state.model.parameters(), after):
+        assert torch.equal(a, b)
+
+
+def test_graph_scans_count_launches_per_replay(cuda):
+    """The kernels that the train and eval scans' replays run, from the
+    profiler's device records: K1 and K2+K3 once per train step, K1 once
+    per eval step, with no wrapper called; eval rows equal the eager eval
+    step's."""
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    data, idxs = graph_data(cuda)
+    state = graph_state(cuda, "gather")
+    scan = ts.make_train_scan(make_augment_fn(canvas=24, max_shift=2), cuda)
+    eval_scan = ts.make_eval_scan(state.model, canvas=24, device=cuda)
+    eval_step = ts.make_fused_eval_step(state.model, canvas=24, device=cuda)
+    # the warm-up rows and the captures
+    scan(state, data, idxs[:2])
+    eval_scan(data, idxs[:2])
+    torch.cuda.synchronize()
+    none = dict.fromkeys(KERNEL_NAMES, 0)
+    for chunk in (idxs[2:6], idxs[6:11]):
+        zero_graph_counts()
+        ran = kernel_records(lambda: scan(state, data, chunk),
+                             dict(none, K1=len(chunk), **{
+                                 "K2+K3": len(chunk)}))
+        assert ran == dict(none, K1=len(chunk), **{"K2+K3": len(chunk)})
+        got = {}
+        ran = kernel_records(lambda: got.update(eval_scan(data, chunk)),
+                             dict(none, K1=len(chunk)))
+        assert ran == dict(none, K1=len(chunk))
+        assert graph_counts() == none
+        for j, idx in enumerate(chunk):
+            want = eval_step(data, idx)
+            for k in want:
+                assert torch.allclose(got[k][j], want[k],
+                                      rtol=GRAPH_LOSS_RTOL,
+                                      atol=GRAPH_LOSS_RTOL), k
+
+
+def test_capture_survives_a_graph_freed_by_the_collector(deterministic):
+    """A dropped scan whose graphs sit in a reference cycle becomes garbage
+    while another scan's step is captured (its augmentation drops the last
+    reference to the cycle under capture), with the collector set to run
+    at nearly every allocation. The collector stays off during a capture,
+    so the old graphs are freed after it and not during it, which CUDA
+    refuses and which would invalidate the capture; the new scan gives the
+    eager loop's bits."""
+    import gc
+    import weakref
+
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = deterministic
+    augment = make_augment_fn(canvas=24, max_shift=2)
+    data, idxs = graph_data(cuda)
+    old = graph_state(cuda, "gather")
+    old_scan = ts.make_train_scan(augment, cuda)
+    old_scan(old, data, idxs[:3])
+    cycle = [old_scan, old]
+    cycle.append(cycle)
+    holder, gone = [cycle], weakref.ref(old_scan)
+    del cycle, old_scan, old
+
+    def dropping_augment(batch, generator):
+        if torch.cuda.is_current_stream_capturing():
+            holder.clear()
+        return augment(batch, generator)
+
+    graph, eager = graph_state(cuda, "gather"), graph_state(cuda, "gather")
+    scan = ts.make_train_scan(dropping_augment, cuda)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        _, got = scan(graph, data, idxs[:5])
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert not holder and gone() is None
+    want = eager_rows(eager, data, idxs[:5], augment, cuda)
+    assert_same_runs(got, want, graph, eager)
+
+
+# each replay's optimizer numbers differ from the last: the rate halves
+# every 2 steps, Adam's bias corrections move every step, RAdam switches
+# from its SGD branch to the rectified one at step 6 and LookAhead syncs
+# every 3 steps
+GRAPH_OPTIMIZERS = {
+    "rmsprop decaying": dict(name="rmsprop", lr_decay_rate=0.5,
+                             decay_steps=2),
+    "adam decaying": dict(name="adam", lr_decay_rate=0.5, decay_steps=2),
+    "radam lookahead": dict(name="radam", use_lookahead=True,
+                            lookahead_k=3),
+}
+
+
+@pytest.mark.parametrize("optimizer", sorted(GRAPH_OPTIMIZERS))
+def test_graph_scan_follows_the_optimizers_numbers(deterministic,
+                                                   optimizer):
+    """One warm-up row, then 8 replays in two chunks, against the eager
+    fused step from the same state, bit for bit: each replay reads its
+    own step's numbers and branch."""
+    from scae_tpu_torch.factory import make_scae
+    from scae_tpu_torch.optim import make_optimizer
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = deterministic
+    augment = make_augment_fn(canvas=24, max_shift=2)
+    data, idxs = graph_data(cuda)
+    states = []
+    for _ in range(2):
+        model = make_scae(GRAPH_MODEL, device=cuda, seed=0)
+        states.append(ts.TrainState(model, make_optimizer(
+            model.parameters(), learning_rate=1e-3, batch_size=8,
+            **GRAPH_OPTIMIZERS[optimizer]), seed=3))
+    graph, eager = states
+    scan = ts.make_train_scan(augment, cuda)
+    w = ts.WARMUP_STEPS
+    got = [scan(graph, data, rows)[1]
+           for rows in (idxs[:w], idxs[w:w + 3], idxs[w + 3:w + 8])]
+    got = {k: torch.cat([g[k] for g in got]) for k in got[0]}
+    want = eager_rows(eager, data, idxs[:w + 8], augment, cuda)
+    assert graph.step == eager.step == w + 8
+    assert_same_runs(got, want, graph, eager)
+
+
+def test_trainer_graph_scan_equals_an_eager_trainer(deterministic, tmp_path,
+                                                    monkeypatch):
+    """The training CLI at small width over 2 epochs of 4 steps, the rate
+    halved at the epoch boundary, an eval between: the JSONL losses of the
+    graph scans equal, bit for bit, those of a run whose Trainer scans
+    through the eager loop (``make_eager_train_scan``)."""
+    from scae_tpu_torch.parallel.train_step import make_eager_train_scan
+    from scae_tpu_torch.train import cli, loop
+
+    monkeypatch.setenv("SCAE_TPU_NO_TENSORBOARD", "1")
+
+    def argv(tag):
+        return ["data_loader.batch_size=16", "data_loader.source=synthetic",
+                "data_loader.synthetic_train=96", "data_loader.val_size=32",
+                "data_loader.synthetic_test=20", "trainer.max_epochs=2",
+                "trainer.log_every_steps=1", "trainer.max_eval_batches=1",
+                "lr_scheduler.decay_rate=0.5",
+                f"trainer.checkpoint_dir={tmp_path}/{tag}/ckpt",
+                f"trainer.log_dir={tmp_path}/{tag}/logs",
+                "model.n_part_caps=8", "model.n_obj_caps=4",
+                "model.pcae_cnn_encoder_params.out_channels=[16,16,16,16]",
+                "model.ocae_encoder_set_transformer_params.dim_out=16",
+                "model.ocae_decoder_capsule_params.dim_caps=8",
+                "model.ocae_decoder_capsule_params.hidden_sizes=[16]"]
+
+    def records(tag):
+        import json
+        with open(tmp_path / tag / "logs" / "metrics.jsonl") as f:
+            return [r for r in map(json.loads, f) if "images_per_sec" in r]
+
+    cli.main(argv("graph"))
+    monkeypatch.setattr(loop, "make_train_scan", make_eager_train_scan)
+    cli.main(argv("eager"))
+    got, want = records("graph"), records("eager")
+    assert [r["step"] for r in got] == list(range(1, 9))
+    assert [r["step"] for r in want] == list(range(1, 9))
+    assert got[-1]["learning_rate"] < got[0]["learning_rate"]
+    for g, w in zip(got, want):
+        for k in w:
+            if k not in ("time", "images_per_sec"):
+                assert g[k] == w[k], (k, g["step"])

@@ -103,10 +103,10 @@ def batch(seed=0, hw=24):
 class Recording(RMSprop):
     """RMSprop that keeps the gradients of its last step."""
 
-    def step(self, grads=None):
+    def step(self, grads=None, plan=None):
         self.grads = [torch.zeros_like(p) if g is None else g.clone()
                       for p, g in zip(self.params, grads)]
-        super().step(grads)
+        super().step(grads, plan)
 
 
 def with_pallas_attention(jm):
