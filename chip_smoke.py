@@ -104,7 +104,29 @@ Phases, each announced when it starts and when it ends, with its seconds:
           their per-step JSONL losses within 1e-3 relative, and the card's
           within 1e-3 of a card run through the eager loop; and the same 4
           steps on the card interrupted after 2 and resumed, against the
-          uninterrupted card run
+          uninterrupted card run. Then the Trainer's options through the
+          CLI on the same data: a seed probe of 2 candidates of 1 epoch
+          with template_init=patches (the winner, train_seed.json, each
+          candidate's template logits at step 0 against its crops), and a
+          run warm-started from its checkpoints (the parameters against
+          the source's best) with head_refit (the refit checkpoint at the
+          last step + 1, with val_loss, only the posterior head changed);
+          K1 and K2+K3 launch for each scan's warm-up steps and capture
+          (parallel.train_step.captures) and nowhere else
+  serve   the flagship (the factory's weights from seed 0 on the card)
+          exported with serve.export_serving and a polymorphic batch
+          twice, on fused_impl="xla" and with use_pallas_attention (K6 by
+          name, scae_tpu_torch::attention_fwd); each artifact loaded in a
+          fresh interpreter (the xla one with torch alone) and held to the
+          live infer function at batch 128 and 65 (predictions equal,
+          floats within rtol 1e-4, atol 1e-5), the kernels of one call
+          from torch.profiler's records (K6 4 times with the flag, none
+          without); the flag-on artifact's K6 launches over one call; an
+          artifact exported on the CPU and moved to the card against the
+          card's own; device ms per call and images/s at batch 128 of
+          each artifact and of the live infer function; then
+          python -m scae_tpu_torch.tools.export_model on the refit run's
+          checkpoints, which must exit 0
 
 Every number is printed beside the card's name and power limit. Imports
 torch, numpy, the standard library and scae_tpu_torch only. Exits
@@ -2207,6 +2229,7 @@ def trainer_phase(torch, card, rows, tmp):
                             "its one capture)", {"K1": warm + 1})
         say(f"trainer CLI mode=test: test_loss {metrics['test_loss']!r}, "
             f"test_accuracy {metrics['test_accuracy']!r} [{card}]")
+        return trainer_options(torch, card, rows, tmp, base)
     finally:
         loop.Trainer.write_viz = write_viz
 
@@ -2303,6 +2326,385 @@ def trainer_card_vs_cpu_phase(torch, card, tmp, steps=4, eager=True,
             f"tolerance {TRAINER_RTOL:.0e} over steps 1-{held}) [{card}]")
     if failed:
         raise RuntimeError("; ".join(failed))
+
+
+def patch_crops(images, seed, shape):
+    """The template logits that template_init=patches draws for ``seed``
+    from uint8 images (N, H, W), written out here as the JAX loop's rule:
+    an image, a row, a column from RandomState(seed); a crop of mean 0.05
+    or less redrawn until 50 M draws; clipped to [0.01, 0.99], then the
+    logit (the mnist config's template nonlinearity is the sigmoid)."""
+    import numpy as np
+
+    _, M, _, Ht, Wt = shape
+    imgs = images.astype(np.float32) / 255.0
+    N, H, W = imgs.shape
+    rng = np.random.RandomState(seed)
+    crops, tries = [], 0
+    while len(crops) < M:
+        i = rng.randint(N)
+        y, x = rng.randint(H - Ht + 1), rng.randint(W - Wt + 1)
+        c = imgs[i, y:y + Ht, x:x + Wt][None]
+        if c.mean() > 0.05 or tries > 50 * M:
+            crops.append(c)
+        tries += 1
+    p = np.clip(np.stack(crops)[None], 0.01, 0.99).astype(np.float32)
+    return np.log(p / (1.0 - p))
+
+
+def trainer_options(torch, card, rows, tmp, base):
+    """The Trainer's four options through the CLI on the trainer phase's
+    config and data: a seed probe of two candidates of one epoch with
+    template_init=patches (2 epochs in all), then a run warm-started from
+    its checkpoints with head_refit. Checks the winner and train_seed.json,
+    each candidate's patched templates at step 0, the warm-start
+    parameters against the source's best checkpoint, the refit checkpoint
+    at the last step + 1 with the monitor's metric and only the head
+    changed, the returned state's parameters against the last training
+    checkpoint's, and that K1 and K2+K3 launch for each scan's warm-up steps and
+    capture and nowhere else (the graphs each run captured are counted by
+    parallel.train_step.captures). Returns the refit run's checkpoint
+    directory."""
+    from scae_tpu_torch.parallel import train_step
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
+    from scae_tpu_torch.train import cli, loop
+    from scae_tpu_torch.train.checkpoint import CheckpointManager
+
+    def run_counted(argv, what):
+        zero_kernel_counts()
+        for k in train_step.captures:
+            train_step.captures[k] = 0
+        t0 = time.perf_counter()
+        state, out = run_cli(cli, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        caps = dict(train_step.captures)
+        per = WARMUP_STEPS + 1
+        check_kernel_counts(
+            card, rows, f"{what} ({caps['train']} train and {caps['eval']} "
+            "eval graphs captured; the wrappers launch for each scan's "
+            "warm-up steps and its capture)",
+            {"K1": per * (caps["train"] + caps["eval"]),
+             "K2+K3": per * caps["train"]})
+        if not caps["train"]:
+            raise RuntimeError(f"{what}: the train scan captured no graph")
+        say(f"{what}: {seconds!r} s [{card}]")
+        return state, out
+
+    def dirs(name):
+        return [f"trainer.checkpoint_dir={tmp}/{name}/ckpt",
+                f"trainer.log_dir={tmp}/{name}/logs"]
+
+    patched = {}
+    patch = loop.Trainer._maybe_patch_templates
+    init_state = loop.Trainer.init_state
+    warm = {}
+
+    def recording_patch(self, state, train_ds, seed):
+        state = patch(self, state, train_ds, seed)
+        patched[seed] = (self.model.template_generator.template_logits
+                         .detach().cpu().clone(), train_ds.images)
+        return state
+
+    def recording_init(self, seed):
+        state = init_state(self, seed)
+        warm.setdefault("params", {k: v.detach().cpu().clone() for k, v
+                                   in self.model.state_dict().items()})
+        return state
+
+    loop.Trainer._maybe_patch_templates = recording_patch
+    try:
+        state, out = run_counted(
+            base + dirs("probe") + ["trainer.seed_probe.n=2",
+                                    "trainer.seed_probe.epochs=1",
+                                    "trainer.template_init=patches"],
+            "the trainer CLI with a seed probe of 2 candidates of 1 epoch "
+            "and template_init=patches, 2 epochs in all")
+    finally:
+        loop.Trainer._maybe_patch_templates = patch
+    winner = int(re.search(r"seed probe winner: (\d+)", out).group(1))
+    with open(os.path.join(tmp, "probe", "ckpt", "train_seed.json")) as f:
+        recorded = json.load(f)["seed"]
+    spe = state.step // 2       # steps per epoch: the run took 2 epochs
+    if (sorted(patched) != [42, 43] or recorded != winner
+            or f"continuing probe winner from step {spe}\n" not in out
+            or state.step != 2 * spe or state.seed != winner):
+        raise RuntimeError(f"seed probe: patched {sorted(patched)}, winner "
+                           f"{winner}, recorded {recorded}, final step "
+                           f"{state.step} of seed {state.seed}")
+    for seed, (logits, images) in sorted(patched.items()):
+        want = patch_crops(images, seed, tuple(logits.shape))
+        if not torch.equal(logits, torch.from_numpy(want)):
+            raise RuntimeError(f"candidate {seed}'s templates at step 0 "
+                               "are not its crops")
+    say(f"seed probe: winner {winner} (train_seed.json {recorded}), "
+        f"continued from step {spe} to {state.step}; both candidates' "
+        f"template logits at step 0 equal their crops bit for bit [{card}]")
+
+    source = os.path.join(tmp, "probe", "ckpt")
+    loop.Trainer.init_state = recording_init
+    try:
+        state, out = run_counted(
+            base + dirs("refit") + [f"init_from={source}",
+                                    "trainer.head_refit=true"],
+            "the trainer CLI warm-started from the probe run, with "
+            "head_refit")
+    finally:
+        loop.Trainer.init_state = init_state
+    src = CheckpointManager(source, monitor="val_loss")
+    best = src.best_step
+    if "val_loss" not in src.metrics(best):
+        raise RuntimeError(f"the source's best {best} has no val_loss")
+    want = src.restore_params(step=best)
+    if sorted(want) != sorted(warm["params"]) or not all(
+            torch.equal(warm["params"][k], v) for k, v in want.items()):
+        raise RuntimeError(f"the warm start is not the source's best "
+                           f"checkpoint {best}")
+    mgr = CheckpointManager(os.path.join(tmp, "refit", "ckpt"),
+                            monitor="val_loss")
+    refit_step = mgr.latest_step
+    refit_best = int(re.search(r"\(best was ckpt (\d+)\)", out).group(1))
+    if (state.step != 2 * spe or refit_step != state.step + 1
+            or "val_loss" not in (mgr.metrics(refit_step) or {})
+            or "head_refit: C*=" not in out):
+        raise RuntimeError(f"head_refit: final step {state.step}, latest "
+                           f"checkpoint {refit_step} with "
+                           f"{mgr.metrics(refit_step)}")
+    before = mgr.restore_params(step=refit_best)
+    after = mgr.restore_params(step=refit_step)
+    changed = sorted(k for k in after if not torch.equal(after[k],
+                                                         before[k]))
+    if changed != ["posterior_classifier.bias",
+                   "posterior_classifier.weight"]:
+        raise RuntimeError(f"head_refit changed {changed}")
+    # the run returns its last training state, not the refit's
+    last = mgr.restore_params(step=state.step)
+    got = state.model.state_dict()
+    if sorted(got) != sorted(last) or not all(
+            torch.equal(got[k].cpu(), v) for k, v in last.items()):
+        raise RuntimeError(f"the refit run returned other parameters than "
+                           f"its last training checkpoint {state.step}")
+    say(f"warm start: parameters equal the source's best checkpoint {best} "
+        f"bit for bit; head_refit: checkpoint {refit_step} (last step + 1) "
+        f"with val_loss {mgr.metrics(refit_step)['val_loss']!r}, only the "
+        f"posterior head changed from checkpoint {refit_best}; the run "
+        f"returned its last training state (step {state.step}) [{card}]")
+    return os.path.join(tmp, "refit", "ckpt")
+
+
+# -------------------------------------------------------------- serve
+
+SERVE_BATCHES = (BATCH, BATCH // 2 + 1)   # 128 and 65
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-5      # artifact vs live, as export_model
+SERVE_ITERS = 50
+
+# Run in a fresh interpreter by ``check_artifact_apart``: loads an artifact
+# (with torch alone, or through scae_tpu_torch.serve.load_serving), holds
+# it to the live outputs saved beside it at each batch, and reads the
+# kernels that one call runs from torch.profiler's device records.
+ARTIFACT_CHECK = """
+import json, sys
+import torch
+# the live outputs were computed with TF32 off: convolutions and products
+# in full float32 here too (an artifact does not carry the backend flags)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+artifact, saved_path, how, expected = sys.argv[1:5]
+saved = torch.load(saved_path)
+if how == "torch":
+    call = torch.export.load(artifact + "/model.pt2").module()
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("scae_tpu_torch", "scae_tpu"))
+    if leaked:
+        raise RuntimeError(f"loading with torch alone imported {leaked}")
+else:
+    from scae_tpu_torch.serve import load_serving
+    call = load_serving(artifact)
+import chip_smoke
+gaps = {}
+with torch.no_grad():
+    for b in chip_smoke.SERVE_BATCHES:
+        got = call(saved["x"][:b].cuda())
+        gaps[b] = chip_smoke.serve_gaps(torch, got, saved[b])
+    chip_smoke.check_kernel_records(
+        torch, "", f"one call of the artifact ({how})",
+        lambda: call(saved["x"].cuda()), json.loads(expected))
+print(json.dumps({"gaps": gaps, "modules": how}))
+"""
+
+
+def serve_gaps(torch, got, want):
+    """{output: largest gap} of an artifact's outputs against the live
+    ones; raises unless the predictions are equal and every other output
+    is within SERVE_RTOL / SERVE_ATOL."""
+    if sorted(got) != sorted(want):
+        raise RuntimeError(f"outputs {sorted(got)} != {sorted(want)}")
+    gaps = {}
+    for k in sorted(want):
+        g, w = got[k].detach().cpu(), want[k].cpu()
+        if k.endswith("prediction"):
+            gaps[k] = int((g != w).sum())
+            if gaps[k]:
+                raise RuntimeError(f"{k}: {gaps[k]} predictions differ")
+        else:
+            gaps[k] = float((g - w).abs().max())
+            if not torch.allclose(g, w, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                raise RuntimeError(f"{k}: off by {gaps[k]}, beyond rtol "
+                                   f"{SERVE_RTOL} atol {SERVE_ATOL}")
+    return gaps
+
+
+def check_artifact_apart(torch, card, artifact, saved, how, expected):
+    """``ARTIFACT_CHECK`` on ``artifact`` in a fresh interpreter (the
+    repo's root on the path, for scae_tpu_torch and this file's helpers);
+    fails unless it exits 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_CHECK, artifact, saved, how,
+         json.dumps(expected)], cwd=root, env=env, capture_output=True,
+        text=True, timeout=600)
+    for line in (out.stdout + out.stderr).splitlines():
+        say(f"  fresh interpreter: {line}")
+    if out.returncode != 0:
+        raise RuntimeError(f"the artifact check ({how}) exited "
+                           f"{out.returncode}")
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    for b, gaps in result["gaps"].items():
+        say(f"artifact {os.path.basename(artifact)} loaded with {how} in a "
+            f"fresh interpreter, batch {b} against the live infer function:"
+            f" " + ", ".join(f"{k} {v:.3e}" if isinstance(v, float)
+                             else f"{k} {v} differ"
+                             for k, v in gaps.items()) + f" [{card}]")
+
+
+def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
+    """The serving export of the flagship (1x40x40, M=40, O=32, 11x11
+    templates; the factory's weights from seed 0 on the card): two
+    polymorphic-batch artifacts, on fused_impl="xla" and with the set
+    transformer's use_pallas_attention (K6 by name), each loaded in a fresh
+    interpreter (the xla one with torch alone) and held to the live infer
+    function at batch 128 and 65, with the kernels of one call from the
+    profiler's records; the flag-on artifact's K6 launch count over one
+    call; an artifact exported on the CPU and moved to the card against
+    the card's own; device ms per call and images/s at batch 128 of each
+    artifact beside the live infer function's; then
+    ``python -m scae_tpu_torch.tools.export_model`` on the trainer phase's
+    checkpoint directory."""
+    import numpy as np
+
+    from scae_tpu_torch import serve
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
+    from scae_tpu_torch.kernels import attention as k6
+
+    os.makedirs(tmp, exist_ok=True)
+    cuda = torch.device("cuda")
+    params = dict(FLAGSHIP_MODEL_PARAMS,
+                  pcae_decoder_params=dict(fused_impl="xla"))
+    shape = tuple(params["image_shape"])
+    model = make_scae(params, device=cuda, seed=0)
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        BATCH, *shape).astype(np.float32))
+    live = serve.make_infer_fn(model, device=cuda)
+    artifacts = {}
+    for flag in (False, True):
+        model.obj_encoder.use_pallas_attention = flag
+        name = "pallas_attention" if flag else "xla"
+        path = os.path.join(tmp, f"artifact_{name}")
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        serve.export_serving(model, image_shape=shape, batch_size=None,
+                             out_dir=path, device=cuda,
+                             model_config=params, polymorphic_batch=True)
+        seconds = time.perf_counter() - t0
+        check_kernel_counts(card, None, f"the export of the {name} "
+                            "artifact (traced with the op's fake "
+                            "implementation)", {})
+        with open(os.path.join(path, serve.MANIFEST_NAME)) as f:
+            manifest = json.load(f)
+        want_ops = [k6.OP] if flag else []
+        if manifest["custom_ops"] != want_ops:
+            raise RuntimeError(f"{name} artifact calls "
+                               f"{manifest['custom_ops']}, expected "
+                               f"{want_ops}")
+        size = os.path.getsize(os.path.join(path, serve.ARTIFACT_NAME))
+        say(f"exported the {name} artifact in {seconds!r} s: {size} B, "
+            f"custom ops {manifest['custom_ops']}, device "
+            f"{manifest['device']} [{card}]")
+        saved = {b: {k: v.cpu() for k, v in live(x[:b]).items()}
+                 for b in SERVE_BATCHES}
+        saved["x"] = x
+        saved_path = os.path.join(tmp, f"live_{name}.pt")
+        torch.save(saved, saved_path)
+        check_artifact_apart(torch, card, path, saved_path,
+                             "scae_tpu_torch" if flag else "torch",
+                             {"K6": 4} if flag else {})
+        artifacts[name] = (path, saved)
+
+    # the main path: every count at 0 just before one call of the flag-on
+    # artifact, read just after
+    flagged = serve.load_serving(artifacts["pallas_attention"][0])
+    xc = x.to(cuda)
+    zero_kernel_counts()
+    out = flagged(xc)
+    torch.cuda.synchronize()
+    check_kernel_counts(card, rows, "one call of the flag-on artifact at "
+                        f"batch {BATCH} (three set-attention blocks and the "
+                        "final attention through "
+                        "scae_tpu_torch::attention_fwd)", {"K6": 4})
+    serve_gaps(torch, out, artifacts["pallas_attention"][1][BATCH])
+
+    # an export on the CPU, moved to the card, against the card's own
+    cpu_model = make_scae(params, device="cpu", seed=0)
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    moved_path = os.path.join(tmp, "artifact_cpu")
+    serve.export_serving(cpu_model, image_shape=shape, batch_size=None,
+                         out_dir=moved_path, device="cpu",
+                         model_config=params, polymorphic_batch=True)
+    moved = serve.load_serving(moved_path, device=cuda)
+    own = serve.load_serving(artifacts["xla"][0])
+    gaps = serve_gaps(torch, moved(xc), own(xc))
+    say(f"the xla artifact exported on the CPU and moved to the card "
+        f"(move_to_device_pass) against the card's own export, batch "
+        f"{BATCH}: " + ", ".join(f"{k} {v}" for k, v in gaps.items())
+        + f" [{card}]")
+
+    # device ms per call and images/s (CUDA events over back-to-back
+    # calls) of each artifact and of the live infer function
+    model.obj_encoder.use_pallas_attention = False
+    live_flagged = make_scae(params, device=cuda, seed=0)
+    live_flagged.obj_encoder.use_pallas_attention = True
+    infer_flagged = serve.make_infer_fn(live_flagged, device=cuda)
+    calls = {"xla artifact": lambda: own(xc),
+             "flag-on artifact": lambda: flagged(xc),
+             "live infer (xla)": lambda: live(xc),
+             "live infer (flag on)": lambda: infer_flagged(xc)}
+    for what, fn in calls.items():
+        device_ms = device_ms_per_call(torch, fn, iters=SERVE_ITERS,
+                                       warmup=5)
+        ms = time_cuda(torch, fn, SERVE_ITERS, 5)
+        say(f"serving, {what}, batch {BATCH}: {device_ms!r} ms of device "
+            f"time per call (torch.profiler, {SERVE_ITERS} calls), "
+            f"{ms!r} ms per call on CUDA events, {BATCH / ms * 1e3!r} "
+            f"images/s [{card}]")
+
+    # the export tool on the trainer phase's checkpoints
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(tmp, "artifact_tool")
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "scae_tpu_torch.tools.export_model",
+         ckpt_dir, "--out", out_dir, "--polymorphic-batch", "--",
+         *overrides], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        capture_output=True, text=True, timeout=600)
+    for line in (run.stdout + run.stderr).splitlines():
+        say(f"  export_model: {line}")
+    if run.returncode != 0:
+        raise RuntimeError(f"export_model exited {run.returncode}")
+    result = json.loads(run.stdout.strip().splitlines()[-1])
+    say(f"export_model on {ckpt_dir}: step {result['step']}, "
+        f"{time.perf_counter() - t0!r} s, exit 0 [{card}]")
 
 
 def profile_phase(torch, name, step, images, labels, n, card):
@@ -2491,9 +2893,13 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         with phase("trainer"):
-            trainer_phase(torch, card, rows, os.path.join(tmp, "flagship"))
+            refit_ckpt = trainer_phase(torch, card, rows,
+                                       os.path.join(tmp, "flagship"))
         with phase("trainer card vs cpu"):
             trainer_card_vs_cpu_phase(torch, card, tmp)
+        with phase("serve"):
+            serve_phase(torch, card, rows, os.path.join(tmp, "serve"),
+                        refit_ckpt, ["model=mnist"])
 
     if args.profile:
         with phase("profile"):

@@ -13,7 +13,10 @@ metrics writer, where they are installed). It reads its own copy of the
 shipped YAML configs (``configs/``) with its own reader (``config.py``).
 Entry points (``python -m scae_tpu_torch.train.cli`` and its
 ``train.loop.Trainer``, ``python -m scae_tpu_torch.tools.probe``,
-``factory.make_scae``, the steps and scans of ``parallel.train_step``,
-``serve.make_infer_fn``) run on the CUDA device unless the caller passes
-``device="cpu"``.
+``python -m scae_tpu_torch.tools.export_model``, ``factory.make_scae``,
+the steps and scans of ``parallel.train_step``, ``serve.make_infer_fn``,
+``serve.export_serving`` and ``serve.load_serving``) run on the CUDA
+device unless the caller passes ``device="cpu"``.
 """
+
+__version__ = "0.2.0"

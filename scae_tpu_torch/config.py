@@ -10,13 +10,14 @@ missing; ``group=entry`` swaps a group file.
 The port keeps its own copy of the shipped YAML files under
 ``scae_tpu_torch/configs/`` and reads them with ``read_yaml``, a small
 reader of the part of YAML those files use, so that it needs no PyYAML:
-block mappings, block lists (of scalars or of mappings), flow lists of
+block mappings, block lists (of scalars, mappings or lists), flow lists of
 scalars (``[1, 40, 40]``), full-line and trailing ``#`` comments, and the
 YAML 1.1 scalars PyYAML's ``safe_load`` resolves: ints, floats (with a
 dot: ``1e-2`` is a string there, ``3.0e-5`` a float), booleans, null and
 bare or quoted strings. Anything else (anchors, tags, block scalars, flow
 mappings, nested flow lists, tabs) raises, rather than being read
-otherwise than PyYAML would read it.
+otherwise than PyYAML would read it. ``save_config`` writes with
+``write_yaml``, inside the same part of YAML.
 """
 
 import json
@@ -106,6 +107,13 @@ def _load_yaml(path: str) -> Dict:
     with open(path, encoding="utf-8") as f:
         out = read_yaml(f.read(), path)
     return out or {}
+
+
+def save_config(cfg: Dict, path: str) -> None:
+    """Write ``cfg`` to ``path`` as YAML that ``read_yaml`` and PyYAML's
+    ``safe_load`` both read back as ``cfg`` (``write_yaml``)."""
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(write_yaml(cfg))
 
 
 # ------------------------------------------------------------ YAML subset
@@ -283,17 +291,112 @@ def _list(lines, i, indent, name):
         rest = text[1:].strip()
         if not rest:
             value, i = _nested(lines, i + 1, indent, name, False)
-        elif _is_item(rest):
-            raise YamlSubsetError(f"{where}: nested inline list items")
-        elif _split_key(rest, where) is not None:
-            # a mapping whose first key shares the item's line: read it as
-            # the block it would be with the dash replaced by a blank
+        elif _is_item(rest) or _split_key(rest, where) is not None:
+            # a list or mapping whose first item or key shares the item's
+            # line: read it as the block it would be with the dash replaced
+            # by a blank
             col = indent + (len(text) - len(rest))
             lines[i] = [col, rest, n]
-            value, i = _mapping(lines, i, col, name)
+            value, i = _block(lines, i, col, name)
         else:
             value, i = _value(rest, where), i + 1
         out.append(value)
     if i < len(lines) and lines[i][0] > indent:
         raise YamlSubsetError(f"{name}:{lines[i][2]}: unexpected indentation")
     return out, i
+
+
+# ------------------------------------------------------------ YAML writer
+
+def _plain_ok(text: str) -> bool:
+    """Whether ``text`` reads back as itself written bare, in a block or in
+    a flow list."""
+    if text != text.strip() or any(c in text for c in "#,[]{}\n\t"):
+        return False
+    try:
+        return _scalar(text, "") == text and ": " not in text \
+            and not text.endswith(":")
+    except YamlSubsetError:
+        return False
+
+
+def _write_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if value != value:
+            return ".nan"
+        if value in (float("inf"), float("-inf")):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value).lower()
+        # a float needs its dot to read back as one (PyYAML writes so too)
+        return text if "." in text else text.replace("e", ".0e")
+    if isinstance(value, str):
+        if _plain_ok(value):
+            return value
+        if "\n" in value:
+            raise YamlSubsetError(f"a string with a line break: {value!r}")
+        return "'" + value.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(value).__name__} {value!r} as "
+                    "a YAML scalar")
+
+
+def _write_key(key: Any) -> str:
+    if not isinstance(key, str):
+        raise TypeError(f"mapping keys must be strings, got {key!r}")
+    if key and ":" not in key and _plain_ok(key) \
+            and key[0] not in "'\"-?":
+        return key
+    if "'" in key:
+        raise YamlSubsetError(f"a key with a quote: {key!r}")
+    return "'" + key + "'"
+
+
+def _flow_ok(items) -> bool:
+    return all(not isinstance(v, (dict, list, tuple))
+               and (not isinstance(v, str) or _plain_ok(v)) for v in items)
+
+
+def _write_block(value: Any, indent: int) -> List[str]:
+    pad = " " * indent
+    lines = []
+    if isinstance(value, dict):
+        for key, v in value.items():
+            head = f"{pad}{_write_key(key)}:"
+            if isinstance(v, dict) and v:
+                lines += [head, *_write_block(v, indent + 2)]
+            elif isinstance(v, (list, tuple)) and v and not _flow_ok(v):
+                lines += [head, *_write_block(v, indent + 2)]
+            else:
+                lines.append(f"{head} {_write_inline(v)}")
+        return lines
+    for v in value:     # a block list
+        if (isinstance(v, dict) and v) or (
+                isinstance(v, (list, tuple)) and v and not _flow_ok(v)):
+            lines += [f"{pad}-", *_write_block(v, indent + 2)]
+        else:
+            lines.append(f"{pad}- {_write_inline(v)}")
+    return lines
+
+
+def _write_inline(value: Any) -> str:
+    if isinstance(value, dict):
+        return "{}"
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_write_scalar(v) for v in value) + "]"
+    return _write_scalar(value)
+
+
+def write_yaml(value: Dict) -> str:
+    """``value``, a mapping of strings to scalars (None, bool, int, float,
+    str), lists, tuples and mappings, as YAML in the part ``read_yaml``
+    takes: block mappings, flow lists where every item is a scalar that
+    reads back bare, else block lists. Tuples are written as lists. Raises
+    on what that part cannot hold."""
+    if not isinstance(value, dict):
+        raise TypeError("a config is a mapping")
+    return "\n".join(_write_block(value, 0)) + "\n" if value else "{}\n"

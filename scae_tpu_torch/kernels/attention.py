@@ -13,9 +13,15 @@ recomputes the plain path (``ops/attention.py::AttentionFunction``), as the
 JAX package's custom VJP does. The TPU kernel pads N to 8 and M, d_k, d_v
 to 128; this one takes the sizes as they are.
 
-``attention`` launches K6 (``csrc/attention.cu``) for CUDA tensors, and
-raises on anything the kernel does not take; for CPU tensors it runs the
-plain version. K6 has no atomics: its results repeat bit for bit.
+K6 is the operator ``torch.ops.scae_tpu_torch.attention_fwd`` (``OP``), a
+``torch.library`` custom op registered when this module is imported: its
+CUDA implementation launches K6 (``csrc/attention.cu``) and raises on
+anything the kernel does not take, its CPU implementation is the plain
+version, and its fake implementation gives the output's shape, so that
+``torch.export`` records a call to the op (a serving artifact calls K6 by
+name) rather than tracing into either. Registering builds nothing: K6 is
+built at its first launch. ``attention`` calls the op. K6 has no atomics:
+its results repeat bit for bit.
 """
 
 import functools
@@ -28,16 +34,35 @@ from scae_tpu_torch.ops.attention import qkv_attention_plain
 
 SOURCE = "attention.cu"
 _SIGNATURE = ("scae_attention_fwd", 5, 8)
+OP = "scae_tpu_torch::attention_fwd"
 
 # K6 launches since the counter was last set to 0; only the CUDA path adds.
 launches = 0
 
 
-def attention(queries, keys, values, presence):
-    """(B, N, d_v): the plain version for CPU tensors, K6 for CUDA ones."""
-    if queries.device.type == "cpu":
-        return attention_plain(queries, keys, values, presence)
+@torch.library.custom_op(OP, mutates_args=(), device_types="cuda")
+def attention_fwd(queries: torch.Tensor, keys: torch.Tensor,
+                  values: torch.Tensor, presence: torch.Tensor
+                  ) -> torch.Tensor:
+    """(B, N, d_v): K6 on CUDA tensors, the plain version on CPU ones."""
     return _launch(queries, keys, values, presence)
+
+
+@attention_fwd.register_kernel("cpu")
+def _attention_fwd_cpu(queries, keys, values, presence):
+    return attention_plain(queries, keys, values, presence)
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(queries, keys, values, presence):
+    return queries.new_empty((*queries.shape[:-1], values.shape[-1]))
+
+
+def attention(queries, keys, values, presence):
+    """(B, N, d_v) through the op: the plain version for CPU tensors, K6
+    for CUDA ones."""
+    return torch.ops.scae_tpu_torch.attention_fwd(queries, keys, values,
+                                                  presence)
 
 
 # K6's function in plain PyTorch: ``ops/attention.py``'s plain path

@@ -4,7 +4,9 @@ of scae_tpu/models/object_decoder.py).
 CapsuleLayer: two StackedMLP banks (one batched matmul per layer over the
 O capsules), output split into OPR-dynamic / OVR / presences / scales,
 cpr = transform(static + dynamic) with an l2 reg on the dynamic part,
-vote = OVR @ OPR on the six affine coefficients, softplus vote scale.
+vote = OVR @ OPR on the six affine coefficients, softplus vote scale;
+a parent's transform and presence may replace the OVR and the capsule
+presence.
 When not deterministic, capsule dropout and presence-logit noise draw from
 an explicit ``torch.Generator``; the eval and serving path is
 deterministic. capsule_likelihood: Gaussian vote pdf, dummy component at
@@ -91,9 +93,13 @@ class CapsuleLayer(nn.Module):
         return geometric_transform(params, self.similarity_transform,
                                    nonlinear=True, as_matrix=False)
 
-    def forward(self, feature, deterministic: bool = True,
+    def forward(self, feature, parent_transform=None, parent_presence=None,
+                deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        """feature: (B, O, F) object encodings."""
+        """feature: (B, O, F) object encodings. ``parent_transform``
+        (B, O, 1, 3, 3), a homogeneous matrix, replaces the predicted OVR;
+        ``parent_presence`` (B, O, 1) replaces the per-capsule presence
+        (its logit, noise included, is still returned)."""
         B = feature.shape[0]
         O = self.n_caps
         raw_caps_param = self.mlps(feature)                   # (B, O, D)
@@ -121,7 +127,12 @@ class CapsuleLayer(nn.Module):
         presence_logit_per_caps = chunks[2] + self.caps_bias_1
         presence_logit_per_vote = chunks[3] + self.caps_bias_2
         scale_per_vote = chunks[4] + self.caps_bias_3
-        cvr = self._transform(cvr)                            # (B, O, 1, 6)
+        if parent_transform is None:
+            cvr = self._transform(cvr)                        # (B, O, 1, 6)
+        else:
+            # a homogeneous matrix: drop the [0, 0, 1] row
+            cvr = parent_transform[..., :2, :].reshape(
+                *parent_transform.shape[:-2], 6)
         vote = affine_to_matrix(compose_affines(cvr, cpr))    # (B, O, V, 3, 3)
 
         if self.caps_dropout_rate > 0.0:
@@ -144,7 +155,9 @@ class CapsuleLayer(nn.Module):
         presence_logit_per_caps = add_noise(presence_logit_per_caps)
         presence_logit_per_vote = add_noise(presence_logit_per_vote)
 
-        vote_presence = (torch.sigmoid(presence_logit_per_caps)
+        presence_per_caps = torch.sigmoid(presence_logit_per_caps) \
+            if parent_presence is None else parent_presence
+        vote_presence = (presence_per_caps
                          * torch.sigmoid(presence_logit_per_vote))
         if self.learn_vote_scale:
             scale_per_vote = F.softplus(scale_per_vote + 0.5) + 1e-2

@@ -84,6 +84,7 @@ class TemplateGenerator(nn.Module):
         self.n_templates = n_templates
         self.n_channels = n_channels
         self.template_size = tuple(template_size)
+        self.template_nonlin_name = template_nonlin
         self.template_nonlin = choose_activation(template_nonlin)
         self.colorize_templates = colorize_templates
         self.color_nonlin_name = color_nonlin

@@ -44,9 +44,10 @@ def qkv_attention_plain(queries, keys, values, presence=None):
 
 
 class AttentionFunction(torch.autograd.Function):
-    """K6 forward for CUDA tensors, the plain path for CPU tensors; the
-    backward is the plain path's autograd, recomputed from the inputs (JAX
-    ``_pallas_attn_bwd``), and launches no kernel."""
+    """The forward is K6's op, ``scae_tpu_torch::attention_fwd``: K6 for
+    CUDA tensors, the plain path for CPU tensors, and a call by name in an
+    exported program. The backward is the plain path's autograd, recomputed
+    from the inputs (JAX ``_pallas_attn_bwd``), and launches no kernel."""
 
     @staticmethod
     def forward(ctx, queries, keys, values, presence):

@@ -40,6 +40,11 @@ from scae_tpu_torch.utils.device import check_model_device, resolve_device
 
 _MASK64 = (1 << 64) - 1
 
+# CUDA graphs the train and eval scans captured since the counts were last
+# set to 0 (a scan captures one graph per branch of its step, each after
+# graphs.WARMUP_STEPS eager steps of its key)
+captures = {"train": 0, "eval": 0}
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -158,7 +163,7 @@ def make_eval_scan(model, canvas: int = 0, device=None) -> Callable:
                tensors_key([data["image"], data["label"]]), idxs.shape[1])
         if current is None or current.key != key:
             current = None       # free the old graph's memory first
-            current = _Captures(key, device, idxs.shape[1])
+            current = _Captures(key, device, idxs.shape[1], kind="eval")
         return _graph_eval_rows(current, model, data, idxs, canvas)
 
     return scan
@@ -332,7 +337,8 @@ def make_train_scan(augment_fn=None, device=None) -> Callable:
             current = None       # free the old graphs' memory first
             # held, so that no new object takes the ids in the key
             current = _Captures(key, device, idxs.shape[1],
-                                held=(state, model, optimizer), generators=2)
+                                held=(state, model, optimizer), generators=2,
+                                kind="train")
         return state, _graph_train_rows(current, state, data, idxs,
                                         augment_fn)
 
@@ -346,10 +352,14 @@ class _Captures:
     output is copied out before the next replay); the static inputs they
     read (the batch's index vector, the train step's optimizer numbers and
     generators); the metrics' names, in the graphs' output order; and the
-    warm-up steps still to run. ``held``: objects kept alive with it."""
+    warm-up steps still to run. ``held``: objects kept alive with it.
+    ``kind``: "train" or "eval", the count of ``captures`` that its
+    captures add to (none where None)."""
 
-    def __init__(self, key, device, batch, held=(), generators=0):
+    def __init__(self, key, device, batch, held=(), generators=0,
+                 kind=None):
         self.key, self.device, self.held = key, device, held
+        self.kind = kind
         self.warmup = WARMUP_STEPS
         self.idx = torch.zeros(batch, dtype=torch.long, device=device)
         self.generators = tuple(torch.Generator(device=device)
@@ -386,6 +396,8 @@ class _Captures:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         self.graphs[branch] = StepGraph(step, self.generators, self.pool)
+        if self.kind is not None:
+            captures[self.kind] += 1
         return self.graphs[branch]
 
     def run(self, idxs, eager_step, replay, prepare=None):

@@ -50,6 +50,24 @@ def _cpu_state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
             for k, v in module.state_dict().items()}
 
 
+def state_payload(state) -> dict:
+    """What a checkpoint holds of a ``TrainState``, as CPU copies: the
+    model's ``state_dict``, the optimizer's state, the step and the seed."""
+    return {"model": _cpu_state_dict(state.model),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step), "seed": int(state.seed)}
+
+
+def load_payload(state, payload: dict):
+    """Copy ``payload`` (``state_payload``'s) into ``state`` in place, onto
+    the model's own device, and return ``state``."""
+    state.model.load_state_dict(payload["model"], strict=True)
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    state.seed = int(payload["seed"])
+    return state
+
+
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
                  monitor: str = "loss", mode: str = "min"):
@@ -98,9 +116,7 @@ class CheckpointManager:
         if callable(state):
             state = state()
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
-        payload = {"model": _cpu_state_dict(state.model),
-                   "optimizer": state.optimizer.state_dict(),
-                   "step": int(state.step), "seed": int(state.seed)}
+        payload = state_payload(state)
         path = self._path(step)
         tmp = f"{path}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -128,12 +144,7 @@ class CheckpointManager:
         """Load checkpoint ``step`` (default: the latest) into ``state``, a
         ``TrainState`` of the same model and optimizer, in place (onto the
         model's own device), and return it."""
-        saved = self._load(step)
-        state.model.load_state_dict(saved["model"], strict=True)
-        state.optimizer.load_state_dict(saved["optimizer"])
-        state.step = int(saved["step"])
-        state.seed = int(saved["seed"])
-        return state
+        return load_payload(state, self._load(step))
 
     def restore_params(self, step: Optional[int] = None
                        ) -> Dict[str, torch.Tensor]:

@@ -16,10 +16,23 @@ epoch).permutation``), chunk merge rule, double-buffered logging and
 eval / checkpoint / ``train_seed.json`` cadence, so that a port run
 consumes the same batches as a JAX run.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the key
-when the config asks for them: ``trainer.seed_probe`` (``probe_seeds``),
-``trainer.template_init``, ``init_from``, ``trainer.head_refit``
-(``refit_head``), and a ``trainer.mesh`` of more than one device.
+And the JAX loop's four options around a run:
+
+  * ``init_from`` (``_warm_start_params``): a new run starts from another
+    run's parameters (its best checkpoint by this run's monitor where the
+    source recorded it, else its latest; ``init_from_step`` pins one),
+    with a fresh optimizer and step, at every fresh init;
+  * ``trainer.template_init=patches`` (``_patch_template_init``): the
+    template logits start as random content crops of the training images;
+  * ``trainer.seed_probe`` (``probe_seeds``): n candidate seeds trained
+    briefly, the best by validation reconstruction NLL continued;
+  * ``trainer.head_refit`` (``refit_head``): at the end, the posterior
+    head refit on the best checkpoint's frozen features by multinomial
+    logistic regression (``train/logreg.py``, sklearn's model without
+    sklearn) and saved as a new checkpoint.
+
+A ``trainer.mesh`` of more than one device is refused with
+``NotImplementedError``: the port has no parallel layer yet.
 """
 
 import copy
@@ -35,14 +48,17 @@ import torch
 from scae_tpu_torch import factory
 from scae_tpu_torch.models.layers import init_parameters
 from scae_tpu_torch.optim import make_optimizer
+from scae_tpu_torch.parallel import train_step
 from scae_tpu_torch.parallel.train_step import (
     TrainState,
     make_eval_scan,
     make_train_scan,
 )
 from scae_tpu_torch.train import data as data_lib
+from scae_tpu_torch.train import logreg
 from scae_tpu_torch.train.checkpoint import (CheckpointManager,
-                                             NullCheckpointManager)
+                                             NullCheckpointManager,
+                                             load_payload, state_payload)
 from scae_tpu_torch.train.metrics import (
     MetricsWriter,
     Profiler,
@@ -112,25 +128,20 @@ def _finish_read(read) -> Dict[str, float]:
 
 
 def _refuse_deferred(cfg: Dict):
-    """Raise NotImplementedError for every config key whose feature the
-    port does not have yet, rather than ignore it."""
+    """Raise NotImplementedError for a config key whose feature the port
+    does not have yet (a mesh of more than one device), rather than
+    ignore it; ValueError for a ``trainer.template_init`` it does not
+    know."""
     trainer_cfg = cfg.get("trainer") or {}
-    asked = []
-    if cfg.get("init_from"):
-        asked.append("init_from (warm start)")
-    if trainer_cfg.get("template_init") is not None:
-        asked.append("trainer.template_init")
-    if trainer_cfg.get("head_refit"):
-        asked.append("trainer.head_refit")
-    if int((trainer_cfg.get("seed_probe") or {}).get("n", 0) or 0) > 0:
-        asked.append("trainer.seed_probe (probe_seeds)")
     mesh = trainer_cfg.get("mesh") or {}
     if mesh.get("n_data") not in (None, 1) or mesh.get("n_model") not in (
             None, 1):
-        asked.append("trainer.mesh of more than one device")
-    if asked:
-        raise NotImplementedError(
-            "not ported to scae_tpu_torch yet: " + ", ".join(asked))
+        raise NotImplementedError("not ported to scae_tpu_torch yet: "
+                                  "trainer.mesh of more than one device")
+    if trainer_cfg.get("template_init") not in (None, "patches"):
+        raise ValueError(f"trainer.template_init="
+                         f"{trainer_cfg['template_init']!r}: expected null "
+                         "or 'patches'")
 
 
 class Trainer:
@@ -230,13 +241,102 @@ class Trainer:
     def init_state(self, seed: int) -> TrainState:
         """Parameters drawn anew from ``seed``, as ``factory.make_scae(...,
         seed=seed)`` draws them (on the CPU, so the draws do not depend on
-        the device; the model's parameters stay the same objects), a fresh
+        the device; the model's parameters stay the same objects), or with
+        ``init_from`` the source run's (``_warm_start_params``); a fresh
         optimizer, step 0."""
         self.model.to("cpu")
         init_parameters(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
+        warm = self._warm_start_params()
+        if warm is not None:
+            self.model.load_state_dict(warm)
         return TrainState(self.model, self.tx(self.model.parameters()),
                           step=0, seed=seed)
+
+    def _patch_template_init(self, train_ds, seed: int):
+        """``trainer.template_init=patches``: replace the template logits
+        with M random content crops of the training images, drawn from
+        ``np.random.RandomState(seed)`` as the JAX loop draws them (an
+        image, then a row, then a column; a crop of mean 0.05 or less is
+        redrawn unless 50 M draws have passed), clipped to [0.01, 0.99]
+        and mapped through the inverse of the template nonlinearity where
+        it is the sigmoid (the logit), taken as they are otherwise."""
+        generator = self.model.template_generator
+        logits = generator.template_logits       # (1, M, C, Ht, Wt)
+        _, M, C, Ht, Wt = logits.shape
+        imgs = data_lib.to_nchw_float(train_ds.images)   # (N, C', H, W)
+        N, Ci, H, W = imgs.shape
+        if Ci != C or H < Ht or W < Wt:
+            raise ValueError(
+                f"template_init=patches: dataset images {imgs.shape[1:]} "
+                f"cannot provide ({C},{Ht},{Wt}) template crops")
+        rng = np.random.RandomState(seed)
+        crops, tries = [], 0
+        while len(crops) < M:
+            i = rng.randint(N)
+            y, x = rng.randint(H - Ht + 1), rng.randint(W - Wt + 1)
+            c = imgs[i, :, y:y + Ht, x:x + Wt]
+            if c.mean() > 0.05 or tries > 50 * M:
+                crops.append(c)
+            tries += 1
+        p = np.clip(np.stack(crops)[None], 0.01, 0.99).astype(np.float32)
+        nonlin = generator.template_nonlin_name
+        patched = np.log(p / (1.0 - p)) if nonlin == "sigmoid" else p
+        with torch.no_grad():
+            logits.copy_(torch.from_numpy(patched))
+        print(f"[scae_tpu_torch] template_init=patches: {M} crops from "
+              f"{N} train images (nonlin={nonlin})")
+
+    def _maybe_patch_templates(self, state, train_ds, seed: int):
+        """``_patch_template_init`` on ``state``'s model where the config
+        asks for it, unless ``init_from`` is set; ``state``."""
+        if (self.cfg.get("trainer") or {}).get("template_init") == \
+                "patches" and not self.cfg.get("init_from"):
+            self._patch_template_init(train_ds, seed)
+        return state
+
+    def _warm_start_params(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The parameters of ``init_from=<checkpoint_dir>`` (a
+        ``state_dict`` of CPU tensors), or None: the source's checkpoint
+        ``init_from_step``, else its best by this run's monitor where the
+        source recorded that metric, else its latest. Read once and cached.
+        Raises FileNotFoundError where the source has no checkpoint and
+        ValueError where its names, shapes or dtypes differ from this
+        model's."""
+        path = self.cfg.get("init_from")
+        if not path:
+            return None
+        cached = getattr(self, "_warm_params", None)
+        if cached is None:
+            src = CheckpointManager(path, monitor=self.monitor,
+                                    mode=self.monitor_mode)
+            step = self.cfg.get("init_from_step")
+            if step is None:
+                # a source trained under another monitor ranks every
+                # checkpoint equal-worst: take its latest then
+                best = src.best_step
+                if best is not None and self.monitor in (
+                        src.metrics(best) or {}):
+                    step = best
+                else:
+                    step = src.latest_step
+            if step is None:
+                raise FileNotFoundError(
+                    f"init_from={path!r} contains no checkpoints")
+            cached = src.restore_params(step=step)
+            src.close()
+            ref = {k: (tuple(v.shape), v.dtype)
+                   for k, v in self.model.state_dict().items()}
+            got = {k: (tuple(v.shape), v.dtype) for k, v in cached.items()}
+            if ref != got:
+                raise ValueError(
+                    f"init_from={path!r} step {step}: checkpoint "
+                    "parameters do not match this model architecture "
+                    "(names / shapes / dtypes differ)")
+            print(f"[scae_tpu_torch] warm start: params from {path} "
+                  f"step {step}")
+            self._warm_params = cached
+        return cached
 
     def _dataset_sizes(self):
         """Optional data_loader size overrides (synthetic fallback + val
@@ -388,6 +488,84 @@ class Trainer:
                     return int(json.load(f)["seed"])
         return None
 
+    def _epoch_stream(self, seed: int, n: int, epochs, steps_per_epoch):
+        """The (steps, B) index rows of ``epochs``: each epoch's
+        ``RandomState(seed + epoch)`` permutation of the ``n`` training
+        examples, cut to whole batches."""
+        return np.concatenate([
+            np.random.RandomState(seed + e).permutation(n)
+            [:steps_per_epoch * self.batch_size]
+            .reshape(steps_per_epoch, self.batch_size)
+            for e in epochs], axis=0)
+
+    def probe_seeds(self, base_seed: int, n: int, probe_epochs: int):
+        """Train the n candidate seeds ``base_seed`` .. ``base_seed + n - 1``
+        for ``probe_epochs`` each and return (seed, state) of the one with
+        the lowest validation reconstruction NLL (``val_rec_ll_loss``; a
+        NaN scores as inf; ties go to the lower seed). The winner's state is
+        continued by ``run``, not replayed: its probe epochs count toward
+        the schedule. Each candidate trains on its own seed's split unless
+        ``data_loader.split_seed`` is set, in spans of at most ~16k steps
+        as the main loop's.
+
+        The candidates share the Trainer's model: each is a fresh state
+        (fresh parameters and optimizer; on the card its scans capture
+        their graphs anew), and the leader's state is kept on the host
+        (``state_payload``) while later candidates train, then copied back
+        if it is not the last one trained."""
+        cfg = self.cfg
+        results = []
+        leader = None          # the leader's payload, unless it is current
+        built = False
+        for s in range(base_seed, base_seed + n):
+            train_ds, val_ds, _, _ = self._load_datasets(s)
+            spe = len(train_ds) // self.batch_size
+            if spe <= 0:
+                raise ValueError("dataset smaller than one batch")
+            if not built:
+                self.build_steps(spe)
+                built = True
+            captured = dict(train_step.captures)
+            state = self.init_state(s)
+            state = self._maybe_patch_templates(state, train_ds, s)
+            data = self._to_device(train_ds)
+            max_span = max(1, -(-16384 // spe))
+            e = 0
+            while e < probe_epochs:
+                span_end = min(probe_epochs, e + max_span)
+                stream = self._epoch_stream(s, len(train_ds),
+                                            range(e, span_end), spe)
+                state, _ = self.train_scan(state, data, stream)
+                e = span_end
+            metrics, _ = self.evaluate(
+                val_ds, max_batches=cfg["trainer"].get("max_eval_batches"))
+            score = float(metrics.get("val_rec_ll_loss",
+                                      metrics.get("val_loss",
+                                                  float("inf"))))
+            # a diverged probe (NaN) must lose: NaN compares False with
+            # everything, so min() could otherwise return it
+            if not np.isfinite(score):
+                score = float("inf")
+            results.append((score, s))
+            if (score, s) == min(results):
+                # the next candidate redraws the model: keep the leader on
+                # the host, unless no candidate comes after it
+                leader = state_payload(state) if s < base_seed + n - 1 \
+                    else None
+            graphs = {k: v - captured[k]
+                      for k, v in train_step.captures.items()}
+            print(f"[scae_tpu_torch] seed probe {s}: val_rec_ll={score:.2f} "
+                  f"({probe_epochs} epochs; CUDA graphs captured: "
+                  f"{graphs['train']} train, {graphs['eval']} eval)")
+        best = min(results)[1]
+        print(f"[scae_tpu_torch] seed probe winner: {best} "
+              f"(of {[s for _, s in results]})")
+        if leader is not None:
+            state = load_payload(
+                TrainState(self.model, self.tx(self.model.parameters())),
+                leader)
+        return best, state
+
     def run(self, max_epochs: Optional[int] = None,
             max_steps: Optional[int] = None, resume: bool = False):
         cfg = self.cfg
@@ -396,7 +574,10 @@ class Trainer:
         max_epochs = max_epochs or trainer_cfg.get("max_epochs", 1)
         log_every = trainer_cfg.get("log_every_steps", 50)
 
+        probe = trainer_cfg.get("seed_probe") or {}
+        n_probe = int(probe.get("n", 0) or 0)
         resuming = resume and self.ckpt.latest_step is not None
+        probe_state = None
         if resuming:
             # the training seed keys the data split, so a resume must
             # reuse the recorded one
@@ -405,7 +586,15 @@ class Trainer:
                 seed = rec
                 print(f"[scae_tpu_torch] resume: recorded training seed "
                       f"{seed}")
+            elif n_probe > 0:
+                raise FileNotFoundError(
+                    "resume with trainer.seed_probe enabled, but the "
+                    "checkpoint dir records no training seed: the probe "
+                    "winner's data split cannot be recovered")
         else:
+            if n_probe > 0:
+                seed, probe_state = self.probe_seeds(
+                    seed, n_probe, int(probe.get("epochs", 200)))
             with open(os.path.join(self.ckpt.directory,
                                    "train_seed.json"), "w") as f:
                 json.dump({"seed": seed, "split_seed": self.split_seed}, f)
@@ -417,7 +606,15 @@ class Trainer:
 
         steps_per_epoch = len(train_ds) // self.batch_size
         self.build_steps(steps_per_epoch)
-        state = self.init_state(seed)
+        if probe_state is not None:
+            # the winner's probe training continues (the same datasets and
+            # index stream as a run from its init would see)
+            state = probe_state
+            print(f"[scae_tpu_torch] continuing probe winner from step "
+                  f"{state.step}")
+        else:
+            state = self.init_state(seed)
+            state = self._maybe_patch_templates(state, train_ds, seed)
         if resuming:
             state = self.ckpt.restore(state)
             print(f"[scae_tpu_torch] resumed from step {state.step}")
@@ -476,11 +673,9 @@ class Trainer:
         while epoch < max_epochs and not stop:
             period_end = min((epoch // eval_every + 1) * eval_every,
                              max_epochs, epoch + max_span)
-            stream = np.concatenate([
-                np.random.RandomState(seed + e).permutation(len(train_ds))
-                [:steps_per_epoch * self.batch_size]
-                .reshape(steps_per_epoch, self.batch_size)
-                for e in range(epoch, period_end)], axis=0)
+            stream = self._epoch_stream(seed, len(train_ds),
+                                        range(epoch, period_end),
+                                        steps_per_epoch)
             stream = stream[global_step - epoch * steps_per_epoch:]
             n = stream.shape[0]
             if max_steps is not None:
@@ -547,7 +742,109 @@ class Trainer:
                   f"{train_seconds!r} s of training wall time (evals, grids "
                   f"and checkpoints excluded): "
                   f"{train_images / train_seconds!r} images/s")
+        if trainer_cfg.get("head_refit"):
+            self.refit_head(train_ds, val_ds)
         return state
+
+    def _posterior_features(self, dataset):
+        """(features (n, O) float64, labels (n,)): each example's
+        ``posterior_mixing_prob`` summed over its parts, from the
+        deterministic forward of the model as it stands, in batches of B
+        (the last padded with zero images, its padding dropped)."""
+        h = self.cfg["model"]["image_shape"][1]
+        images = data_lib.pad_to_canvas(torch.from_numpy(
+            data_lib.to_nchw_float(dataset.images)), h)
+        n, B = len(images), self.batch_size
+        images = torch.cat([images, images.new_zeros(
+            ((-n) % B, *images.shape[1:]))])
+        feats = []
+        with torch.inference_mode():
+            for i in range(0, len(images), B):
+                res = self.model(images[i:i + B].to(self.device),
+                                 deterministic=True)
+                feats.append(res.obj.posterior_mixing_prob.sum(-1).cpu())
+        return (torch.cat(feats)[:n].numpy().astype(np.float64),
+                np.asarray(dataset.labels))
+
+    def refit_head(self, train_ds, val_ds,
+                   c_grid=(0.1, 1.0, 10.0, 100.0)):
+        """End-of-run posterior-head refit on the frozen trunk
+        (``trainer.head_refit=true``), as the JAX loop's: the best retained
+        checkpoint (else the latest) is restored; a multinomial logistic
+        regression (``logreg.fit``, sklearn's ``LogisticRegression``
+        model) of the labels on its ``_posterior_features`` is fitted on
+        the training split for each C of ``c_grid`` and the C of the
+        highest validation accuracy kept (the first of ties); its
+        coefficients and intercepts become the posterior classifier; the
+        model is evaluated on the validation split and saved at
+        ``max(best, latest) + 1`` with the monitor's metric. Returns the
+        validation metrics, or None where there is no checkpoint or no
+        posterior classifier. The Trainer's model is left as it was."""
+        best = self.ckpt.best_step or self.ckpt.latest_step
+        if best is None:
+            print("[scae_tpu_torch] head_refit: no retained checkpoint "
+                  "(trainer.save_top_k=0?) — skipped")
+            return None
+        if "posterior_classifier.weight" not in \
+                self.ckpt.restore_params(step=best):
+            print("[scae_tpu_torch] head_refit: model has no posterior "
+                  "classifier — skipped")
+            return None
+        # the caller's parameters (the run's last state) come back after
+        # the refit, as JAX's refit works on a copy and leaves them alone;
+        # both loads copy in place, so the scans' graphs stay valid
+        final = {k: v.clone() for k, v in self.model.state_dict().items()}
+        try:
+            state = self.ckpt.restore(
+                TrainState(self.model, self.tx(self.model.parameters())),
+                step=best)
+            t0 = time.perf_counter()
+            Xtr, ytr = self._posterior_features(train_ds)
+            Xval, yval = self._posterior_features(val_ds)
+            seconds = [time.perf_counter() - t0]
+            best_fit = None
+            for C in c_grid:
+                t0 = time.perf_counter()
+                fitted = logreg.fit(Xtr, ytr, C)
+                seconds.append(time.perf_counter() - t0)
+                acc = float(np.mean(fitted.predict(Xval) == yval))
+                if best_fit is None or acc > best_fit[1]:
+                    best_fit = (fitted, acc, C)
+            fitted, probe_val, c_star = best_fit
+            print(f"[scae_tpu_torch] head_refit: features of {len(Xtr)} + "
+                  f"{len(Xval)} examples in {seconds[0]!r} s; fits of "
+                  f"C={list(c_grid)} in {seconds[1:]!r} s")
+            head = self.model.posterior_classifier
+            if fitted.coef.shape != tuple(head.weight.shape):
+                raise ValueError(f"head_refit: probe shape "
+                                 f"{fitted.coef.shape} != head "
+                                 f"{tuple(head.weight.shape)}")
+            with torch.no_grad():
+                head.weight.copy_(torch.from_numpy(fitted.coef))
+                head.bias.copy_(torch.from_numpy(fitted.intercept))
+            vm, _ = self.evaluate(val_ds)
+            if self.monitor not in vm:
+                raise KeyError(f"head_refit: trainer.monitor="
+                               f"{self.monitor!r} not in eval metrics "
+                               f"{sorted(vm)}")
+            # past the LATEST step: a save at or before it is refused, and
+            # the best checkpoint is usually not the last one written
+            refit_step = max(int(best), int(self.ckpt.latest_step or 0)) + 1
+            self.writer.scalars(refit_step, vm)
+            saved = self.ckpt.save(
+                refit_step, state,
+                metrics={self.monitor: float(vm[self.monitor])})
+            if not saved:
+                raise RuntimeError(
+                    f"head_refit: checkpoint manager refused save at step "
+                    f"{refit_step} (latest={self.ckpt.latest_step})")
+            print(f"[scae_tpu_torch] head_refit: C*={c_star} probe val "
+                  f"{probe_val:.4f}; refit ckpt {refit_step} "
+                  f"{self.monitor}={vm[self.monitor]:.4f} "
+                  f"(best was ckpt {best})")
+        finally:
+            self.model.load_state_dict(final)
+        return vm
 
     def close(self):
         """Close the metrics file (and TensorBoard writer) and the

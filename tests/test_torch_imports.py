@@ -1,5 +1,5 @@
-"""The port imports nothing of JAX, flax, PyYAML or scae_tpu, and never
-builds a kernel at import.
+"""The port imports nothing of JAX, flax, PyYAML, sklearn or scae_tpu, and
+never builds a kernel at import.
 
 A fresh interpreter blocks those modules (a ``None`` entry in
 ``sys.modules`` makes any import of them raise), then imports every module
@@ -19,7 +19,8 @@ import torch
 import scae_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "scae_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "scae_tpu",
+           "sklearn")
 
 
 def port_modules():
@@ -33,7 +34,8 @@ def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
                  "kernels.decoder_ll_banded", "kernels.attention",
                  "kernels.probe", "ops.decoder_ll", "ops.attention",
                  "config", "train.checkpoint", "train.metrics", "train.cli",
-                 "tools.probe"):
+                 "tools.probe", "serve", "tools.export_model",
+                 "train.logreg"):
         assert f"scae_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, os, sys

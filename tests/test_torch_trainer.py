@@ -16,8 +16,10 @@ tests/test_train_smoke.py:
     4-step run bit for bit: index stream, logged losses, parameters;
   * ``run_test`` evaluates floor(n / B) batches and reports the accuracy
     and per-class recall over all n examples;
-  * each config key of a feature not ported yet raises NotImplementedError
-    naming it; the CLI parses overrides as scae_tpu's does.
+  * a mesh of more than one device, the one Trainer feature not ported
+    yet, raises NotImplementedError naming it (the other four are held in
+    test_torch_trainer_features.py); the CLI parses overrides as
+    scae_tpu's does.
 
 Both sides run in float32 (f32 convolutions and likelihood taps, as
 ``fused_tap_dtype: float32`` and ``compute_dtype: null`` ask) so that the
@@ -425,10 +427,6 @@ def test_init_state_redraws_the_parameters_in_place(tmp_path):
 
 
 @pytest.mark.parametrize("override,key", [
-    ("init_from=/some/run", "init_from"),
-    ("trainer.template_init=patches", "trainer.template_init"),
-    ("trainer.head_refit=true", "trainer.head_refit"),
-    ("trainer.seed_probe.n=2", "trainer.seed_probe"),
     ("trainer.mesh.n_data=2", "trainer.mesh"),
     ("trainer.mesh.n_model=2", "trainer.mesh"),
 ])
