@@ -7,6 +7,7 @@
     python3 chip_smoke.py --trainer-steps 8 [--eager-control]
         # only the training CLI's card-vs-CPU comparison over 8 steps,
         # each step's gap printed (a measurement; no result line)
+    python3 chip_smoke.py --mesh     # only the mesh phase (no result line)
 
 Phases, each announced when it starts and when it ends, with its seconds:
 
@@ -127,6 +128,26 @@ Phases, each announced when it starts and when it ends, with its seconds:
           each artifact and of the live infer function; then
           python -m scae_tpu_torch.tools.export_model on the refit run's
           checkpoints, which must exit 0
+  mesh    the mesh (parallel/mesh.py) on the one card. Two gloo processes
+          (NCCL refuses two ranks on one card) from the state of a
+          one-process run, f32 convs, TF32 off, deterministic cuDNN, the
+          flagship at global batch 128 on the gather path: 2x1 (64 images a
+          process) and 1x2 (the capsule banks split by shard_state), 8
+          eager steps each: every step's loss within 2e-3 of one process's,
+          the parameters within 1e-3 of each tensor's largest entry after
+          every step on 1x2 and after the first on 2x1 (each step's gap
+          printed beside a control: one process again under cuDNN's
+          default algorithms), the first batch's gradients (entry by entry
+          on 1x2, in norm on 2x1, within 1e-3), K1 and K2+K3 once a step
+          on each process, each run's host ms and device busy per step
+          beside one process's; one 2x1 banded step with the attention flag
+          (K5f 1, K5b 1, K6 4 a process). Then the CLI on model=mnist
+          under torch.distributed.run with a world-1 NCCL group, whose
+          graphs capture the collectives (counted as they are issued into
+          the capture), against the CLI with no group (JSONL losses bit for
+          bit, or the gap printed); then the CLI on two gloo processes: 2
+          epochs, a resume, mode=test, process 0 alone logging and
+          checkpointing. ``--mesh`` runs this phase alone.
 
 Every number is printed beside the card's name and power limit. Imports
 torch, numpy, the standard library and scae_tpu_torch only. Exits
@@ -2775,7 +2796,665 @@ def profile_graph_phase(torch, card, scan, state, data, idxs, n,
     say(events.table(sort_by="cuda_time_total", row_limit=25))
 
 
+# ----------------------------------------------------------------- mesh
+
+MESH_STEPS = 8         # eager steps of each mesh run held to one process
+MESH_TIMED = 10        # further steps timed on the host clock
+MESH_PROFILED = 3      # steps of each device-busy window
+MESH_LOSS_RTOL = 2e-3  # per step, the ROADMAP's trajectory tolerance
+# per parameter, of its largest entry: held after the first step of 2x1
+# (rounding alone moves 8 steps by ~1e-2: RMSprop's eps of 1e-2/B^2 turns
+# near-zero gradients' rounding into whole steps, and the routing's argmax
+# compounds it; the phase's control measures that), and after every step
+# of 1x2, whose arithmetic is one process's
+MESH_PARAM_RTOL = 1e-3
+MESH_TIMEOUT = 600     # seconds for one launch of ranks
+MESH_CLI = ["model=mnist", "data_loader.source=synthetic",
+            "data_loader.synthetic_train=1536", "data_loader.val_size=512",
+            "data_loader.synthetic_test=256", "trainer.max_epochs=2",
+            "trainer.log_every_steps=4", "trainer.max_eval_batches=2"]
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def mesh_batches(n):
+    """``n`` global batches of the flagship: (128, 28, 28) uint8 images and
+    their labels, each from its own seed."""
+    import numpy as np
+
+    out = []
+    for k in range(n):
+        rng = np.random.RandomState(100 + k)
+        out.append((rng.randint(0, 256, (BATCH, 28, 28)).astype(np.uint8),
+                    rng.randint(0, 10, (BATCH,)).astype(np.int64)))
+    return out
+
+
+def deterministic_cudnn(torch, on=True):
+    """cuDNN's deterministic algorithms (and no autotuning) on or off; the
+    previous setting."""
+    was = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False if on else was[1]
+    return was
+
+
+def step_times(torch, step, batches, n, barrier=None):
+    """Host ms per step over ``n`` steps (each synchronised), after an
+    optional barrier that lines the ranks up; then the device's busy ms
+    per step over MESH_PROFILED steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if barrier is not None:
+        barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n):
+        step(*batches[k % len(batches)])
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for k in range(MESH_PROFILED):
+            step(*batches[k % len(batches)])
+        torch.cuda.synchronize()
+    busy_ms = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  ) / 1e3 / MESH_PROFILED
+    return host_ms, busy_ms
+
+
+def state_gap(torch, got, want):
+    """(largest gap of a parameter relative to its largest |entry| in
+    ``want``, that parameter's name, how many exceed MESH_PARAM_RTOL)
+    between two state dicts."""
+    worst, over = (0.0, ""), 0
+    for name, ref in want.items():
+        ref = ref.float()
+        gap = float((got[name].to(ref.device).float() - ref).abs().max()) / (
+            float(ref.abs().max()) + 1e-30)
+        over += gap > MESH_PARAM_RTOL
+        if gap >= worst[0]:
+            worst = (gap, name)
+    return worst[0], worst[1], over
+
+
+def first_batch_grads(torch, model, mesh=None, banks=None):
+    """(The gradients of the loss (noise off) of the mesh phase's first
+    global batch, padded to 40x40, for each of ``model``'s parameters, by
+    name; the capsule MLPs' first pre-activations (b, O, hidden) of this
+    process's rows, as the forward computed them). Under ``mesh`` the
+    gradients are the global batch's, the split banks (``banks``)
+    gathered."""
+    from scae_tpu_torch.parallel import mesh as mesh_lib
+    from scae_tpu_torch.parallel.train_step import loss_and_grads
+    from scae_tpu_torch.train.data import pad_to_canvas
+
+    images, labels = mesh_batches(1)[0]
+    images = pad_to_canvas(torch.from_numpy(images)[:, None].float() / 255,
+                           40)
+    mlps = model.obj_decoder.capsule_layer.mlps
+    inputs = []
+    hook = mlps.register_forward_pre_hook(
+        lambda module, args: inputs.append(args[0].detach()))
+    try:
+        _, grads = loss_and_grads(model, images, labels,
+                                  torch.device("cuda"), mesh)
+    finally:
+        hook.remove()
+    # StackedMLP's first layer, the batched matmul its forward runs
+    with torch.no_grad():
+        pre = torch.baddbmm(mlps.bias_0[:, None, :],
+                            inputs[0].transpose(0, 1), mlps.kernel_0)
+    out = {}
+    for (name, p), g in zip(model.named_parameters(), grads):
+        g = torch.zeros_like(p) if g is None else g   # a parameter unused
+        if banks and name in banks:
+            g = mesh_lib.gather_tensor(g, mesh, banks[name])
+        out[name] = g.cpu()
+    return out, pre.transpose(0, 1).cpu()
+
+
+def kink_flips(torch, want_grads, got_grads, want_pre, got_pre):
+    """Where the 2x1 run's first batch meets relu's kink on the other side
+    from one process's, in the capsule MLPs' first layer: (how many
+    pre-activations, the largest |pre-activation| of them, how many sit at
+    the (capsule, unit) of the first bias's worst gradient entry)."""
+    flips = (got_pre > 0) != (want_pre > 0)
+    name = "obj_decoder.capsule_layer.mlps.bias_0"
+    worst = int((got_grads[name] - want_grads[name]).abs().argmax())
+    c, u = divmod(worst, want_grads[name].shape[1])
+    largest = float(want_pre[flips].abs().max()) if flips.any() else 0.0
+    return int(flips.sum()), largest, int(flips[:, c, u].sum())
+
+
+def grad_gaps(want, got):
+    """((largest gap of an entry relative to its tensor's largest |entry|
+    in ``want``, that tensor, how many of its entries are off by more than
+    1e-4 of it, its entries), (largest norm of a tensor's difference
+    relative to its norm in ``want``, that tensor)) between two dicts of
+    gradients."""
+    entry, norm = (0.0, "", 0, 0), (0.0, "")
+    for name, g in want.items():
+        diff = (got[name] - g).abs()
+        largest = float(g.abs().max()) + 1e-30
+        gap = float(diff.max()) / largest
+        if gap >= entry[0]:
+            entry = (gap, name, int((diff > 1e-4 * largest).sum()),
+                     g.numel())
+        norm = max(norm, (float(diff.norm()) / (float(g.norm()) + 1e-30),
+                          name))
+    return entry, norm
+
+
+def mesh_steps_rank(torch, out):
+    """A rank of the mesh phase's step runs (two gloo processes on one
+    card): 2x1 and 1x2 (its banks split by shard_state) from the same
+    state as the main process's run, MESH_STEPS eager flagship steps each,
+    the launch counts and losses, the parameters (rank 0 saves them), the
+    host and device times; then one banded 2x1 step with the attention
+    flag."""
+    import torch.distributed as dist
+
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
+    from scae_tpu_torch.parallel import mesh as mesh_lib
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = torch.device("cuda")
+    assert mesh_lib.maybe_initialize_distributed("gloo")
+    rank = dist.get_rank()
+    augment = make_augment_fn(canvas=40, max_shift=6)
+    batches = mesh_batches(MESH_STEPS)
+    result = {"rank": rank}
+    for tag, shape in (("2x1", (2, 1)), ("1x2", (1, 2))):
+        mesh = mesh_lib.make_mesh(*shape)
+        state = train_state(torch, cuda, True, FLAGSHIP_MODEL_PARAMS)
+        if shape[1] > 1:
+            ts.shard_state(state, mesh)
+        step = ts.make_raw_train_step(state, augment, cuda, mesh)
+        banks = len(state.banks)
+        zero_kernel_counts()
+        losses, gaps = [], []
+        for k, b in enumerate(batches, 1):
+            losses.append(float(step(*b)["loss"]))
+            # the whole parameters after each step, against one process's
+            if shape[1] > 1:
+                ts.unshard_state(state, mesh)
+            if rank == 0:
+                gaps.append(state_gap(torch, state.model.state_dict(),
+                                      torch.load(os.path.join(
+                                          out, f"single_{k}.pt"))))
+            if shape[1] > 1:
+                ts.shard_state(state, mesh)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        # the first batch's gradients from the initial state
+        fresh = train_state(torch, cuda, True, FLAGSHIP_MODEL_PARAMS)
+        if shape[1] > 1:
+            ts.shard_state(fresh, mesh)
+        grads, pre = first_batch_grads(torch, fresh.model, mesh,
+                                       fresh.banks)
+        if rank == 0:
+            torch.save(grads, os.path.join(out, f"grads_{tag}.pt"))
+        if tag == "2x1":
+            torch.save(pre, os.path.join(out, f"pre_{tag}_{rank}.pt"))
+        del fresh
+        host_ms, busy_ms = step_times(torch, step, batches, MESH_TIMED,
+                                      dist.barrier)
+        result[tag] = {"losses": losses, "counts": counts, "banks": banks,
+                       "gaps": gaps, "host_ms": host_ms, "busy_ms": busy_ms}
+    mesh = mesh_lib.make_mesh(2, 1)
+    state = train_state(torch, cuda, True, dict(
+        FLAGSHIP_MODEL_PARAMS,
+        pcae_decoder_params=dict(fused_impl="pallas_banded")),
+        attention=True)
+    zero_kernel_counts()
+    metrics = ts.make_raw_train_step(state, augment, cuda, mesh)(*batches[0])
+    torch.cuda.synchronize()
+    result["banded"] = {"loss": float(metrics["loss"]),
+                        "counts": kernel_counts()}
+    say("MESH_RANK " + json.dumps(result))
+    dist.destroy_process_group()
+
+
+def nccl_capture_check(torch):
+    """Under a world-1 NCCL group: the flagship train scan's graph against
+    the eager loop from the same state over 4 rows; the all-reduces and
+    all-gathers issued while a graph was being captured (a world-1 NCCL
+    all-reduce in place may launch no kernel, so these calls are what shows
+    the capture took the collectives); and the NCCL kernels in 2 replays
+    and in 2 eager steps, from the profiler's device records. Returns
+    (bit for bit, largest loss gap, collectives captured, NCCL kernels per
+    replay, per eager step)."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
+    from scae_tpu_torch.parallel import mesh as mesh_lib
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = torch.device("cuda")
+    mesh = mesh_lib.make_mesh()
+    rng = np.random.RandomState(7)
+    data = {"image": torch.from_numpy(rng.randint(
+                0, 256, (512, 28, 28)).astype(np.uint8)).to(cuda),
+            "label": torch.from_numpy(rng.randint(0, 10, (512,))).to(cuda)}
+    idxs = np.stack([np.random.RandomState(k).permutation(512)[:BATCH]
+                     for k in range(6)])
+    captured = []
+    calls = {name: getattr(dist, name) for name in ("all_reduce",
+                                                    "all_gather")}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                captured.append(name)
+            return calls[name](*args, **kwargs)
+        return call
+
+    losses, nccl = [], []
+    try:
+        for name in calls:
+            setattr(dist, name, counting(name))
+        for make in (ts.make_train_scan, ts.make_eager_train_scan):
+            state = train_state(torch, cuda, True, FLAGSHIP_MODEL_PARAMS)
+            scan = make(make_augment_fn(canvas=40, max_shift=6), cuda, mesh)
+            _, metrics = scan(state, data, idxs[:4])
+            losses.append(metrics["loss"].cpu())
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                scan(state, data, idxs[4:])
+                torch.cuda.synchronize()
+            nccl.append(sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "nccl" in e.key.lower()) / 2)
+    finally:
+        for name, fn in calls.items():
+            setattr(dist, name, fn)
+    gap = float((losses[0] - losses[1]).abs().max())
+    return (torch.equal(losses[0], losses[1]), gap, len(captured), nccl[0],
+            nccl[1])
+
+
+def mesh_cli_rank(torch, out, argv):
+    """A run of the training CLI with cuDNN's deterministic algorithms, its
+    logs and checkpoints in ``out``: under a world-1 NCCL group (launched
+    by torch.distributed.run) or with none. Prints its result line: the
+    step, the launch counts, the graphs captured and, under the group, the
+    NCCL capture check."""
+    import torch.distributed as dist
+
+    from scae_tpu_torch.parallel import train_step
+    from scae_tpu_torch.train import cli
+
+    deterministic_cudnn(torch)
+    zero_kernel_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        state = cli.main(argv + [f"trainer.checkpoint_dir={out}/ckpt",
+                                 f"trainer.log_dir={out}/logs"])
+    torch.cuda.synchronize()
+    for line in text.getvalue().splitlines():
+        say(f"  cli: {line}")
+    result = {"step": state.step, "counts": kernel_counts(),
+              "captures": dict(train_step.captures),
+              "wall": training_wall_time(text.getvalue()),
+              "group": dist.is_initialized()}
+    if dist.is_initialized():
+        result["backend"] = dist.get_backend()
+        result["nccl_check"] = nccl_capture_check(torch)
+    say("MESH_CLI " + json.dumps(result))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def mesh_rank(argv) -> int:
+    """The ranks' entry point: ``--mesh-rank steps OUT`` or ``--mesh-rank
+    cli OUT [overrides]``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    role, out, rest = argv[0], argv[1], argv[2:]
+    if role == "steps":
+        deterministic_cudnn(torch)
+        mesh_steps_rank(torch, out)
+    elif role == "cli":
+        mesh_cli_rank(torch, out, rest)
+    else:
+        raise SystemExit(f"unknown mesh rank role {role!r}")
+    return 0
+
+
+def result_lines(output, tag):
+    return [json.loads(line.split(tag, 1)[1]) for line in output.splitlines()
+            if line.startswith(tag)]
+
+
+def run_checked(cmd, what, timeout=MESH_TIMEOUT):
+    """Run ``cmd`` from this script's directory with the package on the
+    path; its output, or RuntimeError with its end."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise RuntimeError(f"{what} exited with {out.returncode}: "
+                           f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    say(f"{what}: exit 0 in {seconds:.1f} s")
+    return out.stdout + out.stderr
+
+
+def mesh_nccl_runs(card, tmp):
+    """The CLI on model=mnist under a world-1 NCCL group, its graphs
+    capturing the collectives, against the CLI with no group; returns the
+    no-group run's images/s end to end."""
+    script = os.path.abspath(__file__)
+    runs = {}
+    for tag, launcher in (
+            ("nccl", [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc_per_node", "1"]),
+            ("none", [sys.executable])):
+        out = os.path.join(tmp, f"cli_{tag}")
+        text = run_checked(launcher + [script, "--mesh-rank", "cli", out,
+                                       *MESH_CLI],
+                           f"the CLI on model=mnist, {tag} group")
+        runs[tag] = (result_lines(text, "MESH_CLI ")[0],
+                     train_records(read_jsonl(os.path.join(out, "logs",
+                                                           "metrics.jsonl"))))
+    (nccl, nccl_records), (plain, plain_records) = runs["nccl"], runs["none"]
+    if nccl.get("backend") != "nccl" or plain["group"]:
+        raise RuntimeError(f"groups: {nccl.get('backend')}, {plain['group']}")
+    if nccl["captures"]["train"] < 1 or nccl["counts"] != plain["counts"]:
+        raise RuntimeError(f"the NCCL CLI captured {nccl['captures']} with "
+                           f"launches {nccl['counts']}, no group "
+                           f"{plain['captures']} with {plain['counts']}")
+    if [r["step"] for r in nccl_records] != [r["step"]
+                                             for r in plain_records]:
+        raise RuntimeError("the NCCL and no-group CLI logged other steps")
+    gaps = [abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+            for a, b in zip(nccl_records, plain_records) for k in LOSS_KEYS]
+    same = all(a[k] == b[k] for a, b in zip(nccl_records, plain_records)
+               for k in LOSS_KEYS)
+    if not max(gaps) <= TRAINER_RTOL:
+        raise RuntimeError(f"the NCCL CLI's losses are {max(gaps):.3e} off "
+                           "the no-group CLI's")
+    equal, gap, in_capture, per_replay, per_eager = nccl["nccl_check"]
+    if not (in_capture > 0 and per_replay == per_eager and gap <= 1e-4):
+        raise RuntimeError(f"NCCL capture: {in_capture} collectives "
+                           f"captured, {per_replay} NCCL kernels a replay, "
+                           f"{per_eager} an eager step, loss gap {gap}")
+    say(f"mesh: the CLI on model=mnist under a world-1 NCCL group "
+        f"(torch.distributed.run, deterministic cuDNN): "
+        f"{nccl['captures']['train']} train and {nccl['captures']['eval']} "
+        f"eval graphs captured with their collectives, launches "
+        f"{ {k: nccl['counts'][k] for k in ('K1', 'K2+K3')} } as with no "
+        f"group; its {len(nccl_records)} logged steps' loss terms "
+        + ("equal the no-group CLI's bit for bit" if same else
+           f"differ from the no-group CLI's by up to {max(gaps):.3e} "
+           "relative (not bit for bit: the world-1 all-reduces return their "
+           "input, so the gap is the graphs' own, run to run)")
+        + f"; end to end {nccl['wall'][2]!r} images/s against "
+        f"{plain['wall'][2]!r} with no group [{card}]")
+    say(f"mesh: the flagship graph scan under the NCCL group: "
+        f"{in_capture} collectives issued into its capture, "
+        f"{per_replay:.0f} NCCL kernels in each replay's device records, "
+        f"{per_eager:.0f} in each eager step; 4 rows "
+        + ("bit for bit the eager loop" if equal else
+           f"within {gap:.3e} of the eager loop")
+        + f" [{card}]")
+    return plain["wall"][2]
+
+
+def mesh_two_process_cli(card, tmp, plain_rate):
+    """The CLI on two gloo processes on the card: 2 epochs, a resume,
+    mode=test; process 0 alone logs and checkpoints."""
+    cli2 = os.path.join(tmp, "cli_2x1")
+    base = MESH_CLI + ["trainer.mesh.n_data=2", "trainer.mesh.backend=gloo",
+                       f"trainer.checkpoint_dir={cli2}/ckpt",
+                       f"trainer.log_dir={cli2}/logs"]
+    launch = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc_per_node", "2", "-m", "scae_tpu_torch.train.cli"]
+    texts = [run_checked(launch + base + extra, f"the CLI on 2 gloo "
+                         f"processes{what}")
+             for extra, what in (([], ""), (["trainer.max_epochs=3",
+                                             "resume=true"], ", resumed"),
+                                 (["mode=test"], ", mode=test"))]
+    records = read_jsonl(os.path.join(cli2, "logs", "metrics.jsonl"))
+    train = train_records(records)
+    steps = [r["step"] for r in train]
+    if steps != [4, 8, 12, 16, 20, 24]:
+        raise RuntimeError(f"the 2-process CLI logged steps {steps}")
+    for text in texts:
+        if text.count("distributed: process 0/2 (gloo)") != 1 or \
+                "distributed: process 1/2" in text:
+            raise RuntimeError("the 2-process CLI's processes announced "
+                               "themselves other than once from process 0")
+    if texts[0].count("mesh on gloo: the scans run the eager step") != 1:
+        raise RuntimeError("the gloo rule was not said once")
+    if texts[1].count("resumed from step 16") != 1 or \
+            "per-class recall" in texts[2] or \
+            texts[2].count("test @ ckpt") != 1:
+        raise RuntimeError("the 2-process resume or mode=test misbehaved")
+    ckpts = sorted(os.listdir(os.path.join(cli2, "ckpt")))
+    if any(".tmp" in n for n in ckpts) or "24" not in ckpts:
+        raise RuntimeError(f"the 2-process checkpoints: {ckpts}")
+    wall = [training_wall_time(t) for t in texts[:2]]
+    test = [r for r in records if "test_loss" in r][-1]
+    say(f"mesh: the CLI on 2 gloo processes on one card (model=mnist, "
+        f"batch {BATCH} split {BATCH // 2} + {BATCH // 2}, scans eager): 2 "
+        f"epochs, a resume to "
+        f"3, mode=test; process 0 alone logged steps {steps} and wrote "
+        f"checkpoints {ckpts}; test_loss {test['test_loss']!r}; end to end "
+        f"{wall[0][2]!r} and {wall[1][2]!r} images/s, against "
+        f"{plain_rate!r} for one process with graphs (deterministic "
+        f"cuDNN there) [{card}]")
+
+
+def mesh_phase(torch, card, rows, tmp):
+    """The mesh (parallel/mesh.py) on the one card: two gloo processes
+    against the single-process run from the same state, a world-1 NCCL
+    group whose graphs capture the collectives against no group, and the
+    training CLI on two gloo processes."""
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
+    from scae_tpu_torch.parallel import mesh as mesh_lib
+    from scae_tpu_torch.parallel.train_step import make_raw_train_step
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = torch.device("cuda")
+    os.makedirs(tmp, exist_ok=True)
+    failures = []   # raised at the phase's end, after every part has run
+    was = deterministic_cudnn(torch)
+    try:
+        # the single-process run the ranks are held to, its parameters
+        # after each step saved for rank 0 to compare with
+        augment = make_augment_fn(canvas=40, max_shift=6)
+        batches = mesh_batches(MESH_STEPS)
+
+        def one_process():
+            state = train_state(torch, cuda, True, FLAGSHIP_MODEL_PARAMS)
+            step = make_raw_train_step(state, augment, cuda)
+            losses, params = [], []
+            for b in batches:
+                losses.append(float(step(*b)["loss"]))
+                params.append({k: v.detach().cpu().clone()
+                               for k, v in state.model.state_dict().items()})
+            return step, losses, params
+
+        step, losses, params = one_process()
+        for k, p in enumerate(params, 1):
+            torch.save(p, os.path.join(tmp, f"single_{k}.pt"))
+        host_ms, busy_ms = step_times(torch, step, batches, MESH_TIMED)
+        # the control: one process again under cuDNN's default algorithms,
+        # what rounding alone moves the same 8 steps by
+        deterministic_cudnn(torch, False)
+        _, control_losses, control = one_process()
+        deterministic_cudnn(torch)
+        control_gaps = [state_gap(torch, c, p)
+                        for c, p in zip(control, params)]
+        control_loss_gap = max(abs(a - b) / max(1.0, abs(b))
+                               for a, b in zip(control_losses, losses))
+        want_grads, want_pre = first_batch_grads(torch, train_state(
+            torch, cuda, True, FLAGSHIP_MODEL_PARAMS).model)
+        deterministic_cudnn(torch, False)
+        control_grads = grad_gaps(want_grads, first_batch_grads(
+            torch, train_state(torch, cuda, True,
+                               FLAGSHIP_MODEL_PARAMS).model)[0])
+        deterministic_cudnn(torch)
+        banded = train_state(torch, cuda, True, dict(
+            FLAGSHIP_MODEL_PARAMS,
+            pcae_decoder_params=dict(fused_impl="pallas_banded")),
+            attention=True)
+        banded_loss = float(make_raw_train_step(banded, augment, cuda)(
+            *batches[0])["loss"])
+        say(f"mesh: one process, {MESH_STEPS} eager flagship steps (batch "
+            f"{BATCH}, f32 convs, TF32 off, deterministic cuDNN, gather "
+            f"path): losses {losses} [{card}]")
+        say(f"mesh: the control, one process under cuDNN's default "
+            f"algorithms: losses within "
+            f"{control_loss_gap:.3e}"
+            f" of the deterministic run; the worst parameter's gap of its "
+            f"largest entry after each step "
+            + ", ".join(f"{g:.2e}" for g, _, _ in control_gaps)
+            + f" (after step {MESH_STEPS}: {control_gaps[-1][1]}, "
+            f"{control_gaps[-1][2]} tensors above {MESH_PARAM_RTOL:.0e}) "
+            f"[{card}]")
+
+        outputs = mesh_lib.run_local(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             "steps", tmp], 2, MESH_TIMEOUT,
+            env=dict(os.environ, PYTHONPATH=HERE), cwd=HERE)
+        ranks = [result_lines(o, "MESH_RANK ")[0] for o in outputs]
+        failures = []
+        for tag, per_rank in (("2x1", BATCH // 2), ("1x2", BATCH)):
+            gaps = ranks[0][tag]["gaps"]
+            held = gaps[:1] if tag == "2x1" else gaps
+            worst, name, over = max(held)
+            say(f"mesh {tag}: the worst parameter's gap of its largest "
+                f"entry after each step "
+                + ", ".join(f"{g:.2e}" for g, _, _ in gaps)
+                + f" (the control's: "
+                + ", ".join(f"{g:.2e}" for g, _, _ in control_gaps)
+                + f"); after step {MESH_STEPS}: {gaps[-1][0]:.3e} "
+                f"({gaps[-1][1]}), {gaps[-1][2]} tensors above "
+                f"{MESH_PARAM_RTOL:.0e}; held to {MESH_PARAM_RTOL:.0e} "
+                + ("after step 1" if tag == "2x1" else "after every step")
+                + f": {worst:.3e} ({name}) [{card}]")
+            if not worst <= MESH_PARAM_RTOL:
+                failures.append(f"mesh {tag}: parameter {name} is "
+                                f"{worst:.3e} of its largest entry off the "
+                                "single-process run")
+            grads = torch.load(os.path.join(tmp, f"grads_{tag}.pt"))
+            entry, norm = grad_gaps(want_grads, grads)
+            if tag == "2x1":
+                flips, largest, at_worst = kink_flips(
+                    torch, want_grads, grads, want_pre, torch.cat([
+                        torch.load(os.path.join(tmp, f"pre_2x1_{r}.pt"))
+                        for r in range(2)]))
+                say(f"mesh 2x1: the first batch in the capsule MLPs' "
+                    f"first layer: {flips} of {want_pre.numel()} "
+                    f"pre-activations on the other side of relu's kink "
+                    f"from one process's, each within {largest:.3e} of 0; "
+                    f"{at_worst} at the (capsule, unit) of mlps.bias_0's "
+                    f"worst gradient entry [{card}]")
+            # 1x2 computes what one process computes; 2x1 convolves 64
+            # images where one process convolves 128, so a unit whose
+            # input lies within rounding of relu's kink can go either way
+            # and move one entry by an example's share: its bound is on
+            # each gradient's norm
+            held = entry if tag == "1x2" else norm
+            say(f"mesh {tag}: the first batch's gradients (noise off, the "
+                f"global batch's) against one process's: each entry within "
+                f"{entry[0]:.3e} of its tensor's largest |gradient| "
+                f"({entry[1]}: {entry[2]} of its {entry[3]} entries off by "
+                f"more than 1e-4 of it), each tensor's difference "
+                f"{norm[0]:.3e} of "
+                f"its norm ({norm[1]}); the control's "
+                f"{control_grads[0][0]:.3e} ({control_grads[0][1]}) and "
+                f"{control_grads[1][0]:.3e} "
+                f"({control_grads[1][1]}); held to {GRAD_RTOL:.0e} "
+                + ("entry by entry" if tag == "1x2" else "in norm")
+                + f" [{card}]")
+            if not held[0] <= GRAD_RTOL:
+                failures.append(f"mesh {tag}: gradient of {held[1]} is "
+                                f"{held[0]:.3e} off")
+            for r in ranks:
+                res = r[tag]
+                gaps = [abs(a - b) / max(1.0, abs(b))
+                        for a, b in zip(res["losses"], losses)]
+                launches = {k: res["counts"][k] for k in KERNELS}
+                expected = {k: MESH_STEPS if k in ("K1", "K2+K3") else 0
+                            for k in KERNELS}
+                say(f"mesh {tag} (gloo, 2 processes on one card, batch "
+                    f"{per_rank} a process) rank {r['rank']}: "
+                    f"{MESH_STEPS} steps, launches K1 {launches['K1']} and "
+                    f"K2+K3 {launches['K2+K3']} (one each a step), losses "
+                    f"within {max(gaps):.3e} of one process (tolerance "
+                    f"{MESH_LOSS_RTOL:.0e}; each step: "
+                    + ", ".join(f"{g:.1e}" for g in gaps)
+                    + f"); {res['host_ms']:.3f} ms per step "
+                    f"on the host clock and {res['busy_ms']:.3f} ms of "
+                    f"device busy, against one process's {host_ms:.3f} ms "
+                    f"and {busy_ms:.3f} ms [{card}]")
+                if not max(gaps) <= MESH_LOSS_RTOL:
+                    failures.append(f"mesh {tag} rank {r['rank']}: losses "
+                                    f"{res['losses']} against {losses}")
+                if launches != expected:
+                    failures.append(f"mesh {tag} rank {r['rank']}: "
+                                    f"launches {launches}, expected "
+                                    f"{expected}")
+                if tag == "1x2" and res["banks"] != 11:
+                    failures.append(f"mesh 1x2: {res['banks']} banks "
+                                    "split, expected 11")
+                for row, k in zip(rows, KERNELS):
+                    row["launches"] = (row["launches"] or 0) + launches[k]
+        for r in ranks:
+            res = r["banded"]
+            launches = {k: res["counts"][k] for k in KERNELS}
+            expected = dict.fromkeys(KERNELS, 0)
+            expected.update({"K5f": 1, "K5b": 1, "K6": 4})
+            gap = abs(res["loss"] - banded_loss) / max(1.0, abs(banded_loss))
+            if launches != expected or not gap <= MESH_LOSS_RTOL:
+                failures.append(f"mesh banded rank {r['rank']}: launches "
+                                f"{launches} (expected {expected}), loss "
+                                f"{res['loss']} against {banded_loss}")
+            for row, k in zip(rows, KERNELS):
+                row["launches"] = (row["launches"] or 0) + launches[k]
+            say(f"mesh 2x1 banded step with the attention flag, rank "
+                f"{r['rank']}: launches K5f {launches['K5f']}, K5b "
+                f"{launches['K5b']}, K6 {launches['K6']}; loss "
+                f"{res['loss']!r} against one process's {banded_loss!r} "
+                f"(gap {gap:.3e}) [{card}]")
+    finally:
+        deterministic_cudnn(torch, was[0])
+        torch.backends.cudnn.benchmark = was[1]
+
+    plain_rate = None
+    try:
+        plain_rate = mesh_nccl_runs(card, tmp)
+    except Exception as error:   # the rest of the phase still runs
+        failures.append(f"the world-1 NCCL comparison: {error}")
+    try:
+        mesh_two_process_cli(card, tmp, plain_rate)
+    except Exception as error:
+        failures.append(f"the CLI on 2 processes: {error}")
+    if failures:
+        raise RuntimeError("mesh phase: " + "; ".join(failures))
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--mesh-rank"]:
+        return mesh_rank(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler breakdowns of the eval and "
@@ -2789,6 +3468,9 @@ def main(argv=None) -> int:
                     help="with --trainer-steps: also run the CLI on the "
                          "card with its train scan swapped for the eager "
                          "loop")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run only the mesh phase (after env and build); "
+                         "prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2849,6 +3531,13 @@ def main(argv=None) -> int:
                                            "Compiling")):
                     say(f"  ptxas: {line.strip()}")
 
+    if args.mesh:
+        rows = [{"launches": None} for _ in KERNELS]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
+                phase("mesh"):
+            mesh_phase(torch, card, rows, os.path.join(tmp, "mesh"))
+        return 0
+
     with phase("kernel"):
         rows = [kernel_phase(torch, card), bwd_kernel_phase(torch, card),
                 *dense_kernel_phase(torch, card),
@@ -2900,6 +3589,8 @@ def main(argv=None) -> int:
         with phase("serve"):
             serve_phase(torch, card, rows, os.path.join(tmp, "serve"),
                         refit_ckpt, ["model=mnist"])
+        with phase("mesh"):
+            mesh_phase(torch, card, rows, os.path.join(tmp, "mesh"))
 
     if args.profile:
         with phase("profile"):

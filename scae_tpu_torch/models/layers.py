@@ -221,7 +221,7 @@ class StackedMLP(nn.Module):
 
     def forward(self, x):
         lead = x.shape[:-2]
-        O = self.n_stack
+        O = x.shape[-2]      # n_stack, or the share of a split bank
         h = x.reshape(-1, O, x.shape[-1]).transpose(0, 1)     # (O, N, in)
         for j in range(self.n_layers):
             kernel = getattr(self, f"kernel_{j}")

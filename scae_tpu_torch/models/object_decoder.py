@@ -12,6 +12,12 @@ an explicit ``torch.Generator``; the eval and serving path is
 deterministic. capsule_likelihood: Gaussian vote pdf, dummy component at
 log(0.01), posterior mixing, hard winner by argmax + gather, soft winner.
 Sparsity losses: l2, entropy and kl.
+
+Under a mesh (``parallel/mesh.py``) the random draws are the global
+batch's, the between-example sparsity terms take the column sum of the
+global batch, and with its banks split over a model group
+(``parallel/train_step.py::shard_state``) the layer runs its share of the
+capsules and gathers their outputs before the first reduction over them.
 """
 
 import math
@@ -39,6 +45,7 @@ from scae_tpu_torch.ops.math_ops import (
     log_safe,
     normalize,
 )
+from scae_tpu_torch.parallel import mesh
 
 _LOG_001 = math.log(0.01)  # dummy log-prob / mixing logit constant
 
@@ -89,6 +96,20 @@ class CapsuleLayer(nn.Module):
             for i in range(len(self.output_shapes) - 1):
                 getattr(self, f"caps_bias_{i}").zero_()
 
+    def _own_capsules(self):
+        """(lo, hi): the capsules whose banks this process holds, all O
+        unless ``train_step.shard_state`` split them over a model group,
+        whose mesh must then be active."""
+        held = self.mlps.kernel_0.shape[0]
+        if held == self.n_caps:
+            return 0, held
+        active = mesh.active()
+        if active is None or active.n_model * held != self.n_caps:
+            raise RuntimeError(
+                f"the capsule banks hold {held} of {self.n_caps} capsules: "
+                "run the layer under the mesh they were split over")
+        return active.m * held, (active.m + 1) * held
+
     def _transform(self, params):
         return geometric_transform(params, self.similarity_transform,
                                    nonlinear=True, as_matrix=False)
@@ -102,17 +123,32 @@ class CapsuleLayer(nn.Module):
         (its logit, noise included, is still returned)."""
         B = feature.shape[0]
         O = self.n_caps
+        lo, hi = self._own_capsules()
+        if hi - lo < O:
+            # the banks split over the model group: this rank's capsules
+            feature = mesh.to_model_ranks(feature)[:, lo:hi]
         raw_caps_param = self.mlps(feature)                   # (B, O, D)
 
+        caps_exist = None
         if self.caps_dropout_rate == 0.0:
-            caps_exist = torch.ones_like(raw_caps_param[..., :1])
+            own_exist = torch.ones_like(raw_caps_param[..., :1])
         else:
-            keep = torch.full((B, O, 1), 1.0 - self.caps_dropout_rate,
+            # drawn for the global batch under a mesh, this rank's rows kept
+            keep = torch.full((mesh.global_rows(B), O, 1),
+                              1.0 - self.caps_dropout_rate,
                               dtype=raw_caps_param.dtype,
                               device=raw_caps_param.device)
-            caps_exist = torch.bernoulli(keep, generator=generator)
-        caps_param = torch.cat([raw_caps_param, caps_exist], dim=-1)
+            caps_exist = mesh.local_rows(
+                torch.bernoulli(keep, generator=generator))
+            own_exist = caps_exist[:, lo:hi]
+        caps_param = torch.cat([raw_caps_param, own_exist], dim=-1)
         all_param = self.caps_mlps(caps_param)               # (B, O, A)
+        statics = [self.cpr_static] + [getattr(self, f"caps_bias_{i}")
+                                       for i in range(4)]
+        if hi - lo < O:
+            # every capsule's outputs before the first reduction over them
+            all_param, *statics = mesh.gather_capsules([all_param, *statics])
+        cpr_static, caps_bias = statics[0], statics[1:]
 
         chunks = [c.reshape(B, O, *s) for c, s in zip(
             torch.split(all_param, self.splits, dim=-1), self.output_shapes)]
@@ -121,12 +157,12 @@ class CapsuleLayer(nn.Module):
         if not self.allow_deformations:
             cpr_dynamic = torch.zeros_like(cpr_dynamic)
         cpr_dynamic_reg_loss = l2_loss(cpr_dynamic) / B
-        cpr = self._transform(cpr_dynamic + self.cpr_static)  # (B, O, V, 6)
+        cpr = self._transform(cpr_dynamic + cpr_static)       # (B, O, V, 6)
 
-        cvr = chunks[1] + self.caps_bias_0                    # (B, O, 1, P)
-        presence_logit_per_caps = chunks[2] + self.caps_bias_1
-        presence_logit_per_vote = chunks[3] + self.caps_bias_2
-        scale_per_vote = chunks[4] + self.caps_bias_3
+        cvr = chunks[1] + caps_bias[0]                        # (B, O, 1, P)
+        presence_logit_per_caps = chunks[2] + caps_bias[1]
+        presence_logit_per_vote = chunks[3] + caps_bias[2]
+        scale_per_vote = chunks[4] + caps_bias[3]
         if parent_transform is None:
             cvr = self._transform(cvr)                        # (B, O, 1, 6)
         else:
@@ -135,22 +171,23 @@ class CapsuleLayer(nn.Module):
                 *parent_transform.shape[:-2], 6)
         vote = affine_to_matrix(compose_affines(cvr, cpr))    # (B, O, V, 3, 3)
 
-        if self.caps_dropout_rate > 0.0:
+        if caps_exist is not None:
             presence_logit_per_caps = (presence_logit_per_caps
                                        + log_safe(caps_exist))
 
         def add_noise(t):
             if deterministic or not self.noise_type:
                 return t
+            if self.noise_type not in ("uniform", "logistic"):
+                raise ValueError(f"Invalid noise type: {self.noise_type}")
+            # drawn for the global batch under a mesh, this rank's rows kept
+            u = mesh.local_rows(torch.rand(
+                (mesh.global_rows(B), *t.shape[1:]), generator=generator,
+                dtype=t.dtype, device=t.device))
             if self.noise_type == "uniform":
-                u = torch.rand(t.shape, generator=generator, dtype=t.dtype,
-                               device=t.device)
                 return t + (u - 0.5) * self.noise_scale
-            if self.noise_type == "logistic":
-                u = torch.rand(t.shape, generator=generator, dtype=t.dtype,
-                               device=t.device).clamp(1e-7, 1 - 1e-7)
-                return t + torch.log(u / (1 - u)) * self.noise_scale
-            raise ValueError(f"Invalid noise type: {self.noise_type}")
+            u = u.clamp(1e-7, 1 - 1e-7)
+            return t + torch.log(u / (1 - u)) * self.noise_scale
 
         presence_logit_per_caps = add_noise(presence_logit_per_caps)
         presence_logit_per_vote = add_noise(presence_logit_per_vote)
@@ -295,8 +332,10 @@ def capsule_l2_loss(caps_presence, n_classes: int,
         within_example_constant = float(num_caps) / n_classes
     within = torch.mean(
         (torch.sum(caps_presence, 1) - within_example_constant) ** 2)
+    # the column sum and the constant of the global batch under a mesh
     between = torch.mean(
-        (torch.sum(caps_presence, 0) - float(B) / n_classes) ** 2)
+        (mesh.batch_sum(torch.sum(caps_presence, 0))
+         - float(mesh.global_rows(B)) / n_classes) ** 2)
     return within, between
 
 
@@ -304,7 +343,7 @@ def capsule_entropy_loss(caps_presence, k=1, **unused_kwargs):
     """Posterior sparsity: within / between normalised cross-entropy."""
     within_prob = normalize(caps_presence, 1)
     within = cross_entropy_safe(within_prob, within_prob * k)
-    between_prob = normalize(torch.sum(caps_presence, 0), 0)
+    between_prob = normalize(mesh.batch_sum(torch.sum(caps_presence, 0)), 0)
     between = cross_entropy_safe(between_prob, between_prob * k)
     return within, -between
 

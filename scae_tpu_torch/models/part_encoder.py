@@ -17,6 +17,7 @@ from scae_tpu_torch.models.layers import Conv2dStack, TorchConv2d
 from scae_tpu_torch.models.results import PartEncoderResult
 from scae_tpu_torch.ops.geometry import geometric_transform
 from scae_tpu_torch.ops.pooling import multiple_attention_pooling_2d
+from scae_tpu_torch.parallel import mesh
 from scae_tpu_torch.utils.shapes import conv_output_size
 
 
@@ -91,9 +92,11 @@ class CapsuleImageEncoder(nn.Module):
         feature = h[..., P + 1:] if S > 0 else None
 
         if not deterministic and self.noise_scale > 0.0:
-            noise = torch.rand(presence_logit.shape, generator=generator,
-                               dtype=presence_logit.dtype,
-                               device=presence_logit.device) - 0.5
+            # drawn for the global batch under a mesh, this rank's rows kept
+            noise = mesh.local_rows(torch.rand(
+                (mesh.global_rows(B), M), generator=generator,
+                dtype=presence_logit.dtype,
+                device=presence_logit.device)) - 0.5
             presence_logit = presence_logit + noise * self.noise_scale
 
         presence = torch.sigmoid(presence_logit)

@@ -30,6 +30,7 @@ from scae_tpu_torch.models.part_decoder import (
 from scae_tpu_torch.models.part_encoder import CapsuleImageEncoder
 from scae_tpu_torch.models.results import SCAEResult
 from scae_tpu_torch.models.set_transformer import SetTransformer
+from scae_tpu_torch.parallel import mesh
 
 
 class SCAE(nn.Module):
@@ -289,8 +290,13 @@ class SCAE(nn.Module):
         return loss, log
 
     def calculate_accuracy(self, res: SCAEResult, label):
+        """The better head's accuracy: the larger of the two heads' means
+        (under a mesh, the global batch's means)."""
         prior_acc = torch.mean(
             (torch.argmax(res.prior_cls_prob, dim=-1) == label).float())
         posterior_acc = torch.mean(
             (torch.argmax(res.posterior_cls_prob, dim=-1) == label).float())
+        if mesh.active() is not None:
+            prior_acc, posterior_acc = mesh.batch_mean(
+                torch.stack([prior_acc, posterior_acc])).unbind()
         return torch.maximum(prior_acc, posterior_acc)

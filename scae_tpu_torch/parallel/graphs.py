@@ -23,21 +23,47 @@ launches into the graph and counts once; a replay runs the graph's
 kernels without calling any wrapper and counts nothing. What a replay
 runs is read from the profiler's records of it (the card's tests and
 chip_smoke.py's graph phase).
+
+Under a mesh (``parallel/mesh.py``) the step's collectives are captured
+with the rest of it where the process group runs NCCL, whose collectives
+are stream work that a graph can hold. Gloo's collectives run on the host
+and wait for the card, which no graph can hold: under gloo the scans run
+the eager step instead (``captures_collectives``, the one place of that
+rule, which says so once on process 0).
 """
 
 import contextlib
 import gc
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
+from scae_tpu_torch.parallel.mesh import is_process_zero
+
 WARMUP_STEPS = 1
+_told = False   # whether captures_collectives has said its rule
 
 
 def tensors_key(tensors) -> tuple:
     """(address, shape, dtype) of each tensor: what a graph that reads
     them depends on."""
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+
+def captures_collectives(mesh) -> bool:
+    """Whether a scan on the card may capture its step in a graph under
+    ``mesh`` (a live mesh, or None): without one, or under NCCL, yes; under
+    any other backend (gloo) no, and the scan runs the eager step. Says so
+    once, on process 0."""
+    global _told
+    if mesh is None or mesh.backend == "nccl":
+        return True
+    if not _told and is_process_zero():
+        print(f"[scae_tpu_torch] mesh on {mesh.backend}: the scans run the "
+              f"eager step on the card ({mesh.backend}'s collectives cannot "
+              "be captured in a CUDA graph; NCCL's are)", flush=True)
+    _told = True
+    return False
 
 
 @contextlib.contextmanager
@@ -76,16 +102,23 @@ class StepGraph:
     and offset as they stand when it is replayed (the scan re-seeds them
     before each replay). ``pool``: the memory pool the capture allocates
     from (``torch.cuda.graph_pool_handle()``), shared by graphs that never
-    run at once; a private one when None. ``replay()`` runs the step and
-    returns its output tensor, which the next replay overwrites.
+    run at once; a private one when None. ``capture_error_mode``: as
+    ``torch.cuda.graph``'s, its default where None ("thread_local" lets
+    other threads, such as a process group's, query the card meanwhile).
+    ``replay()`` runs the step and returns its output tensor, which the
+    next replay overwrites.
     """
 
     def __init__(self, fn: Callable[[], torch.Tensor],
-                 generators: Sequence[torch.Generator] = (), pool=None):
+                 generators: Sequence[torch.Generator] = (), pool=None,
+                 capture_error_mode: Optional[str] = None):
         self.graph = torch.cuda.CUDAGraph()
         for generator in generators:
             self.graph.register_generator_state(generator)
-        with collector_off(), torch.cuda.graph(self.graph, pool=pool):
+        mode = {} if capture_error_mode is None else {
+            "capture_error_mode": capture_error_mode}
+        with collector_off(), torch.cuda.graph(self.graph, pool=pool,
+                                               **mode):
             self.out = fn()
 
     def replay(self) -> torch.Tensor:

@@ -124,8 +124,9 @@ def export_serving(model, *, image_shape: Sequence[int],
     ``mesh`` (a data-sharded artifact in the JAX package, its batch split
     over ``batch_axis``) is refused: with ``polymorphic_batch`` by
     ValueError, as there; on its own by NotImplementedError, until the
-    port has the parallel layer. The model's weights are its own (the JAX
-    function takes them as ``params``).
+    port's serving export is ported to its mesh (ROADMAP, queue 1). The
+    model's weights are its own (the JAX function takes them as
+    ``params``).
     """
     from scae_tpu_torch import __version__
 
@@ -135,8 +136,9 @@ def export_serving(model, *, image_shape: Sequence[int],
                 "polymorphic_batch and mesh are mutually exclusive: a "
                 "serialized sharding pins the batch partitioning")
         raise NotImplementedError(
-            "a data-sharded serving artifact (mesh=) needs the port's "
-            "parallel layer (ROADMAP, queue 1: parallel), not ported yet")
+            "a data-sharded serving artifact (mesh=) is not in the port's "
+            "parallel layer yet (ROADMAP, queue 1: export_serving on a "
+            "mesh)")
     device = resolve_device(device)
     check_model_device(model, device)
     c, h, w = image_shape

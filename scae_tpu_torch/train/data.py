@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from scae_tpu_torch.ops.warp import affine_warp
+from scae_tpu_torch.parallel import mesh
 
 _MNIST_FILES = {
     "train_images": "train-images-idx3-ubyte",
@@ -368,8 +369,11 @@ def random_translate(images: torch.Tensor, generator: torch.Generator,
     """Random per-sample integer translation by up to +-``max_shift``
     pixels, zeros shifted in (the reference's pad + RandomAffine(translate)
     augmentation, mnist/experiment.py:27-36)."""
-    ox, oy = draw_translation(images.shape[0], max_shift, generator)
-    return translate(images, ox, oy, max_shift)
+    # drawn for the global batch under a mesh, this rank's rows kept
+    ox, oy = draw_translation(mesh.global_rows(images.shape[0]), max_shift,
+                              generator)
+    return translate(images, mesh.local_rows(ox), mesh.local_rows(oy),
+                     max_shift)
 
 
 def draw_affine(batch_size: int, degrees: float, scale_jitter: float,
@@ -404,6 +408,7 @@ def random_affine(images: torch.Tensor, generator: torch.Generator,
     """Random per-sample rotation and isotropic zoom (the torchvision
     RandomAffine surface; integer translation stays in
     ``random_translate``)."""
-    theta, scale = draw_affine(images.shape[0], degrees, scale_jitter,
-                               generator)
-    return rotate_scale(images, theta, scale)
+    theta, scale = draw_affine(mesh.global_rows(images.shape[0]), degrees,
+                               scale_jitter, generator)
+    return rotate_scale(images, mesh.local_rows(theta),
+                        mesh.local_rows(scale))

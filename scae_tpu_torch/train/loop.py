@@ -31,8 +31,20 @@ And the JAX loop's four options around a run:
     logistic regression (``train/logreg.py``, sklearn's model without
     sklearn) and saved as a new checkpoint.
 
-A ``trainer.mesh`` of more than one device is refused with
-``NotImplementedError``: the port has no parallel layer yet.
+With ``trainer.mesh`` under a process group
+(``parallel.mesh.maybe_initialize_distributed``, as ``train/cli.py`` calls
+it) the Trainer does what the JAX loop does on its mesh: the state is
+replicated on every process (a ``n_model`` above 1 leaves the capsule
+banks whole, as JAX's replicated state does; ``parallel.train_step.
+shard_state`` splits them), each global batch is split over the data
+ranks, and the steps compute the global batch's loss, gradients and
+metrics. Its side effects happen on process 0 only: the metrics records,
+the image grids, the prints, ``train_seed.json`` and the checkpoints,
+which process 0 writes in the single-process format while the others
+wait at a barrier; every process restores them. ``mode=test`` leaves out
+the per-class recall on more than one process, as JAX's does. The seed
+probe and the head refit on a mesh of more than one device are refused
+(``NotImplementedError``).
 """
 
 import copy
@@ -48,6 +60,7 @@ import torch
 from scae_tpu_torch import factory
 from scae_tpu_torch.models.layers import init_parameters
 from scae_tpu_torch.optim import make_optimizer
+from scae_tpu_torch.parallel import mesh as mesh_lib
 from scae_tpu_torch.parallel import train_step
 from scae_tpu_torch.parallel.train_step import (
     TrainState,
@@ -127,21 +140,43 @@ def _finish_read(read) -> Dict[str, float]:
     return dict(zip(names, host.tolist()))
 
 
+def _say(message: str):
+    """Print ``message`` on process 0 only."""
+    if mesh_lib.is_process_zero():
+        print(message)
+
+
 def _refuse_deferred(cfg: Dict):
-    """Raise NotImplementedError for a config key whose feature the port
-    does not have yet (a mesh of more than one device), rather than
-    ignore it; ValueError for a ``trainer.template_init`` it does not
+    """ValueError for a ``trainer.template_init`` the port does not
     know."""
     trainer_cfg = cfg.get("trainer") or {}
-    mesh = trainer_cfg.get("mesh") or {}
-    if mesh.get("n_data") not in (None, 1) or mesh.get("n_model") not in (
-            None, 1):
-        raise NotImplementedError("not ported to scae_tpu_torch yet: "
-                                  "trainer.mesh of more than one device")
     if trainer_cfg.get("template_init") not in (None, "patches"):
         raise ValueError(f"trainer.template_init="
                          f"{trainer_cfg['template_init']!r}: expected null "
                          "or 'patches'")
+
+
+def _refuse_on_mesh(cfg: Dict, mesh: mesh_lib.Mesh):
+    """NotImplementedError for the features the port does not run on a
+    mesh of more than one device yet (ROADMAP, queue 1), rather than
+    ignore them; ValueError where the data ranks do not divide the
+    batch."""
+    trainer_cfg = cfg.get("trainer") or {}
+    if mesh.size > 1:
+        for key, on in (
+                ("trainer.seed_probe",
+                 int((trainer_cfg.get("seed_probe") or {}).get("n", 0)
+                     or 0) > 0),
+                ("trainer.head_refit", bool(trainer_cfg.get("head_refit")))):
+            if on:
+                raise NotImplementedError(
+                    f"not ported to scae_tpu_torch yet: {key} on a mesh of "
+                    f"more than one device ({mesh.n_data}x{mesh.n_model}; "
+                    "ROADMAP, queue 1)")
+    batch = cfg["data_loader"]["batch_size"]
+    if batch % mesh.n_data:
+        raise ValueError(f"data_loader.batch_size={batch} does not split "
+                         f"over the mesh's {mesh.n_data} data ranks")
 
 
 class Trainer:
@@ -149,6 +184,13 @@ class Trainer:
         _refuse_deferred(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        mesh_cfg = (cfg.get("trainer") or {}).get("mesh") or {}
+        mesh = mesh_lib.make_mesh(n_data=mesh_cfg.get("n_data"),
+                                  n_model=mesh_cfg.get("n_model", 1))
+        _refuse_on_mesh(cfg, mesh)
+        # None without a process group: the single-process path
+        self.mesh = mesh_lib.live(mesh)
+        self.main = mesh_lib.is_process_zero()
         self.model_cfg = dict(cfg["model"])
         self.model = factory.make_scae(self.model_cfg, device=self.device,
                                        seed=cfg.get("seed", 42))
@@ -164,7 +206,8 @@ class Trainer:
         self.split_seed = cfg["data_loader"].get("split_seed")
 
         self.log_dir = trainer_cfg.get("log_dir", "./logs")
-        self.writer = MetricsWriter(self.log_dir)
+        # the metrics records are process 0's
+        self.writer = MetricsWriter(self.log_dir) if self.main else None
         self.monitor = trainer_cfg.get("monitor", "val_loss")
         self.monitor_mode = trainer_cfg.get("monitor_mode", "min")
         _top_k = trainer_cfg.get("save_top_k", 3)
@@ -223,9 +266,9 @@ class Trainer:
         # K train steps per call on device-resident data; one host sync
         # per chunk, when its metrics are read
         self.train_scan = make_train_scan(augment_fn=augment,
-                                          device=self.device)
+                                          device=self.device, mesh=self.mesh)
         self.eval_scan = make_eval_scan(self.model, canvas=self.canvas,
-                                        device=self.device)
+                                        device=self.device, mesh=self.mesh)
 
         # lr bookkeeping for the per-epoch log (base_experiment.py:98-104)
         lr0 = float(opt_cfg["learning_rate"])
@@ -284,7 +327,7 @@ class Trainer:
         patched = np.log(p / (1.0 - p)) if nonlin == "sigmoid" else p
         with torch.no_grad():
             logits.copy_(torch.from_numpy(patched))
-        print(f"[scae_tpu_torch] template_init=patches: {M} crops from "
+        _say(f"[scae_tpu_torch] template_init=patches: {M} crops from "
               f"{N} train images (nonlin={nonlin})")
 
     def _maybe_patch_templates(self, state, train_ds, seed: int):
@@ -333,7 +376,7 @@ class Trainer:
                     f"init_from={path!r} step {step}: checkpoint "
                     "parameters do not match this model architecture "
                     "(names / shapes / dtypes differ)")
-            print(f"[scae_tpu_torch] warm start: params from {path} "
+            _say(f"[scae_tpu_torch] warm start: params from {path} "
                   f"step {step}")
             self._warm_params = cached
         return cached
@@ -416,7 +459,7 @@ class Trainer:
         rec = self._recorded_seed()
         if rec is not None:
             seed = rec
-            print(f"[scae_tpu_torch] test: recorded training seed {seed}")
+            _say(f"[scae_tpu_torch] test: recorded training seed {seed}")
         train_ds, _, test_ds, source = self._load_datasets(seed)
         steps_per_epoch = max(len(train_ds) // self.batch_size, 1)
         self.build_steps(steps_per_epoch)
@@ -432,18 +475,20 @@ class Trainer:
         # split (remainder padded and trimmed): evaluate()'s scan floors to
         # (n // B) * B examples, so its accuracy is kept as
         # test_accuracy_scan
-        if "test_accuracy" in metrics:
-            metrics["test_accuracy_scan"] = metrics["test_accuracy"]
-        metrics.update(self._per_class_recall(test_ds))
-        self.writer.scalars(int(state.step), metrics)
-        print(f"[scae_tpu_torch] test @ ckpt {step} ({source}): "
+        if mesh_lib.process_count() == 1:
+            if "test_accuracy" in metrics:
+                metrics["test_accuracy_scan"] = metrics["test_accuracy"]
+            metrics.update(self._per_class_recall(test_ds))
+        if self.main:
+            self.writer.scalars(int(state.step), metrics)
+        _say(f"[scae_tpu_torch] test @ ckpt {step} ({source}): "
               + ", ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())
                           if k in ("test_loss", "test_accuracy",
                                    "test_rec_ll_loss")))
         recalls = [(k, v) for k, v in sorted(metrics.items())
                    if k.startswith("test_class")]
         if recalls:
-            print("[scae_tpu_torch] per-class recall: "
+            _say("[scae_tpu_torch] per-class recall: "
                   + ", ".join(f"{k.split('_')[-2][5:]}={v:.2f}"
                               for k, v in recalls))
         return metrics
@@ -554,11 +599,11 @@ class Trainer:
                     else None
             graphs = {k: v - captured[k]
                       for k, v in train_step.captures.items()}
-            print(f"[scae_tpu_torch] seed probe {s}: val_rec_ll={score:.2f} "
+            _say(f"[scae_tpu_torch] seed probe {s}: val_rec_ll={score:.2f} "
                   f"({probe_epochs} epochs; CUDA graphs captured: "
                   f"{graphs['train']} train, {graphs['eval']} eval)")
         best = min(results)[1]
-        print(f"[scae_tpu_torch] seed probe winner: {best} "
+        _say(f"[scae_tpu_torch] seed probe winner: {best} "
               f"(of {[s for _, s in results]})")
         if leader is not None:
             state = load_payload(
@@ -584,7 +629,7 @@ class Trainer:
             rec = self._recorded_seed()
             if rec is not None:
                 seed = rec
-                print(f"[scae_tpu_torch] resume: recorded training seed "
+                _say(f"[scae_tpu_torch] resume: recorded training seed "
                       f"{seed}")
             elif n_probe > 0:
                 raise FileNotFoundError(
@@ -595,12 +640,14 @@ class Trainer:
             if n_probe > 0:
                 seed, probe_state = self.probe_seeds(
                     seed, n_probe, int(probe.get("epochs", 200)))
-            with open(os.path.join(self.ckpt.directory,
-                                   "train_seed.json"), "w") as f:
-                json.dump({"seed": seed, "split_seed": self.split_seed}, f)
+            if self.main:
+                with open(os.path.join(self.ckpt.directory,
+                                       "train_seed.json"), "w") as f:
+                    json.dump({"seed": seed, "split_seed": self.split_seed},
+                              f)
 
         train_ds, val_ds, test_ds, source = self._load_datasets(seed)
-        print(f"[scae_tpu_torch] dataset source: {source} "
+        _say(f"[scae_tpu_torch] dataset source: {source} "
               f"(train={len(train_ds)}, val={len(val_ds)}, "
               f"test={len(test_ds)})")
 
@@ -610,14 +657,14 @@ class Trainer:
             # the winner's probe training continues (the same datasets and
             # index stream as a run from its init would see)
             state = probe_state
-            print(f"[scae_tpu_torch] continuing probe winner from step "
+            _say(f"[scae_tpu_torch] continuing probe winner from step "
                   f"{state.step}")
         else:
             state = self.init_state(seed)
             state = self._maybe_patch_templates(state, train_ds, seed)
         if resuming:
             state = self.ckpt.restore(state)
-            print(f"[scae_tpu_torch] resumed from step {state.step}")
+            _say(f"[scae_tpu_torch] resumed from step {state.step}")
 
         # the training split lives on the device; per chunk only a (K, B)
         # index array moves
@@ -653,9 +700,10 @@ class Trainer:
             host = _finish_read(p_read)
             end = time.time() if next_start is None else next_start
             rate = p_k * self.batch_size / max(end - p_start, 1e-9)
-            self.writer.scalars(p_step,
-                                {**host, "images_per_sec": rate,
-                                 "learning_rate": self.lr_at(p_step)})
+            if self.main:
+                self.writer.scalars(p_step,
+                                    {**host, "images_per_sec": rate,
+                                     "learning_rate": self.lr_at(p_step)})
 
         # epoch and intra-epoch position derive from the restored step, so
         # a resumed run consumes exactly the indices a never-interrupted
@@ -719,9 +767,11 @@ class Trainer:
                     or epoch >= max_epochs:
                 val_metrics, viz_images = self.evaluate(
                     val_ds, max_batches=trainer_cfg.get("max_eval_batches"))
-                self.writer.scalars(global_step, val_metrics)
-                if viz_images is not None:
-                    self.write_viz(global_step, viz_images)
+                if self.main:
+                    # the records and grids are process 0's
+                    self.writer.scalars(global_step, val_metrics)
+                    if viz_images is not None:
+                        self.write_viz(global_step, viz_images)
                 if self.monitor not in val_metrics:
                     # a typo'd monitor or an empty eval pass must not
                     # silently rank every checkpoint at a default score
@@ -729,16 +779,20 @@ class Trainer:
                         f"trainer.monitor={self.monitor!r} not in eval "
                         f"metrics {sorted(val_metrics)} (empty means the "
                         "val split is smaller than one batch)")
-                self.ckpt.save(
-                    global_step, lambda: state,
-                    metrics={self.monitor: float(
-                        val_metrics[self.monitor])})
+                if self.main:
+                    # the state is replicated: process 0 writes it whole,
+                    # the others wait until it is there
+                    self.ckpt.save(
+                        global_step, lambda: state,
+                        metrics={self.monitor: float(
+                            val_metrics[self.monitor])})
+                mesh_lib.barrier()
             if stop:
                 break
 
         self.ckpt.wait()
         if train_seconds > 0:
-            print(f"[scae_tpu_torch] trained {train_images} images in "
+            _say(f"[scae_tpu_torch] trained {train_images} images in "
                   f"{train_seconds!r} s of training wall time (evals, grids "
                   f"and checkpoints excluded): "
                   f"{train_images / train_seconds!r} images/s")
@@ -782,12 +836,12 @@ class Trainer:
         posterior classifier. The Trainer's model is left as it was."""
         best = self.ckpt.best_step or self.ckpt.latest_step
         if best is None:
-            print("[scae_tpu_torch] head_refit: no retained checkpoint "
+            _say("[scae_tpu_torch] head_refit: no retained checkpoint "
                   "(trainer.save_top_k=0?) — skipped")
             return None
         if "posterior_classifier.weight" not in \
                 self.ckpt.restore_params(step=best):
-            print("[scae_tpu_torch] head_refit: model has no posterior "
+            _say("[scae_tpu_torch] head_refit: model has no posterior "
                   "classifier — skipped")
             return None
         # the caller's parameters (the run's last state) come back after
@@ -811,7 +865,7 @@ class Trainer:
                 if best_fit is None or acc > best_fit[1]:
                     best_fit = (fitted, acc, C)
             fitted, probe_val, c_star = best_fit
-            print(f"[scae_tpu_torch] head_refit: features of {len(Xtr)} + "
+            _say(f"[scae_tpu_torch] head_refit: features of {len(Xtr)} + "
                   f"{len(Xval)} examples in {seconds[0]!r} s; fits of "
                   f"C={list(c_grid)} in {seconds[1:]!r} s")
             head = self.model.posterior_classifier
@@ -838,7 +892,7 @@ class Trainer:
                 raise RuntimeError(
                     f"head_refit: checkpoint manager refused save at step "
                     f"{refit_step} (latest={self.ckpt.latest_step})")
-            print(f"[scae_tpu_torch] head_refit: C*={c_star} probe val "
+            _say(f"[scae_tpu_torch] head_refit: C*={c_star} probe val "
                   f"{probe_val:.4f}; refit ckpt {refit_step} "
                   f"{self.monitor}={vm[self.monitor]:.4f} "
                   f"(best was ckpt {best})")
@@ -849,5 +903,6 @@ class Trainer:
     def close(self):
         """Close the metrics file (and TensorBoard writer) and the
         checkpoint manager."""
-        self.writer.close()
+        if self.writer is not None:
+            self.writer.close()
         self.ckpt.close()

@@ -35,7 +35,7 @@ def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
                  "kernels.probe", "ops.decoder_ll", "ops.attention",
                  "config", "train.checkpoint", "train.metrics", "train.cli",
                  "tools.probe", "serve", "tools.export_model",
-                 "train.logreg"):
+                 "train.logreg", "parallel.mesh"):
         assert f"scae_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, os, sys

@@ -16,10 +16,12 @@ tests/test_train_smoke.py:
     4-step run bit for bit: index stream, logged losses, parameters;
   * ``run_test`` evaluates floor(n / B) batches and reports the accuracy
     and per-class recall over all n examples;
-  * a mesh of more than one device, the one Trainer feature not ported
-    yet, raises NotImplementedError naming it (the other four are held in
-    test_torch_trainer_features.py); the CLI parses overrides as
-    scae_tpu's does.
+  * on a mesh of more than one device the seed probe and the head refit,
+    not ported to the mesh yet, raise NotImplementedError naming them, and
+    a batch the data ranks do not divide raises ValueError (the mesh is
+    held in test_torch_mesh.py and test_torch_mesh_trainer.py, the four
+    options in test_torch_trainer_features.py); the CLI parses overrides
+    as scae_tpu's does.
 
 Both sides run in float32 (f32 convolutions and likelihood taps, as
 ``fused_tap_dtype: float32`` and ``compute_dtype: null`` ask) so that the
@@ -43,6 +45,7 @@ from scae_tpu.train import loop as j_loop
 from scae_tpu_torch.config import load_config as t_load_config
 from scae_tpu_torch.factory import make_scae as t_make_scae
 from scae_tpu_torch.optim import make_optimizer as t_make_optimizer
+from scae_tpu_torch.parallel import mesh as t_mesh
 from scae_tpu_torch.parallel import train_step as t_train_step
 from scae_tpu_torch.train import cli as t_cli
 from scae_tpu_torch.train import loop as t_loop
@@ -426,13 +429,22 @@ def test_init_state_redraws_the_parameters_in_place(tmp_path):
         assert torch.equal(got[k], fresh[k]), k
 
 
-@pytest.mark.parametrize("override,key", [
-    ("trainer.mesh.n_data=2", "trainer.mesh"),
-    ("trainer.mesh.n_model=2", "trainer.mesh"),
+@pytest.mark.parametrize("override,error,match", [
+    ("trainer.seed_probe.n=2", NotImplementedError, r"trainer\.seed_probe"),
+    ("trainer.head_refit=true", NotImplementedError, r"trainer\.head_refit"),
+    ("data_loader.batch_size=15", ValueError, "batch_size=15"),
 ])
-def test_deferred_features_are_refused(tmp_path, override, key):
-    cfg = t_load_config("config", overrides(tmp_path, "r", override))
-    with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+def test_deferred_features_are_refused(tmp_path, monkeypatch, override,
+                                       error, match):
+    """On a mesh of two data ranks (its layout alone: the Trainer checks
+    its config against it before it uses any group), the seed probe and
+    the head refit are refused by name, and a batch the data ranks do not
+    divide by ValueError."""
+    monkeypatch.setattr(t_loop.mesh_lib, "make_mesh",
+                        lambda n_data=None, n_model=1: t_mesh.Mesh(2, 1))
+    cfg = t_load_config("config", overrides(tmp_path, "r", override,
+                                            "trainer.mesh.n_data=2"))
+    with pytest.raises(error, match=match):
         t_loop.Trainer(cfg, device="cpu")
 
 
