@@ -8,6 +8,7 @@
         # only the training CLI's card-vs-CPU comparison over 8 steps,
         # each step's gap printed (a measurement; no result line)
     python3 chip_smoke.py --mesh     # only the mesh phase (no result line)
+    python3 chip_smoke.py --tools    # only the tools phase (no result line)
 
 Phases, each announced when it starts and when it ends, with its seconds:
 
@@ -128,6 +129,22 @@ Phases, each announced when it starts and when it ends, with its seconds:
           each artifact and of the live infer function; then
           python -m scae_tpu_torch.tools.export_model on the refit run's
           checkpoints, which must exit 0
+  tools   the port's model tools (scae_tpu_torch/tools/) on the card: two
+          model=mnist members (full width, f32 convs) trained through the
+          CLI for 1 epoch of a synthetic 1,024 / 512 / 256 split shared by
+          split_seed; ensemble_eval, ensemble_pool (a group a member,
+          --dump-probs), probe_eval (--c-grid 10 100) and probe_calibrate
+          (--c-star, probe_eval's) on them; the card's calibrated
+          checkpoint exported with the attention flag at batch 128, then
+          verify_serving_readout and bench_serving on it. Each tool on the
+          card and with --device cpu. Against the CPU: the models' class
+          probabilities within 2e-3 (the probes' printed: their fits stop
+          at the iteration cap), the same C*, each accuracy within the
+          examples whose argmax the probabilities leave unsettled (top
+          two within 2e-3 or twice the gap, or members disagreeing); the
+          launch counts (K1 and K2+K3 in the members' graph scans, K6 4 a
+          call of the artifact, none in the tools' forwards, which never
+          read the likelihood) and each tool's seconds
   mesh    the mesh (parallel/mesh.py) on the one card. Two gloo processes
           (NCCL refuses two ranks on one card) from the state of a
           one-process run, f32 convs, TF32 off, deterministic cuDNN, the
@@ -147,7 +164,16 @@ Phases, each announced when it starts and when it ends, with its seconds:
           the capture), against the CLI with no group (JSONL losses bit for
           bit, or the gap printed); then the CLI on two gloo processes: 2
           epochs, a resume, mode=test, process 0 alone logging and
-          checkpointing. ``--mesh`` runs this phase alone.
+          checkpointing. The step ranks also export the flag-on
+          flagship on 2x1 at global batch 128 (serve.export_serving(mesh=))
+          and call it: predictions equal to the one-process artifact's,
+          every other output within 1e-4 of its largest entry, K6 4 a
+          call on each rank. Last, the CLI with trainer.seed_probe.n=2 and
+          head_refit on two gloo processes (the probe alone with no group
+          as the reference): the ranks continue the same seed, each
+          candidate's score beside one process's, process 0 alone saves
+          the checkpoints, the refit's once. ``--mesh`` runs this phase
+          alone.
 
 Every number is printed beside the card's name and power limit. Imports
 torch, numpy, the standard library and scae_tpu_torch only. Exits
@@ -1347,11 +1373,12 @@ def zero_kernel_counts():
     kp.affine_launches = kp.matmul_launches = 0
 
 
-def check_kernel_counts(card, rows, what, expected):
-    """Read every launch count after a run from zero; fail unless each
-    equals ``expected`` (0 for a kernel not named); add them to the kernel
-    rows' ``launches`` when ``rows`` is given."""
-    counts = kernel_counts()
+def check_kernel_counts(card, rows, what, expected, counts=None):
+    """Read every launch count after a run from zero (or take ``counts``,
+    read so before); fail unless each equals ``expected`` (0 for a kernel
+    not named); add them to the kernel rows' ``launches`` when ``rows`` is
+    given."""
+    counts = kernel_counts() if counts is None else counts
     want = {k: expected.get(k, 0) for k in KERNELS}
     say(f"launches over {what}: "
         + ", ".join(f"{k} {counts[k]}" for k in KERNELS) + f" [{card}]")
@@ -2612,20 +2639,15 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
     artifact beside the live infer function's; then
     ``python -m scae_tpu_torch.tools.export_model`` on the trainer phase's
     checkpoint directory."""
-    import numpy as np
-
     from scae_tpu_torch import serve
-    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
+    from scae_tpu_torch.factory import make_scae
     from scae_tpu_torch.kernels import attention as k6
 
     os.makedirs(tmp, exist_ok=True)
     cuda = torch.device("cuda")
-    params = dict(FLAGSHIP_MODEL_PARAMS,
-                  pcae_decoder_params=dict(fused_impl="xla"))
+    model, params, x = serve_model_and_input(torch)
+    model.obj_encoder.use_pallas_attention = False
     shape = tuple(params["image_shape"])
-    model = make_scae(params, device=cuda, seed=0)
-    x = torch.from_numpy(np.random.RandomState(0).rand(
-        BATCH, *shape).astype(np.float32))
     live = serve.make_infer_fn(model, device=cuda)
     artifacts = {}
     for flag in (False, True):
@@ -2726,6 +2748,317 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
     result = json.loads(run.stdout.strip().splitlines()[-1])
     say(f"export_model on {ckpt_dir}: step {result['step']}, "
         f"{time.perf_counter() - t0!r} s, exit 0 [{card}]")
+
+
+# -------------------------------------------------------------- tools
+
+# the members the model tools act on: model=mnist at full width, f32
+# convolutions and taps (the card is held to the CPU), one epoch of the
+# synthetic 1,024 / 512 / 256 split shared through split_seed
+TOOLS_CLI = ["model=mnist", "data_loader.source=synthetic",
+             "data_loader.synthetic_train=1536", "data_loader.val_size=512",
+             "data_loader.synthetic_test=256", "data_loader.split_seed=7",
+             "model.pcae_cnn_encoder_params.compute_dtype=null",
+             "model.pcae_decoder_params.fused_tap_dtype=float32",
+             "trainer.max_epochs=1", "trainer.log_every_steps=4"]
+TOOLS_SEEDS = (1, 2)
+# card vs CPU, abs, on the models' class probabilities (the forwards' and
+# the artifact's); the logistic probes' (and a head they rewrote) are
+# printed, not held: at C=100 their float64 fits stop at the
+# 5,000-iteration cap on one epoch's flat features, card and CPU at other
+# points (3.3e-3 apart in one call)
+TOOLS_PROB_TOL = 2e-3
+BENCH_REPEATS = 20
+TOOLS = ("ensemble_eval", "ensemble_pool", "probe_eval", "probe_calibrate",
+         "verify_serving_readout", "bench_serving")
+
+
+def unsettled(arrays, tol):
+    """The rows (a boolean mask) on which some weighted mean of the
+    probability arrays (each (n, K)) may have its two largest entries
+    within ``tol``: where the arrays disagree on the argmax, or one
+    array's top two lie within ``tol``. Elsewhere every mean keeps the
+    argmax with a margin above ``tol``, so a card-vs-CPU gap of at most
+    ``tol / 2`` cannot move a prediction there."""
+    import numpy as np
+
+    arrays = np.stack(arrays)
+    top = np.sort(arrays, axis=-1)
+    best = arrays.argmax(-1)
+    return (np.any(best != best[0], axis=0)
+            | np.any(top[..., -1] - top[..., -2] <= tol, axis=0))
+
+
+@contextlib.contextmanager
+def recorded_probabilities():
+    """Record, in call order, every class-probability array the tools
+    compute, as (kind, array): "model" for the forwards' outputs whose
+    rows sum to 1 (``loop.forward_outputs``) and a serving artifact's
+    ``posterior_cls_prob``, "probe" for the logistic probes'
+    (``logreg.LogisticFit.scores``, softmaxed) and for every output after
+    the first of those (a model whose head a probe rewrote)."""
+    import numpy as np
+
+    from scae_tpu_torch import serve
+    from scae_tpu_torch.train import logreg, loop
+
+    arrays = []
+    forward, scores, call = (loop.forward_outputs,
+                             logreg.LogisticFit.scores,
+                             serve.ServingModel.__call__)
+
+    def keep(kind, a):
+        a = np.asarray(a, np.float64)
+        if a.ndim == 2 and np.allclose(a.sum(-1), 1.0, atol=1e-3):
+            probed = any(k == "probe" for k, _ in arrays)
+            arrays.append(("probe" if probed else kind, a))
+
+    def recording_forward(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        for a in out:
+            keep("model", a)
+        return out
+
+    def recording_scores(self, X):
+        s = scores(self, X)
+        e = np.exp(s - s.max(axis=1, keepdims=True))
+        keep("probe", e / e.sum(axis=1, keepdims=True))
+        return s
+
+    def recording_call(self, image):
+        out = call(self, image)
+        keep("model", out["posterior_cls_prob"].detach().cpu().numpy())
+        return out
+
+    loop.forward_outputs = recording_forward
+    logreg.LogisticFit.scores = recording_scores
+    serve.ServingModel.__call__ = recording_call
+    try:
+        yield arrays
+    finally:
+        loop.forward_outputs = forward
+        logreg.LogisticFit.scores = scores
+        serve.ServingModel.__call__ = call
+
+
+def tools_argv(name, tmp, where, c_star=None):
+    """The arguments of tool ``name`` in the tools phase's directory
+    ``tmp``, on the card or (``where`` "cpu") with --device cpu;
+    probe_calibrate is baked at ``c_star``, its side's pooled C*."""
+    ckpts = [os.path.join(tmp, f"member{s}", "ckpt") for s in TOOLS_SEEDS]
+    spec = os.path.join(tmp, "spec.json")
+    artifact = os.path.join(tmp, "artifact")
+    argv = {
+        "ensemble_eval": ckpts + ["--"] + TOOLS_CLI,
+        "ensemble_pool": [spec, "--dump-probs",
+                          os.path.join(tmp, f"pool_{where}.npz")],
+        # two of the four default Cs: each fit takes 6-10 s on the host
+        "probe_eval": [spec, "--c-grid", "10", "100"],
+        "probe_calibrate": [ckpts[0], "--out",
+                            os.path.join(tmp, f"calibrated_{where}"),
+                            "--c-star", str(c_star), "--"] + TOOLS_CLI,
+        "verify_serving_readout": [artifact, "--ckpt",
+                                   os.path.join(tmp, "calibrated_card"),
+                                   "--"] + TOOLS_CLI,
+        "bench_serving": [artifact, "--repeats",
+                          str(BENCH_REPEATS if where == "card" else 2)],
+    }[name]
+    return (["--device", "cpu"] if where == "cpu" else []) + argv
+
+
+def run_tool(torch, name, argv):
+    """``scae_tpu_torch.tools.<name>.main(argv)`` in this process, its
+    output captured: its result, the probabilities it computed
+    (``recorded_probabilities``), its seconds, output and launch
+    counts."""
+    import importlib
+
+    module = importlib.import_module(f"scae_tpu_torch.tools.{name}")
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    with recorded_probabilities() as arrays, \
+            contextlib.redirect_stdout(io.StringIO()) as text:
+        result = module.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {"result": result, "arrays": arrays,
+            "seconds": time.perf_counter() - t0, "text": text.getvalue(),
+            "counts": kernel_counts()}
+
+
+def tools_phase(torch, card, rows, tmp):
+    """The port's model tools on the card against the same tools with
+    ``--device cpu`` on the same checkpoints: two model=mnist members
+    trained through the CLI (graph scans), then ensemble_eval,
+    ensemble_pool (a group a member), probe_eval and probe_calibrate on
+    them; the card's calibrated checkpoint exported with the attention
+    flag (K6) at batch 128, and verify_serving_readout and bench_serving
+    on the artifact.
+    Each tool's launch counts are held to the ones its batches imply, its
+    models' class probabilities to the CPU run's within TOOLS_PROB_TOL,
+    its C* to the CPU run's, and each accuracy to the CPU run's within
+    the ``unsettled`` rows."""
+    import numpy as np
+
+    from scae_tpu_torch import serve
+    from scae_tpu_torch.config import load_config
+    from scae_tpu_torch.factory import make_scae
+    from scae_tpu_torch.parallel import train_step
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
+    from scae_tpu_torch.train import cli
+    from scae_tpu_torch.train.checkpoint import CheckpointManager
+
+    os.makedirs(tmp, exist_ok=True)
+    n_train, n_val, n_test = 1024, 512, 256
+    n_batches = -(-n_test // BATCH)
+    for seed in TOOLS_SEEDS:
+        out = os.path.join(tmp, f"member{seed}")
+        zero_kernel_counts()
+        for k in train_step.captures:
+            train_step.captures[k] = 0
+        t0 = time.perf_counter()
+        run_cli(cli, TOOLS_CLI + [f"seed={seed}",
+                                  f"trainer.checkpoint_dir={out}/ckpt",
+                                  f"trainer.log_dir={out}/logs"])
+        torch.cuda.synchronize()
+        caps = dict(train_step.captures)
+        per = WARMUP_STEPS + 1
+        check_kernel_counts(
+            card, rows, f"training member {seed} through the CLI "
+            f"({caps['train']} train and {caps['eval']} eval graphs "
+            "captured)", {"K1": per * (caps["train"] + caps["eval"]),
+                          "K2+K3": per * caps["train"]})
+        say(f"tools: member {seed} (model=mnist, f32 convs, 1 epoch of "
+            f"{n_train} images, batch {BATCH}) trained in "
+            f"{time.perf_counter() - t0!r} s [{card}]")
+    with open(os.path.join(tmp, "spec.json"), "w") as f:
+        json.dump({"split_seed": 7, "groups": [
+            {"name": f"m{seed}", "overrides": TOOLS_CLI,
+             "members": [{"run": os.path.join(tmp, f"member{seed}", "ckpt"),
+                          "log": os.path.join(tmp, f"member{seed}",
+                                              "logs")}]}
+            for seed in TOOLS_SEEDS]}, f)
+
+    runs = {"card": {}, "cpu": {}}
+    for name in TOOLS:
+        if name == "verify_serving_readout":
+            # the card's calibrated checkpoint, exported with the
+            # attention flag
+            mk = dict(load_config("config", TOOLS_CLI)["model"])
+            mk["pcae_decoder_params"] = dict(mk["pcae_decoder_params"],
+                                             fused_impl="xla")
+            model = make_scae(mk, device=torch.device("cuda"))
+            model.load_state_dict(CheckpointManager(os.path.join(
+                tmp, "calibrated_card")).restore_params(
+                    step=runs["card"]["probe_calibrate"]["result"]["step"]))
+            model.obj_encoder.use_pallas_attention = True
+            serve.export_serving(model, image_shape=mk["image_shape"],
+                                 batch_size=BATCH,
+                                 out_dir=os.path.join(tmp, "artifact"),
+                                 device=torch.device("cuda"),
+                                 model_config=mk)
+        for where, done in runs.items():
+            # probe_calibrate bakes its side's pooled C*
+            c_star = done.get("probe_eval", {}).get("result", {}).get(
+                "c_star")
+            done[name] = run_tool(torch, name,
+                                  tools_argv(name, tmp, where, c_star))
+
+    failures = []
+    expected = {"verify_serving_readout": {"K6": 4 * n_batches},
+                "bench_serving": {"K6": 4 * (1 + BENCH_REPEATS)}}
+    accuracies = {
+        "ensemble_eval": {"prior_acc": n_test, "posterior_acc": n_test,
+                          "ensemble_acc": n_test},
+        "ensemble_pool": {k: n_test for k in (
+            "pooled_prior", "pooled_posterior", "pooled_valw_posterior",
+            "pooled_tophalf_posterior", "group_m1_posterior",
+            "group_m2_posterior")},
+        "probe_eval": {"mean_val_acc": n_val, "member_test_accs": n_test,
+                       "pooled_test": n_test, "group_m1_test": n_test,
+                       "group_m2_test": n_test},
+        "probe_calibrate": {"val_before": n_val, "val_probe": n_val,
+                            "val_after": n_val},
+        "verify_serving_readout": {"test_accuracy": n_test},
+        "bench_serving": {}}
+    for name in TOOLS:
+        card_run, cpu_run = runs["card"][name], runs["cpu"][name]
+        for where, run in (("card", card_run), ("cpu", cpu_run)):
+            for line in run["text"].splitlines():
+                say(f"  {name} ({where}): {line}")
+        check_kernel_counts(card, rows, f"{name} on the card",
+                            expected.get(name, {}), card_run["counts"])
+        if any(cpu_run["counts"].values()):
+            failures.append(f"{name} with --device cpu launched "
+                            f"{cpu_run['counts']}")
+        card_res, cpu_res = card_run["result"], cpu_run["result"]
+        # bench_serving calls the artifact 21 times on the card, 3 on the
+        # CPU: its probabilities are not paired
+        pairs = [] if name == "bench_serving" else list(
+            zip(card_run["arrays"], cpu_run["arrays"]))
+        if name != "bench_serving" and \
+                len(card_run["arrays"]) != len(cpu_run["arrays"]):
+            failures.append(f"{name}: {len(card_run['arrays'])} probability"
+                            f" arrays on the card, {len(cpu_run['arrays'])}"
+                            " on the CPU")
+        gaps = {"model": 0.0, "probe": 0.0}
+        for (kind, a), (kind_cpu, b) in pairs:
+            if kind != kind_cpu or a.shape != b.shape:
+                failures.append(f"{name}: {kind} {a.shape} against "
+                                f"{kind_cpu} {b.shape}")
+                continue
+            gaps[kind] = max(gaps[kind], float(np.abs(a - b).max()))
+        if not gaps["model"] <= TOOLS_PROB_TOL:
+            failures.append(f"{name}: the models' class probabilities "
+                            f"{gaps['model']:.3e} apart, beyond "
+                            f"{TOOLS_PROB_TOL}")
+        if card_res.get("c_star") != cpu_res.get("c_star"):
+            failures.append(f"{name}: C* {card_res.get('c_star')} on the "
+                            f"card, {cpu_res.get('c_star')} on the CPU")
+        # a prediction moves only where the top two lie within twice the
+        # largest gap of the probabilities it was taken from
+        margin = max(TOOLS_PROB_TOL, 2 * max(gaps.values()))
+        notes = []
+        for key, n in accuracies[name].items():
+            arrays = [a for _, a in card_run["arrays"] + cpu_run["arrays"]
+                      if len(a) == n]
+            allowed = int(unsettled(arrays, margin).sum()) if arrays else 0
+            got, want = np.asarray(card_res[key]), np.asarray(cpu_res[key])
+            # examples apart (a mean over members counts a member's one
+            # example as a part of one; the JSON's 6 decimals as none)
+            off = math.ceil(float(np.max(np.abs(got - want))) * n - 1e-3)
+            notes.append(f"{key} {card_res[key]} (cpu {cpu_res[key]}, "
+                         f"{off} of {n} examples apart, {allowed} "
+                         "unsettled)")
+            if off > allowed:
+                failures.append(f"{name}: {key} differs by {off} "
+                                f"examples, {allowed} unsettled")
+        say(f"tools: {name}: {card_run['seconds']!r} s on the card, "
+            f"{cpu_run['seconds']!r} s with --device cpu; the models' "
+            f"class probabilities within {gaps['model']:.3e} of the CPU's, "
+            f"the probes' within {gaps['probe']:.3e} ({len(pairs)} arrays)"
+            + (f"; C* {card_res['c_star']}" if "c_star" in card_res else "")
+            + "".join(f"; {note}" for note in notes) + f" [{card}]")
+    pool = {w: np.load(os.path.join(tmp, f"pool_{w}.npz"))
+            for w in ("card", "cpu")}
+    dump_gap = max(float(np.abs(pool["card"][k] - pool["cpu"][k]).max())
+                   for k in ("prior", "posterior"))
+    if not dump_gap <= TOOLS_PROB_TOL or not np.array_equal(
+            pool["card"]["labels"], pool["cpu"]["labels"]):
+        failures.append(f"ensemble_pool --dump-probs: {dump_gap:.3e} apart")
+    bench = runs["card"]["bench_serving"]["result"]
+    if sorted(bench) != sorted(runs["cpu"]["bench_serving"]["result"]) \
+            or bench["backend"] != "cuda":
+        failures.append(f"bench_serving: keys {sorted(bench)} on the card")
+    say(f"tools: bench_serving at batch {bench['batch_size']}: the "
+        f"flag-on artifact {bench['artifact_images_per_sec']} images/s, "
+        f"the live xla model {bench['live_images_per_sec']} images/s "
+        f"(best of {BENCH_REPEATS}, synchronized) [{card}]")
+    say("tools: host seconds on the card: " + json.dumps(
+        {name: run["seconds"] for name, run in runs["card"].items()})
+        + f" [{card}]")
+    if failures:
+        raise RuntimeError("tools phase: " + "; ".join(failures))
 
 
 def profile_phase(torch, name, step, images, labels, n, card):
@@ -3016,8 +3349,66 @@ def mesh_steps_rank(torch, out):
     torch.cuda.synchronize()
     result["banded"] = {"loss": float(metrics["loss"]),
                         "counts": kernel_counts()}
+    del state
+    result["serve"] = mesh_serve_rank(torch, out, rank)
     say("MESH_RANK " + json.dumps(result))
     dist.destroy_process_group()
+
+
+def serve_model_and_input(torch):
+    """The serve phase's flagship (the factory's weights from seed 0 on
+    the card, fused_impl="xla") with the attention flag on, its config,
+    and its input batch of 128 (on the host)."""
+    import numpy as np
+
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
+
+    params = dict(FLAGSHIP_MODEL_PARAMS,
+                  pcae_decoder_params=dict(fused_impl="xla"))
+    model = make_scae(params, device=torch.device("cuda"), seed=0)
+    model.obj_encoder.use_pallas_attention = True
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        BATCH, *params["image_shape"]).astype(np.float32))
+    return model, params, x
+
+
+def mesh_serve_rank(torch, out, rank):
+    """A rank's part of the mesh export: the flag-on flagship exported on
+    the 2x1 mesh at global batch 128 (each rank traces 64 rows, rank 0
+    writes), loaded back and called with the global batch; its outputs
+    saved for the main process; the export's and the call's launch
+    counts."""
+    from scae_tpu_torch import serve
+    from scae_tpu_torch.parallel import mesh as mesh_lib
+
+    model, params, x = serve_model_and_input(torch)
+    mesh = mesh_lib.make_mesh(2, 1)
+    path = os.path.join(out, "mesh_artifact")
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    serve.export_serving(model, image_shape=params["image_shape"],
+                         batch_size=BATCH, out_dir=path,
+                         device=torch.device("cuda"), mesh=mesh,
+                         model_config=params)
+    export_seconds = time.perf_counter() - t0
+    export_counts = kernel_counts()
+    loaded = serve.load_serving(path)
+    xc = x.cuda()
+    loaded(xc)
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    got = loaded(xc)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    torch.save({k: v.cpu() for k, v in got.items()},
+               os.path.join(out, f"mesh_serve_{rank}.pt"))
+    return {"export_seconds": export_seconds,
+            "export_counts": export_counts, "counts": kernel_counts(),
+            "call_ms": call_ms,
+            "manifest": {k: loaded.manifest[k] for k in (
+                "batch_axis", "nr_devices", "mesh", "input",
+                "custom_ops")}}
 
 
 def nccl_capture_check(torch):
@@ -3113,9 +3504,59 @@ def mesh_cli_rank(torch, out, argv):
         dist.destroy_process_group()
 
 
+def mesh_options_rank(torch, out, argv):
+    """A run of the training CLI with a seed probe and a head refit, with
+    cuDNN's deterministic algorithms, its logs and checkpoints in
+    ``out``: under a group launched by torch.distributed.run, or with
+    none. Prints its result line: the seed it continued, the probe's two
+    unrounded scores, the checkpoints this process saved, its launch
+    counts."""
+    import torch.distributed as dist
+
+    from scae_tpu_torch.train import cli, loop
+    from scae_tpu_torch.train.checkpoint import CheckpointManager
+
+    deterministic_cudnn(torch)
+    scores, saves = [], []
+    evaluate, save = loop.Trainer.evaluate, CheckpointManager.save
+
+    def recording_evaluate(self, dataset, max_batches=None):
+        metrics, viz = evaluate(self, dataset, max_batches)
+        scores.append(metrics.get("val_rec_ll_loss"))
+        return metrics, viz
+
+    def recording_save(self, step, state, metrics=None):
+        done = save(self, step, state, metrics)
+        if done:
+            saves.append(int(step))
+        return done
+
+    loop.Trainer.evaluate = recording_evaluate
+    CheckpointManager.save = recording_save
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        state = cli.main(argv + [f"trainer.checkpoint_dir={out}/ckpt",
+                                 f"trainer.log_dir={out}/logs"])
+    torch.cuda.synchronize()
+    for line in text.getvalue().splitlines():
+        say(f"  cli: {line}")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    result = json.dumps({
+        "rank": rank, "seed": state.seed, "step": state.step,
+        "scores": scores[:2], "saves": saves, "counts": kernel_counts(),
+        "seconds": time.perf_counter() - t0})
+    say("MESH_OPTIONS " + result)
+    # the ranks share one standard output, where their lines may mix
+    with open(os.path.join(out, f"result_{rank}.json"), "w") as f:
+        f.write(result)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def mesh_rank(argv) -> int:
-    """The ranks' entry point: ``--mesh-rank steps OUT`` or ``--mesh-rank
-    cli OUT [overrides]``."""
+    """The ranks' entry point: ``--mesh-rank steps OUT``, ``--mesh-rank
+    cli OUT [overrides]`` or ``--mesh-rank options OUT [overrides]``."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3129,6 +3570,8 @@ def mesh_rank(argv) -> int:
         mesh_steps_rank(torch, out)
     elif role == "cli":
         mesh_cli_rank(torch, out, rest)
+    elif role == "options":
+        mesh_options_rank(torch, out, rest)
     else:
         raise SystemExit(f"unknown mesh rank role {role!r}")
     return 0
@@ -3258,6 +3701,118 @@ def mesh_two_process_cli(card, tmp, plain_rate):
         f"{wall[0][2]!r} and {wall[1][2]!r} images/s, against "
         f"{plain_rate!r} for one process with graphs (deterministic "
         f"cuDNN there) [{card}]")
+
+
+MESH_SERVE_RTOL = 1e-4  # mesh artifact vs one process, of each output's
+#                        largest |entry| (predictions equal)
+MESH_PROBE = ["trainer.seed_probe.n=2", "trainer.seed_probe.epochs=1"]
+
+
+def mesh_serving_check(torch, card, rows, tmp, ranks):
+    """The 2x1 mesh artifact (flag on, global batch 128) that the step
+    ranks exported and called, against the one-process artifact of the
+    same model at batch 128: predictions equal, every other output within
+    MESH_SERVE_RTOL of its largest entry; K6 4 times a call on each rank
+    and never in the export."""
+    from scae_tpu_torch import serve
+
+    model, params, x = serve_model_and_input(torch)
+    path = os.path.join(tmp, "single_artifact")
+    serve.export_serving(model, image_shape=params["image_shape"],
+                         batch_size=BATCH, out_dir=path,
+                         device=torch.device("cuda"), model_config=params)
+    want = {k: v.cpu() for k, v in serve.load_serving(path)(
+        x.cuda()).items()}
+    failures = []
+    for r in ranks:
+        res = r["serve"]
+        got = torch.load(os.path.join(tmp, f"mesh_serve_{r['rank']}.pt"))
+        gaps = {}
+        for k in sorted(want):
+            if k.endswith("prediction"):
+                gaps[k] = int((got[k] != want[k]).sum())
+                ok = gaps[k] == 0
+            else:
+                gaps[k] = float((got[k] - want[k]).abs().max()
+                                / want[k].abs().max().clamp_min(1e-30))
+                ok = gaps[k] <= MESH_SERVE_RTOL
+            if not ok or got[k].shape != want[k].shape:
+                failures.append(f"mesh artifact rank {r['rank']}: {k} "
+                                f"off by {gaps[k]}")
+        m = res["manifest"]
+        launches = {k: res["counts"][k] for k in KERNELS}
+        if (m["batch_axis"], m["nr_devices"], m["mesh"]) != (
+                "data", 2, {"n_data": 2, "n_model": 1}) or \
+                m["input"]["shape"][0] != BATCH:
+            failures.append(f"mesh artifact manifest {m}")
+        expected = dict.fromkeys(KERNELS, 0)
+        expected["K6"] = 4
+        if launches != expected or any(res["export_counts"].values()):
+            failures.append(f"mesh artifact rank {r['rank']}: launches "
+                            f"{launches}, export {res['export_counts']}")
+        for row, k in zip(rows, KERNELS):
+            row["launches"] = (row["launches"] or 0) + launches[k]
+        say(f"mesh serving: the flag-on flagship exported on 2x1 (2 gloo "
+            f"processes, global batch {BATCH}, {BATCH // 2} rows a "
+            f"process) in {res['export_seconds']!r} s, rank {r['rank']}: "
+            f"K6 {launches['K6']} in one call ({res['call_ms']!r} ms), "
+            f"none in the export; against the one-process artifact: "
+            + ", ".join(f"{k} {v}" + (" differ" if isinstance(v, int)
+                                      else "") for k, v in gaps.items())
+            + f" (each of its largest entry) [{card}]")
+    return failures
+
+
+def mesh_options_runs(card, tmp):
+    """The CLI with a seed probe of 2 candidates and head_refit on two
+    gloo processes, and with the probe alone and no group: the ranks agree
+    on the winner, each candidate's score beside one process's, and
+    process 0 alone saves the checkpoints, the refit's once."""
+    script = os.path.abspath(__file__)
+    one_out, two_out = (os.path.join(tmp, "options_one"),
+                        os.path.join(tmp, "options_2x1"))
+    # the reference for the scores: one process, the probe alone
+    run_checked([sys.executable, script, "--mesh-rank", "options", one_out,
+                 *MESH_CLI, *MESH_PROBE],
+                "the CLI with a seed probe, no group")
+    run_checked(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", script, "--mesh-rank", "options", two_out,
+         *MESH_CLI, *MESH_PROBE, "trainer.head_refit=true",
+         "trainer.mesh.n_data=2", "trainer.mesh.backend=gloo"],
+        "the CLI with a seed probe and head_refit, 2 gloo processes")
+
+    def result(out, rank):
+        with open(os.path.join(out, f"result_{rank}.json")) as f:
+            return json.load(f)
+
+    one = result(one_out, 0)
+    two = [result(two_out, rank) for rank in range(2)]
+    failures = []
+    last = one["step"]
+    kept = sorted(int(n) for n in os.listdir(os.path.join(two_out, "ckpt"))
+                  if n.isdigit())
+    if two[0]["seed"] != two[1]["seed"]:
+        failures.append(f"the 2-process ranks continued seeds "
+                        f"{[r['seed'] for r in two]}")
+    if two[0]["saves"] != [last, last + 1] or two[1]["saves"] or \
+            kept != [last, last + 1] or one["saves"] != [last]:
+        failures.append(f"checkpoints: process 0 saved {two[0]['saves']}, "
+                        f"process 1 {two[1]['saves']}, kept {kept}; one "
+                        f"process saved {one['saves']}")
+    for r in two:
+        say(f"mesh: the CLI with trainer.seed_probe.n=2 and head_refit on "
+            f"2 gloo processes, rank {r['rank']}: continued seed "
+            f"{r['seed']} to step {r['step']} (one process: seed "
+            f"{one['seed']}, step {one['step']}); the candidates' scores "
+            + ", ".join(f"{s!r} (one process {o!r}, gap "
+                        f"{abs(s - o) / abs(o):.2e})"
+                        for s, o in zip(r["scores"], one["scores"]))
+            + f"; checkpoints saved {r['saves']}; launches K1 "
+            f"{r['counts']['K1']}, K2+K3 {r['counts']['K2+K3']}; "
+            f"{r['seconds']!r} s (one process {one['seconds']!r} s) "
+            f"[{card}]")
+    return failures
 
 
 def mesh_phase(torch, card, rows, tmp):
@@ -3434,6 +3989,7 @@ def mesh_phase(torch, card, rows, tmp):
                 f"{launches['K5b']}, K6 {launches['K6']}; loss "
                 f"{res['loss']!r} against one process's {banded_loss!r} "
                 f"(gap {gap:.3e}) [{card}]")
+        failures += mesh_serving_check(torch, card, rows, tmp, ranks)
     finally:
         deterministic_cudnn(torch, was[0])
         torch.backends.cudnn.benchmark = was[1]
@@ -3447,6 +4003,11 @@ def mesh_phase(torch, card, rows, tmp):
         mesh_two_process_cli(card, tmp, plain_rate)
     except Exception as error:
         failures.append(f"the CLI on 2 processes: {error}")
+    try:
+        failures += mesh_options_runs(card, tmp)
+    except Exception as error:
+        failures.append(f"the seed probe and head refit on 2 processes: "
+                        f"{error}")
     if failures:
         raise RuntimeError("mesh phase: " + "; ".join(failures))
 
@@ -3470,6 +4031,9 @@ def main(argv=None) -> int:
                          "loop")
     ap.add_argument("--mesh", action="store_true",
                     help="run only the mesh phase (after env and build); "
+                         "prints no result line")
+    ap.add_argument("--tools", action="store_true",
+                    help="run only the tools phase (after env and build); "
                          "prints no result line")
     args = ap.parse_args(argv)
 
@@ -3531,11 +4095,15 @@ def main(argv=None) -> int:
                                            "Compiling")):
                     say(f"  ptxas: {line.strip()}")
 
-    if args.mesh:
+    if args.mesh or args.tools:
         rows = [{"launches": None} for _ in KERNELS]
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp, \
-                phase("mesh"):
-            mesh_phase(torch, card, rows, os.path.join(tmp, "mesh"))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            if args.tools:
+                with phase("tools"):
+                    tools_phase(torch, card, rows, os.path.join(tmp, "tools"))
+            if args.mesh:
+                with phase("mesh"):
+                    mesh_phase(torch, card, rows, os.path.join(tmp, "mesh"))
         return 0
 
     with phase("kernel"):
@@ -3589,6 +4157,8 @@ def main(argv=None) -> int:
         with phase("serve"):
             serve_phase(torch, card, rows, os.path.join(tmp, "serve"),
                         refit_ckpt, ["model=mnist"])
+        with phase("tools"):
+            tools_phase(torch, card, rows, os.path.join(tmp, "tools"))
         with phase("mesh"):
             mesh_phase(torch, card, rows, os.path.join(tmp, "mesh"))
 

@@ -53,6 +53,9 @@ MODEL_AXIS = "model"
 
 # how long a collective waits for a lost rank before every rank raises
 TIMEOUT_S = 60
+# how long the other processes wait while process 0 works alone on the host
+# (``from_process_zero``: a head refit's fit, for one)
+HOST_TIMEOUT_S = 3600
 # the launcher's variables (torchrun's), all four needed to form a group
 LAUNCH_VARS = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
@@ -156,6 +159,50 @@ def barrier():
     """Wait for every process of the default group (none: return)."""
     if dist.is_initialized():
         dist.barrier()
+
+
+def from_process_zero(fn):
+    """``fn()`` run on process 0 alone while the others wait; its result
+    (picklable) on every process. The wait is over a gloo group of its own,
+    made here by every process, that times out after ``HOST_TIMEOUT_S``
+    rather than the default group's ``TIMEOUT_S``: work on process 0 alone
+    may outlast that. An exception on process 0 is raised on every
+    process (RuntimeError, with its message, on the others). Without a
+    process group: ``fn()``."""
+    if not dist.is_initialized():
+        return fn()
+    group = dist.new_group(
+        backend="gloo", timeout=datetime.timedelta(seconds=HOST_TIMEOUT_S))
+    box = [None]
+    try:
+        if dist.get_rank() == 0:
+            try:
+                box[0] = (True, fn())
+            except Exception as error:
+                box[0] = (False, f"{type(error).__name__}: {error}")
+                dist.broadcast_object_list(box, src=0, group=group)
+                raise
+        dist.broadcast_object_list(box, src=0, group=group)
+    finally:
+        dist.destroy_process_group(group)
+    ok, value = box[0]
+    if not ok:
+        raise RuntimeError(f"process 0 failed: {value}")
+    return value
+
+
+def agree(value, what: str):
+    """``value``, where every process of the default group holds an equal
+    one (gathered from all of them); RuntimeError naming ``what`` and every
+    process's value otherwise. Without a process group: ``value``."""
+    if not dist.is_initialized():
+        return value
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, value)
+    if any(v != every[0] for v in every):
+        raise RuntimeError(f"the processes disagree on {what}: {every} "
+                           "(by rank)")
+    return value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,6 +310,19 @@ def local_rows(x, dim: int = 0, mesh: Optional[Mesh] = None):
                          f"{mesh.n_data} data ranks")
     b = n // mesh.n_data
     return x[(slice(None),) * dim + (slice(mesh.d * b, (mesh.d + 1) * b),)]
+
+
+@torch.no_grad()
+def gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The global batch of which each data rank holds its rows ``x`` (the
+    counterpart of ``local_rows``; every rank of the data group must call
+    it): the parts in rank order along dim 0. ``x`` itself on one data
+    rank."""
+    if mesh.n_data == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.n_data)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.data_group)
+    return torch.cat(parts)
 
 
 def global_rows(n: int) -> int:

@@ -33,6 +33,17 @@ A trace records device literals (a tensor made on the templates' device,
 for one), so export on the device you serve on. ``load_serving(...,
 device=)`` moves a program to another device with
 ``torch.export.passes.move_to_device_pass``.
+
+On a mesh (``parallel/mesh.py``, one process per card) the artifact serves
+a global batch split over the mesh's data ranks, as the JAX package's
+data-sharded artifact does. The exported program is the per-rank function
+at ``batch_size // n_data`` rows, with no collective in it; the manifest
+records the global batch, ``batch_axis``, the mesh's shape and
+``nr_devices`` (the mesh's size). ``load_serving``, called by every
+process of a group of that size, returns a ``ServingModel`` that takes the
+global batch on every rank, runs its rows and all-gathers the outputs in
+rank order over the data group, so that every rank returns the global
+batch's outputs; model ranks replicate.
 """
 
 import json
@@ -42,6 +53,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from scae_tpu_torch.parallel import mesh as mesh_lib
 from scae_tpu_torch.utils.device import check_model_device, resolve_device
 
 ARTIFACT_NAME = "model.pt2"
@@ -121,12 +133,15 @@ def export_serving(model, *, image_shape: Sequence[int],
     ``batch_size`` only. The model is batch-parallel on the inference
     path, so the symbolic trace is exact.
 
-    ``mesh`` (a data-sharded artifact in the JAX package, its batch split
-    over ``batch_axis``) is refused: with ``polymorphic_batch`` by
-    ValueError, as there; on its own by NotImplementedError, until the
-    port's serving export is ported to its mesh (ROADMAP, queue 1). The
-    model's weights are its own (the JAX function takes them as
-    ``params``).
+    ``mesh`` (a live ``parallel.mesh.Mesh``; every process of its group
+    calls this) exports the data-sharded artifact: ``batch_size``, the
+    global batch, must split over the mesh's data ranks (ValueError
+    otherwise); each process traces the per-rank program at ``batch_size
+    // n_data`` rows, process 0 writes the artifact while the others wait
+    at a barrier, and the manifest records ``batch_axis``, the mesh's shape
+    and ``nr_devices``. With ``polymorphic_batch`` it is refused by
+    ValueError, as in the JAX package. The model's weights are its own
+    (the JAX function takes them as ``params``).
     """
     from scae_tpu_torch import __version__
 
@@ -135,16 +150,20 @@ def export_serving(model, *, image_shape: Sequence[int],
             raise ValueError(
                 "polymorphic_batch and mesh are mutually exclusive: a "
                 "serialized sharding pins the batch partitioning")
-        raise NotImplementedError(
-            "a data-sharded serving artifact (mesh=) is not in the port's "
-            "parallel layer yet (ROADMAP, queue 1: export_serving on a "
-            "mesh)")
+        if mesh.size > 1 and not mesh.distributed:
+            raise ValueError(f"a {mesh.n_data}x{mesh.n_model} mesh that "
+                             "spans no process group")
+        if batch_size % mesh.n_data:
+            raise ValueError(f"a global batch of {batch_size} does not "
+                             f"split over the mesh's {mesh.n_data} data "
+                             "ranks")
     device = resolve_device(device)
     check_model_device(model, device)
     c, h, w = image_shape
-    example = torch.zeros(
-        (2 if polymorphic_batch else batch_size, c, h, w),
-        dtype=torch.float32, device=device)
+    rows = 2 if polymorphic_batch else batch_size // (
+        1 if mesh is None else mesh.n_data)
+    example = torch.zeros((rows, c, h, w), dtype=torch.float32,
+                          device=device)
     dynamic = {"image": {0: torch.export.Dim("b", min=1)}} \
         if polymorphic_batch else None
     with torch.no_grad():
@@ -153,8 +172,6 @@ def export_serving(model, *, image_shape: Sequence[int],
     # the output dict's keys, from the trace (a call would launch kernels)
     out_names = sorted(program.call_spec.out_spec.context)
 
-    os.makedirs(out_dir, exist_ok=True)
-    torch.export.save(program, os.path.join(out_dir, ARTIFACT_NAME))
     manifest = {
         # batch None = symbolic: the artifact serves any batch size
         "input": {"shape": [None if polymorphic_batch else batch_size,
@@ -170,8 +187,17 @@ def export_serving(model, *, image_shape: Sequence[int],
         "scae_tpu_torch_version": __version__,
         "model_config": model_config,
     }
-    with open(os.path.join(out_dir, MANIFEST_NAME), "w") as f:
-        json.dump(manifest, f, indent=2)
+    if mesh is not None:
+        manifest.update(batch_axis=batch_axis, nr_devices=mesh.size,
+                        mesh={"n_data": mesh.n_data,
+                              "n_model": mesh.n_model})
+    if mesh is None or mesh_lib.is_process_zero():
+        os.makedirs(out_dir, exist_ok=True)
+        torch.export.save(program, os.path.join(out_dir, ARTIFACT_NAME))
+        with open(os.path.join(out_dir, MANIFEST_NAME), "w") as f:
+            json.dump(manifest, f, indent=2)
+    if mesh is not None:
+        mesh_lib.barrier()
     return out_dir
 
 
@@ -179,17 +205,23 @@ class ServingModel:
     """A loaded serving artifact: ``model(image) -> dict``.
 
     ``program`` is the ExportedProgram; the call runs its module on
-    ``device`` after checking the image's shape against the manifest."""
+    ``device`` after checking the image's shape against the manifest. With
+    ``mesh`` (a mesh artifact) the image is the global batch, the same on
+    every rank: each rank runs its rows and the outputs are gathered over
+    the data group, so every rank returns the global batch's."""
 
-    def __init__(self, program, manifest: dict, device: torch.device):
+    def __init__(self, program, manifest: dict, device: torch.device,
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.program = program
         self.manifest = manifest
         self.device = device
+        self.mesh = mesh
         self._call = program.module()
 
     @property
     def input_shape(self):
-        """(B, C, H, W); B is None for a polymorphic-batch artifact."""
+        """(B, C, H, W), B the global batch; None for a polymorphic-batch
+        artifact."""
         return tuple(self.manifest["input"]["shape"])
 
     def __call__(self, image) -> Dict[str, torch.Tensor]:
@@ -201,16 +233,44 @@ class ServingModel:
             raise ValueError(f"the artifact takes images of shape {want} "
                              f"(None: any batch), got {tuple(image.shape)}")
         with torch.inference_mode():
-            return self._call(image)
+            if self.mesh is None:
+                return self._call(image)
+            out = self._call(mesh_lib.local_rows(image, mesh=self.mesh))
+            return {k: mesh_lib.gather_rows(v, self.mesh)
+                    for k, v in out.items()}
 
 
 def load_serving(artifact_dir: str, device=None) -> ServingModel:
     """Load an artifact of ``export_serving``: on the device it was
     exported on, or moved to ``device``. A program that calls custom ops
     (the manifest's ``custom_ops``) needs them registered first: this
-    imports ``scae_tpu_torch.kernels.attention``, which registers K6's."""
+    imports ``scae_tpu_torch.kernels.attention``, which registers K6's.
+
+    A mesh artifact (``batch_axis`` set) is loaded by every process of a
+    group of ``nr_devices`` processes, which lays them out as the mesh it
+    was exported for (``parallel.mesh.make_mesh``); on the card each
+    process takes its current card unless ``device`` is given. ValueError
+    where the group's size differs (no group: one process)."""
     with open(os.path.join(artifact_dir, MANIFEST_NAME)) as f:
         manifest = json.load(f)
+    mesh = None
+    if manifest["batch_axis"] is not None:
+        import torch.distributed as dist
+
+        n = manifest["nr_devices"]
+        layout = manifest["mesh"]
+        if not dist.is_initialized() and n > 1:
+            raise ValueError(
+                f"{artifact_dir} serves on a {layout['n_data']}x"
+                f"{layout['n_model']} mesh of nr_devices={n} processes; "
+                "load it under a process group of that size "
+                "(torch.distributed.run), not with none")
+        if mesh_lib.process_count() != n:
+            raise ValueError(
+                f"{artifact_dir} serves on a mesh of nr_devices={n} "
+                f"processes; this process group has "
+                f"{mesh_lib.process_count()}")
+        mesh = mesh_lib.make_mesh(**layout)
     if manifest["custom_ops"]:
         try:
             import scae_tpu_torch.kernels.attention  # noqa: F401
@@ -221,9 +281,14 @@ def load_serving(artifact_dir: str, device=None) -> ServingModel:
                 "the path)") from e
     program = torch.export.load(os.path.join(artifact_dir, ARTIFACT_NAME))
     exported_on = torch.device(manifest["device"])
-    device = exported_on if device is None else resolve_device(device)
+    if device is not None:
+        device = resolve_device(device)
+    elif mesh is not None and exported_on.type == "cuda":
+        device = resolve_device("cuda")     # this process's card
+    else:
+        device = exported_on
     if device != exported_on:
         from torch.export.passes import move_to_device_pass
 
         program = move_to_device_pass(program, device)
-    return ServingModel(program, manifest, device)
+    return ServingModel(program, manifest, device, mesh)

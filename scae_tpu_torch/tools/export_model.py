@@ -19,14 +19,13 @@ artifact, the step and the outputs.
 import argparse
 import json
 import os
-import sys
 
 import numpy as np
 import torch
 
 from scae_tpu_torch import factory, serve
 from scae_tpu_torch.config import load_config
-from scae_tpu_torch.train.checkpoint import CheckpointManager
+from scae_tpu_torch.tools.ensemble_pool import best_params, split_args
 from scae_tpu_torch.utils.device import resolve_device
 
 
@@ -54,11 +53,7 @@ def check_outputs(got, want, rtol, atol, where=""):
 
 
 def main(argv=None) -> dict:
-    argv = list(sys.argv[1:] if argv is None else argv)
-    overrides = []
-    if "--" in argv:
-        i = argv.index("--")
-        argv, overrides = argv[:i], argv[i + 1:]
+    argv, overrides = split_args(argv)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("ckpt_dir", help="run checkpoint directory")
     ap.add_argument("--out", required=True, help="artifact output dir")
@@ -75,23 +70,18 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
 
-    cfg = load_config("config", overrides=[o.lstrip("+") for o in overrides])
+    cfg = load_config("config", overrides=overrides)
     mk = dict(cfg["model"])
     pd = dict(mk.get("pcae_decoder_params") or {})
     pd["fused_impl"] = "xla"
     mk["pcae_decoder_params"] = pd
     model = factory.make_scae(mk, device=device)
 
-    monitor = cfg["trainer"].get("monitor", "val_loss")
-    mode = cfg["trainer"].get("monitor_mode", "min")
-    mgr = CheckpointManager(args.ckpt_dir, monitor=monitor, mode=mode)
-    step = mgr.best_step or mgr.latest_step
-    if step is None:
-        raise FileNotFoundError(f"{args.ckpt_dir}: no checkpoints")
-    model.load_state_dict(mgr.restore_params(step=step))
-    mgr.close()
-    print(f"[export] {args.ckpt_dir}: restored step {step} "
-          f"(monitor={monitor}/{mode})")
+    params, step = best_params(cfg, args.ckpt_dir)
+    model.load_state_dict(params)
+    print(f"[export] {args.ckpt_dir}: restored step {step} (monitor="
+          f"{cfg['trainer'].get('monitor', 'val_loss')}/"
+          f"{cfg['trainer'].get('monitor_mode', 'min')})")
 
     out = serve.export_serving(
         model, image_shape=mk["image_shape"], batch_size=args.batch_size,

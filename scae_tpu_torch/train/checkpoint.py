@@ -79,9 +79,14 @@ class CheckpointManager:
         self.max_to_keep = max_to_keep
         self.monitor = monitor
         self.mode = mode
+        self.refresh()
+
+    def refresh(self):
+        """Read the kept checkpoints from the directory anew (another
+        process, process 0 of a mesh, may have written or deleted some)."""
         self._metrics: Dict[int, Dict] = {}
-        for name in os.listdir(directory):
-            path = os.path.join(directory, name)
+        for name in os.listdir(self.directory):
+            path = os.path.join(self.directory, name)
             if name.isdigit() and os.path.exists(os.path.join(path, _STATE)):
                 self._metrics[int(name)] = self._read_metrics(path)
 
@@ -106,9 +111,10 @@ class CheckpointManager:
             reverse=self.mode == "min")
 
     def save(self, step: int, state, metrics: Optional[dict] = None) -> bool:
-        """Save ``state`` (a ``TrainState``, or a zero-argument function
-        returning one) at ``step`` with its metrics; False, and nothing
-        written, unless ``step`` is after the latest kept checkpoint."""
+        """Save ``state`` (a ``TrainState``, a zero-argument function
+        returning one, or a payload as ``state_payload`` makes it) at
+        ``step`` with its metrics; False, and nothing written, unless
+        ``step`` is after the latest kept checkpoint."""
         step = int(step)
         latest = self.latest_step
         if latest is not None and latest >= step:
@@ -116,7 +122,7 @@ class CheckpointManager:
         if callable(state):
             state = state()
         metrics = {k: float(v) for k, v in (metrics or {}).items()}
-        payload = state_payload(state)
+        payload = state if isinstance(state, dict) else state_payload(state)
         path = self._path(step)
         tmp = f"{path}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -132,7 +138,9 @@ class CheckpointManager:
             del self._metrics[old]
         return True
 
-    def _load(self, step: Optional[int]) -> dict:
+    def read_payload(self, step: Optional[int] = None) -> dict:
+        """Checkpoint ``step`` (default: the latest) as ``state_payload``
+        made it, on the CPU."""
         step = self.latest_step if step is None else int(step)
         if step is None or step not in self._metrics:
             raise FileNotFoundError(f"no checkpoint {step} in "
@@ -144,14 +152,14 @@ class CheckpointManager:
         """Load checkpoint ``step`` (default: the latest) into ``state``, a
         ``TrainState`` of the same model and optimizer, in place (onto the
         model's own device), and return it."""
-        return load_payload(state, self._load(step))
+        return load_payload(state, self.read_payload(step))
 
     def restore_params(self, step: Optional[int] = None
                        ) -> Dict[str, torch.Tensor]:
         """The model's ``state_dict`` alone (CPU tensors), with no
         ``TrainState`` needed: the source run may have used another
         optimizer."""
-        return self._load(step)["model"]
+        return self.read_payload(step)["model"]
 
     def metrics(self, step: int) -> Optional[dict]:
         return self._metrics.get(int(step))
@@ -183,6 +191,9 @@ class NullCheckpointManager:
         directory = os.path.abspath(directory)
         os.makedirs(directory, exist_ok=True)
         self.directory = directory
+
+    def refresh(self):
+        pass
 
     def save(self, step, state, metrics=None) -> bool:
         return False

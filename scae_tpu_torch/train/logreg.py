@@ -38,8 +38,18 @@ class LogisticFit(NamedTuple):
 
     def predict(self, X) -> np.ndarray:
         """The class of the largest score, X W^T + b (the first of ties)."""
-        scores = np.asarray(X, np.float64) @ self.coef.T + self.intercept
-        return self.classes[np.argmax(scores, axis=1)]
+        return self.classes[np.argmax(self.scores(X), axis=1)]
+
+    def scores(self, X) -> np.ndarray:
+        """X W^T + b, (n, K) float64."""
+        return np.asarray(X, np.float64) @ self.coef.T + self.intercept
+
+    def predict_proba(self, X) -> np.ndarray:
+        """The class probabilities, the softmax of the scores (sklearn's
+        multinomial ``predict_proba``), (n, K) float64."""
+        scores = self.scores(X)
+        e = np.exp(scores - scores.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
 
 
 def fit(X, y, C: float) -> LogisticFit:

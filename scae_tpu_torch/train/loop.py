@@ -43,8 +43,15 @@ the image grids, the prints, ``train_seed.json`` and the checkpoints,
 which process 0 writes in the single-process format while the others
 wait at a barrier; every process restores them. ``mode=test`` leaves out
 the per-class recall on more than one process, as JAX's does. The seed
-probe and the head refit on a mesh of more than one device are refused
-(``NotImplementedError``).
+probe trains its candidates on the mesh and scores them with the mesh's
+eval; the processes must agree on the winner. The head refit's features
+and fit are process 0's alone, while the others wait; every process sets
+the fitted head, evaluates it on the mesh and re-reads the checkpoint that
+process 0 saves.
+
+``load_run_datasets`` and ``forward_outputs`` are the Trainer's data and
+batched-forward code, shared with the port's model tools
+(``scae_tpu_torch/tools``).
 """
 
 import copy
@@ -157,26 +164,63 @@ def _refuse_deferred(cfg: Dict):
 
 
 def _refuse_on_mesh(cfg: Dict, mesh: mesh_lib.Mesh):
-    """NotImplementedError for the features the port does not run on a
-    mesh of more than one device yet (ROADMAP, queue 1), rather than
-    ignore them; ValueError where the data ranks do not divide the
-    batch."""
-    trainer_cfg = cfg.get("trainer") or {}
-    if mesh.size > 1:
-        for key, on in (
-                ("trainer.seed_probe",
-                 int((trainer_cfg.get("seed_probe") or {}).get("n", 0)
-                     or 0) > 0),
-                ("trainer.head_refit", bool(trainer_cfg.get("head_refit")))):
-            if on:
-                raise NotImplementedError(
-                    f"not ported to scae_tpu_torch yet: {key} on a mesh of "
-                    f"more than one device ({mesh.n_data}x{mesh.n_model}; "
-                    "ROADMAP, queue 1)")
+    """ValueError where the mesh's data ranks do not divide the batch."""
     batch = cfg["data_loader"]["batch_size"]
     if batch % mesh.n_data:
         raise ValueError(f"data_loader.batch_size={batch} does not split "
                          f"over the mesh's {mesh.n_data} data ranks")
+
+
+def load_run_datasets(cfg: Dict, seed: int, split_seed="config"):
+    """(train, val, test, source) of a run's config at ``seed``: its
+    ``data_loader`` source, tint, split_seed (unless ``split_seed`` is
+    given) and sizes (``val_size``, ``synthetic_train``,
+    ``synthetic_test``), at the model's image size (28 at most for one
+    channel)."""
+    dl = cfg["data_loader"]
+    c, h, _ = cfg["model"]["image_shape"]
+    sizes = {k: int(dl[k]) for k in ("val_size", "synthetic_train",
+                                     "synthetic_test")
+             if dl.get(k) is not None}
+    return data_lib.load_datasets(
+        data_dir=dl.get("data_dir"), seed=seed,
+        image_size=min(h, 28 if c == 1 else h), n_channels=c,
+        source=dl.get("source"), tint=dl.get("tint"),
+        split_seed=dl.get("split_seed") if split_seed == "config"
+        else split_seed, **sizes)
+
+
+def posterior_features(res) -> torch.Tensor:
+    """The posterior head's input: each example's ``posterior_mixing_prob``
+    summed over its parts, (B, O)."""
+    return res.obj.posterior_mixing_prob.sum(-1)
+
+
+def class_probs(res):
+    """(prior, posterior) class probabilities, each (B, n_classes)."""
+    return res.prior_cls_prob, res.posterior_cls_prob
+
+
+def forward_outputs(model, dataset, canvas: int, batch_size: int, device,
+                    outputs) -> list:
+    """Each of ``outputs(res)`` (a tensor or a tuple of them) over the
+    deterministic forward of ``model`` on ``dataset``'s images, padded to
+    ``canvas``, in batches of ``batch_size`` (the last padded with zero
+    images, its padding dropped): a list of numpy arrays of ``len(dataset)``
+    rows."""
+    images = data_lib.pad_to_canvas(torch.from_numpy(
+        data_lib.to_nchw_float(dataset.images)), canvas)
+    n = len(images)
+    images = torch.cat([images, images.new_zeros(
+        ((-n) % batch_size, *images.shape[1:]))])
+    got = []
+    with torch.inference_mode():
+        for i in range(0, len(images), batch_size):
+            out = outputs(model(images[i:i + batch_size].to(device),
+                                deterministic=True))
+            got.append([t.cpu() for t in (
+                out if isinstance(out, tuple) else (out,))])
+    return [torch.cat(parts)[:n].numpy() for parts in zip(*got)]
 
 
 class Trainer:
@@ -381,26 +425,8 @@ class Trainer:
             self._warm_params = cached
         return cached
 
-    def _dataset_sizes(self):
-        """Optional data_loader size overrides (synthetic fallback + val
-        split) so small runs can shrink the dataset from config."""
-        dl = self.cfg["data_loader"]
-        out = {}
-        for key in ("val_size", "synthetic_train", "synthetic_test"):
-            if dl.get(key) is not None:
-                out[key] = int(dl[key])
-        return out
-
     def _load_datasets(self, seed: int):
-        cfg = self.cfg
-        c, h, _ = cfg["model"]["image_shape"]
-        return data_lib.load_datasets(
-            data_dir=cfg["data_loader"].get("data_dir"), seed=seed,
-            image_size=min(h, 28 if c == 1 else h), n_channels=c,
-            source=cfg["data_loader"].get("source"),
-            tint=cfg["data_loader"].get("tint"),
-            split_seed=self.split_seed,
-            **self._dataset_sizes())
+        return load_run_datasets(self.cfg, seed)
 
     def _to_device(self, dataset) -> Dict[str, torch.Tensor]:
         return {"image": torch.from_numpy(dataset.images).to(self.device),
@@ -498,22 +524,10 @@ class Trainer:
         posterior) accuracy convention, applied per head over the full
         split), and test_accuracy over all n examples: the last batch is
         padded with zero images to B and its predictions trimmed."""
-        images = self.center_pad({"image": torch.from_numpy(
-            data_lib.to_nchw_float(test_ds.images))})["image"]
         labels = np.asarray(test_ds.labels)
-        n, B = len(labels), self.batch_size
-        n_pad = (-n) % B
-        images = torch.cat([images, images.new_zeros(
-            (n_pad, *images.shape[1:]))])
-        pri, post = [], []
-        with torch.inference_mode():
-            for i in range(0, n + n_pad, B):
-                res = self.model(images[i:i + B].to(self.device),
-                                 deterministic=True)
-                pri.append(res.prior_cls_prob.cpu().numpy())
-                post.append(res.posterior_cls_prob.cpu().numpy())
-        pri = np.concatenate(pri)[:n].argmax(-1)
-        post = np.concatenate(post)[:n].argmax(-1)
+        pri, post = (p.argmax(-1) for p in forward_outputs(
+            self.model, test_ds, self.canvas, self.batch_size, self.device,
+            class_probs))
         pred = post if np.mean(post == labels) >= np.mean(pri == labels) \
             else pri
         out = {"test_accuracy": float(np.mean(pred == labels))}
@@ -602,7 +616,9 @@ class Trainer:
             _say(f"[scae_tpu_torch] seed probe {s}: val_rec_ll={score:.2f} "
                   f"({probe_epochs} epochs; CUDA graphs captured: "
                   f"{graphs['train']} train, {graphs['eval']} eval)")
-        best = min(results)[1]
+        # on a mesh every process scored the candidates with the mesh's
+        # global eval: a process that chose otherwise is a fault
+        best = mesh_lib.agree(min(results)[1], "the seed probe's winner")
         _say(f"[scae_tpu_torch] seed probe winner: {best} "
               f"(of {[s for _, s in results]})")
         if leader is not None:
@@ -787,6 +803,8 @@ class Trainer:
                         metrics={self.monitor: float(
                             val_metrics[self.monitor])})
                 mesh_lib.barrier()
+                if not self.main:
+                    self.ckpt.refresh()
             if stop:
                 break
 
@@ -801,24 +819,35 @@ class Trainer:
         return state
 
     def _posterior_features(self, dataset):
-        """(features (n, O) float64, labels (n,)): each example's
-        ``posterior_mixing_prob`` summed over its parts, from the
-        deterministic forward of the model as it stands, in batches of B
-        (the last padded with zero images, its padding dropped)."""
-        h = self.cfg["model"]["image_shape"][1]
-        images = data_lib.pad_to_canvas(torch.from_numpy(
-            data_lib.to_nchw_float(dataset.images)), h)
-        n, B = len(images), self.batch_size
-        images = torch.cat([images, images.new_zeros(
-            ((-n) % B, *images.shape[1:]))])
-        feats = []
-        with torch.inference_mode():
-            for i in range(0, len(images), B):
-                res = self.model(images[i:i + B].to(self.device),
-                                 deterministic=True)
-                feats.append(res.obj.posterior_mixing_prob.sum(-1).cpu())
-        return (torch.cat(feats)[:n].numpy().astype(np.float64),
-                np.asarray(dataset.labels))
+        """(features (n, O) float64, labels (n,)): ``posterior_features``
+        of the deterministic forward of the model as it stands, in batches
+        of B (``forward_outputs``)."""
+        feats, = forward_outputs(self.model, dataset,
+                                 self.cfg["model"]["image_shape"][1],
+                                 self.batch_size, self.device,
+                                 posterior_features)
+        return feats.astype(np.float64), np.asarray(dataset.labels)
+
+    def _fit_head(self, train_ds, val_ds, c_grid):
+        """(fit, validation accuracy, C) of the C of ``c_grid`` whose
+        ``logreg.fit`` on the training split's ``_posterior_features`` has
+        the highest validation accuracy (the first of ties)."""
+        t0 = time.perf_counter()
+        Xtr, ytr = self._posterior_features(train_ds)
+        Xval, yval = self._posterior_features(val_ds)
+        seconds = [time.perf_counter() - t0]
+        best_fit = None
+        for C in c_grid:
+            t0 = time.perf_counter()
+            fitted = logreg.fit(Xtr, ytr, C)
+            seconds.append(time.perf_counter() - t0)
+            acc = float(np.mean(fitted.predict(Xval) == yval))
+            if best_fit is None or acc > best_fit[1]:
+                best_fit = (fitted, acc, C)
+        _say(f"[scae_tpu_torch] head_refit: features of {len(Xtr)} + "
+             f"{len(Xval)} examples in {seconds[0]!r} s; fits of "
+             f"C={list(c_grid)} in {seconds[1:]!r} s")
+        return best_fit
 
     def refit_head(self, train_ds, val_ds,
                    c_grid=(0.1, 1.0, 10.0, 100.0)):
@@ -833,7 +862,13 @@ class Trainer:
         model is evaluated on the validation split and saved at
         ``max(best, latest) + 1`` with the monitor's metric. Returns the
         validation metrics, or None where there is no checkpoint or no
-        posterior classifier. The Trainer's model is left as it was."""
+        posterior classifier. The Trainer's model is left as it was.
+
+        On a mesh, process 0 alone computes the features and fits
+        (``_fit_head`` under ``mesh.from_process_zero``) while the others
+        wait, and every process gets its fit; every process sets the head
+        and evaluates it with the mesh's eval; process 0 saves, and every
+        process re-reads the checkpoints."""
         best = self.ckpt.best_step or self.ckpt.latest_step
         if best is None:
             _say("[scae_tpu_torch] head_refit: no retained checkpoint "
@@ -852,22 +887,8 @@ class Trainer:
             state = self.ckpt.restore(
                 TrainState(self.model, self.tx(self.model.parameters())),
                 step=best)
-            t0 = time.perf_counter()
-            Xtr, ytr = self._posterior_features(train_ds)
-            Xval, yval = self._posterior_features(val_ds)
-            seconds = [time.perf_counter() - t0]
-            best_fit = None
-            for C in c_grid:
-                t0 = time.perf_counter()
-                fitted = logreg.fit(Xtr, ytr, C)
-                seconds.append(time.perf_counter() - t0)
-                acc = float(np.mean(fitted.predict(Xval) == yval))
-                if best_fit is None or acc > best_fit[1]:
-                    best_fit = (fitted, acc, C)
-            fitted, probe_val, c_star = best_fit
-            _say(f"[scae_tpu_torch] head_refit: features of {len(Xtr)} + "
-                  f"{len(Xval)} examples in {seconds[0]!r} s; fits of "
-                  f"C={list(c_grid)} in {seconds[1:]!r} s")
+            fitted, probe_val, c_star = mesh_lib.from_process_zero(
+                lambda: self._fit_head(train_ds, val_ds, c_grid))
             head = self.model.posterior_classifier
             if fitted.coef.shape != tuple(head.weight.shape):
                 raise ValueError(f"head_refit: probe shape "
@@ -884,10 +905,15 @@ class Trainer:
             # past the LATEST step: a save at or before it is refused, and
             # the best checkpoint is usually not the last one written
             refit_step = max(int(best), int(self.ckpt.latest_step or 0)) + 1
-            self.writer.scalars(refit_step, vm)
-            saved = self.ckpt.save(
-                refit_step, state,
-                metrics={self.monitor: float(vm[self.monitor])})
+
+            def save():
+                self.writer.scalars(refit_step, vm)
+                return self.ckpt.save(
+                    refit_step, state,
+                    metrics={self.monitor: float(vm[self.monitor])})
+
+            saved = mesh_lib.from_process_zero(save)
+            self.ckpt.refresh()
             if not saved:
                 raise RuntimeError(
                     f"head_refit: checkpoint manager refused save at step "

@@ -35,7 +35,10 @@ def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
                  "kernels.probe", "ops.decoder_ll", "ops.attention",
                  "config", "train.checkpoint", "train.metrics", "train.cli",
                  "tools.probe", "serve", "tools.export_model",
-                 "train.logreg", "parallel.mesh"):
+                 "train.logreg", "parallel.mesh", "tools.ensemble_pool",
+                 "tools.ensemble_eval", "tools.probe_eval",
+                 "tools.probe_calibrate", "tools.verify_serving_readout",
+                 "tools.bench_serving"):
         assert f"scae_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, os, sys

@@ -23,6 +23,11 @@ parallel/train_step.py) against scae_tpu's, on the CPU:
     scans and a CLI run on a mesh that spans no group call no function of
     ``torch.distributed``, and compute what they compute without a mesh.
 
+  * the host-side helpers of the mesh's last features: ``agree`` (the
+    seed probe's winner), ``from_process_zero`` (the head refit's fit) and
+    ``gather_rows`` (a mesh artifact's outputs), without a group and on
+    two gloo processes.
+
 Each multi-process case runs its ranks under a timeout of its own, beside
 the group's (``parallel.mesh.TIMEOUT_S``), and kills them when one fails.
 """
@@ -402,6 +407,76 @@ def vs_jax_rank(out, n_data, n_model):
     dist.destroy_process_group()
 
 
+# ------------------------------------------------ the host-side helpers
+
+def test_helpers_without_a_group():
+    assert mesh_lib.agree(3, "a count") == 3
+    assert mesh_lib.from_process_zero(lambda: "done") == "done"
+    x = torch.arange(6.0)
+    assert mesh_lib.gather_rows(x, mesh_lib.Mesh(1, 1)) is x
+
+
+def test_agree_from_process_zero_and_gather_rows_on_two_ranks(tmp_path):
+    """``agree`` returns a value the ranks share and raises, naming what,
+    where they differ; ``from_process_zero`` runs its function on process 0
+    alone and hands every rank its result, or raises on every rank what it
+    raised; ``gather_rows`` puts the data ranks' rows back in rank order
+    (the counterpart of ``local_rows``)."""
+    mesh_lib.run_local([sys.executable, __file__, "helpers", str(tmp_path)],
+                       2, RANKS_TIMEOUT, env=rank_env())
+    for rank in range(2):
+        got = torch.load(tmp_path / f"helpers_{rank}.pt")
+        assert got["agreed"] == 7
+        assert got["disagreed"] == ("the processes disagree on the rank: "
+                                    "[0, 1] (by rank)")
+        assert got["ran_on"] == [0]
+        assert got["result"] == {"rank": 0, "value": 5}
+        assert got["raised"] == (
+            "ValueError: boom" if rank == 0
+            else "RuntimeError: process 0 failed: ValueError: boom")
+        assert torch.equal(got["gathered"], torch.arange(24.0).reshape(8, 3))
+
+
+def helpers_rank(out):
+    """A rank of ``test_agree_from_process_zero_and_gather_rows_on_two_ranks``:
+    what each helper gave it, saved to ``out``."""
+    import torch.distributed as dist
+
+    assert mesh_lib.maybe_initialize_distributed("gloo")
+    rank = dist.get_rank()
+    got = {"agreed": mesh_lib.agree(7, "a constant")}
+    try:
+        mesh_lib.agree(rank, "the rank")
+    except RuntimeError as error:
+        got["disagreed"] = str(error)
+    ran_on = []
+
+    def work():
+        ran_on.append(rank)
+        return {"rank": rank, "value": 5}
+
+    got["result"] = mesh_lib.from_process_zero(work)
+    every = [None, None]
+    dist.all_gather_object(every, ran_on)
+    got["ran_on"] = sorted(r for ranks in every for r in ranks)
+
+    def fail():
+        raise ValueError("boom")
+
+    try:
+        mesh_lib.from_process_zero(fail)
+    except (ValueError, RuntimeError) as error:
+        got["raised"] = f"{type(error).__name__}: {error}"
+    mesh = mesh_lib.make_mesh(n_data=2)
+    full = torch.arange(24.0).reshape(8, 3)
+    got["gathered"] = mesh_lib.gather_rows(
+        mesh_lib.local_rows(full, mesh=mesh), mesh)
+    torch.save(got, os.path.join(out, f"helpers_{rank}.pt"))
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "vs_jax":
         vs_jax_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+    elif sys.argv[1] == "helpers":
+        helpers_rank(sys.argv[2])

@@ -19,12 +19,25 @@ rtol 1e-6, the per-step loss terms of the JSONL within rtol 1e-5.
     single-process checkpoint restored on the mesh, split, trained 2 steps
     further and gathered, against the single-process run's 4 steps.
 
+  * the seed probe and the head refit on 2x1 (``trainer.seed_probe`` of 2
+    candidates of 1 epoch, ``trainer.head_refit`` under a val_accuracy
+    monitor, in one run of 2 epochs): the candidates' scores within 1e-5
+    relative of the single-process run's, whose winner both processes
+    pick and continue; ``train_seed.json`` written once, by process 0;
+    the refit's C* that of a single-process refit from the same best
+    checkpoint, its head within LOGREG_TOL (1e-3 of its largest entry) of
+    that refit's, every other tensor bit for bit the source checkpoint's;
+    one refit checkpoint, and the same best and latest step on every
+    process.
+
 This file's ``__main__`` is the rank worker. Each multi-process case runs
 under a timeout of its own and kills its ranks when one fails.
 """
 
 import json
 import os
+import re
+import shutil
 import sys
 
 import numpy as np
@@ -40,10 +53,12 @@ from scae_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from scae_tpu_torch.parallel import train_step as ts  # noqa: E402
 from scae_tpu_torch.train import cli  # noqa: E402
 from scae_tpu_torch.train.checkpoint import CheckpointManager  # noqa: E402
-from scae_tpu_torch.train.loop import make_augment_fn  # noqa: E402
+from scae_tpu_torch.config import load_config  # noqa: E402
+from scae_tpu_torch.train.loop import Trainer, make_augment_fn  # noqa: E402
 
 torch.set_num_threads(1)
 RANKS_TIMEOUT = 180      # seconds for one multi-process case
+LOGREG_TOL = 1e-3        # test_torch_trainer_features.py's
 # 32 training images of batch 16: 2 steps an epoch
 BASE = [
     "data_loader.batch_size=16", "data_loader.source=synthetic",
@@ -263,8 +278,147 @@ def bank_ranks(out):
     dist.destroy_process_group()
 
 
+# ------------------------------------------- seed probe and head refit
+
+# seed 1's two candidates score 4e-3 apart (seed 42's, 7e-6)
+OPTIONS = ["seed=1", "trainer.max_epochs=2", "trainer.seed_probe.n=2",
+           "trainer.seed_probe.epochs=1", "trainer.head_refit=true",
+           "trainer.monitor=val_accuracy", "trainer.monitor_mode=max"]
+
+
+def options_trainer(out, tag, extra=()):
+    return Trainer(load_config("config", BASE + OPTIONS + list(extra) + [
+        f"trainer.checkpoint_dir={out}/{tag}/ckpt",
+        f"trainer.log_dir={out}/{tag}/logs"]), device="cpu")
+
+
+def recording_evaluate(scores):
+    """``Trainer.evaluate``, appending each pass's val_rec_ll_loss (the
+    seed probe's score, unrounded) to ``scores``."""
+    evaluate = Trainer.evaluate
+
+    def recording(self, dataset, max_batches=None):
+        metrics, viz = evaluate(self, dataset, max_batches)
+        scores.append(metrics["val_rec_ll_loss"])
+        return metrics, viz
+
+    return recording
+
+
+def test_seed_probe_and_head_refit_on_a_mesh(tmp_path, monkeypatch,
+                                             capsys):
+    scores = []
+    monkeypatch.setattr(Trainer, "evaluate", recording_evaluate(scores))
+    one = options_trainer(tmp_path, "one")
+    try:
+        one_state = one.run()
+    finally:
+        one.close()
+    # the probe's two evals come first
+    want = dict(zip((1, 2), scores[:2]))
+    winner = min(want, key=lambda s: (want[s], s))
+    assert abs(want[1] - want[2]) > 1e-5 * max(want.values())
+    assert f"seed probe winner: {winner} " in capsys.readouterr().out
+    outputs = mesh_lib.run_local(
+        [sys.executable, __file__, "options", str(tmp_path)], 2,
+        RANKS_TIMEOUT, env=rank_env())
+    with open(tmp_path / "options.json") as f:
+        ranks = json.load(f)
+    # the candidates' scores are the single-process run's, and the
+    # processes agree on its winner; only process 0 speaks
+    for r in ranks:
+        got = dict(zip((1, 2), r["scores"][:2]))
+        for s in got:
+            np.testing.assert_allclose(got[s], want[s], rtol=1e-5,
+                                       err_msg=f"seed {s}")
+    assert f"seed probe winner: {winner} " in outputs[0]
+    assert "seed probe" not in outputs[1] and "head_refit" not in outputs[1]
+    assert [r["seed"] for r in ranks] == [winner, winner]
+    assert one_state.seed == winner
+    assert [r["train_seed_writes"] for r in ranks] == [1, 0]
+    ckpt = tmp_path / "mesh" / "ckpt"
+    with open(ckpt / "train_seed.json") as f:
+        assert json.load(f) == {"seed": winner, "split_seed": None}
+    # one refit checkpoint, past the run's last; every process's manager
+    # sees what the directory holds
+    assert ranks[0]["kept"] == ranks[1]["kept"] == [4, 5]
+    assert sorted(os.listdir(ckpt)) == ["4", "5", "train_seed.json"]
+    best = CheckpointManager(str(ckpt), monitor="val_accuracy",
+                             mode="max").best_step
+    assert [(r["best"], r["latest"]) for r in ranks] == [(best, 5)] * 2
+    assert ranks[0]["checksums"] == ranks[1]["checksums"]
+    c_star = re.search(r"head_refit: C\*=(\S+) ", outputs[0]).group(1)
+    # a single process's refit from the same best checkpoint
+    alone = tmp_path / "alone" / "ckpt"
+    alone.mkdir(parents=True)
+    shutil.copytree(ckpt / "4", alone / "4")
+    t = options_trainer(tmp_path, "alone")
+    try:
+        t.build_steps(2)
+        train, val = t._load_datasets(winner)[:2]
+        assert t.refit_head(train, val) is not None
+        want_head = t.ckpt.restore_params(step=5)
+    finally:
+        t.close()
+    assert re.search(r"head_refit: C\*=(\S+) ",
+                     capsys.readouterr().out).group(1) == c_star
+    src = CheckpointManager(str(ckpt)).restore_params(step=4)
+    refit = CheckpointManager(str(ckpt)).restore_params(step=5)
+    for k, v in src.items():
+        if k.startswith("posterior_classifier."):
+            ref = want_head[k].numpy()
+            np.testing.assert_allclose(refit[k].numpy(), ref, rtol=0,
+                                       atol=LOGREG_TOL * np.abs(ref).max(),
+                                       err_msg=k)
+        else:
+            assert torch.equal(refit[k], v), k
+    assert not torch.equal(refit["posterior_classifier.weight"],
+                           src["posterior_classifier.weight"])
+
+
+def options_ranks(out):
+    """A rank of ``test_seed_probe_and_head_refit_on_a_mesh``: the run on
+    2x1, counting this process's writes of train_seed.json; process 0
+    writes every rank's record to ``out/options.json``."""
+    import builtins
+
+    import torch.distributed as dist
+
+    writes = []
+    real_open = builtins.open
+
+    def counting_open(file, mode="r", *args, **kwargs):
+        if str(file).endswith("train_seed.json") and "w" in mode:
+            writes.append(file)
+        return real_open(file, mode, *args, **kwargs)
+
+    assert mesh_lib.maybe_initialize_distributed("gloo")
+    scores = []
+    Trainer.evaluate = recording_evaluate(scores)
+    builtins.open = counting_open
+    try:
+        t = options_trainer(out, "mesh", ["trainer.mesh.n_data=2"])
+        state = t.run()
+        mine = {"seed": state.seed, "step": state.step, "scores": scores,
+                "train_seed_writes": len(writes),
+                "best": t.ckpt.best_step, "latest": t.ckpt.latest_step,
+                "kept": sorted(t.ckpt._metrics),
+                "checksums": checksums(state.model)}
+        t.close()
+    finally:
+        builtins.open = real_open
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    if dist.get_rank() == 0:
+        with open(os.path.join(out, "options.json"), "w") as f:
+            json.dump(every, f)
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    if sys.argv[1] == "cli":
+    if sys.argv[1] == "options":
+        options_ranks(sys.argv[2])
+    elif sys.argv[1] == "cli":
         cli_ranks(sys.argv[2], sys.argv[3:])
     elif sys.argv[1] == "banks":
         bank_ranks(sys.argv[2])

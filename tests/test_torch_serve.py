@@ -8,7 +8,8 @@ holds scae_tpu's:
     ``torch`` alone, and ``scae_tpu_torch`` is never imported;
   * the manifest records the contract; a wrong batch is refused; a model
     without classes serves the unsupervised surface only; a polymorphic
-    batch serves batches 1, 3 and 7; ``mesh`` is refused.
+    batch serves batches 1, 3 and 7; ``mesh`` is refused with a
+    polymorphic batch, and a one-process mesh exports a mesh artifact.
 
 And on top:
 
@@ -46,6 +47,7 @@ from scae_tpu_torch import serve as t_serve
 from scae_tpu_torch.factory import make_scae as t_make_scae
 from scae_tpu_torch.kernels import attention as k6
 from scae_tpu_torch.optim import make_optimizer
+from scae_tpu_torch.parallel import mesh as t_mesh
 from scae_tpu_torch.parallel.train_step import TrainState
 from scae_tpu_torch.tools import export_model
 from scae_tpu_torch.train.checkpoint import CheckpointManager
@@ -195,15 +197,30 @@ def test_polymorphic_batch_serves_any_size(models, tmp_path):
 
 
 def test_mesh_is_refused(models, tmp_path):
+    """``mesh`` with a polymorphic batch, a mesh of more than one process
+    without a group, and a batch its data ranks do not divide are refused
+    before anything is written; a one-process mesh exports the mesh
+    artifact, which loads without a group and serves as the plain one (the
+    mesh of processes is held in test_torch_mesh_serving.py)."""
     _, _, tm, mk = models
-    kw = dict(image_shape=mk["image_shape"], out_dir=str(tmp_path),
-              device="cpu", model_config=mk, mesh=object())
+    kw = dict(image_shape=mk["image_shape"], out_dir=str(tmp_path / "m"),
+              device="cpu", model_config=mk)
     with pytest.raises(ValueError, match="mutually exclusive"):
         t_serve.export_serving(tm, batch_size=None, polymorphic_batch=True,
+                               mesh=t_mesh.Mesh(1, 1), **kw)
+    with pytest.raises(ValueError, match="spans no process group"):
+        t_serve.export_serving(tm, batch_size=16, mesh=t_mesh.Mesh(2, 1),
                                **kw)
-    with pytest.raises(NotImplementedError, match="parallel"):
-        t_serve.export_serving(tm, batch_size=16, **kw)
     assert not os.listdir(tmp_path)
+    t_serve.export_serving(tm, batch_size=BATCH, mesh=t_mesh.make_mesh(),
+                           **kw)
+    served = t_serve.load_serving(kw["out_dir"])
+    m = served.manifest
+    assert (m["batch_axis"], m["nr_devices"], m["mesh"]) == (
+        "data", 1, {"n_data": 1, "n_model": 1})
+    assert m["input"]["shape"] == [BATCH, 1, 28, 28]
+    x = batch()
+    check(served(x), t_serve.make_infer_fn(tm, device="cpu")(x))
 
 
 # ------------------------------------------------------------ on top

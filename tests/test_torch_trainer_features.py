@@ -32,8 +32,8 @@ off, float32 convolutions and taps), mirroring tests/test_train_smoke.py:
     far from the optimum that both solvers approach); the default fit's
     choice of C and its validation accuracy are held too;
   * the refit skips with JAX's messages without a checkpoint or a
-    posterior classifier, and only a mesh of more than one device is
-    still refused.
+    posterior classifier (on a mesh of processes, the seed probe and the
+    refit are held in test_torch_mesh_trainer.py).
 """
 
 import json
