@@ -9,6 +9,8 @@
         # each step's gap printed (a measurement; no result line)
     python3 chip_smoke.py --mesh     # only the mesh phase (no result line)
     python3 chip_smoke.py --tools    # only the tools phase (no result line)
+    python3 chip_smoke.py --serve    # only the serve phase, without the
+                                     # export tool (no result line)
 
 Phases, each announced when it starts and when it ends, with its seconds:
 
@@ -123,17 +125,28 @@ Phases, each announced when it starts and when it ends, with its seconds:
           live infer function at batch 128 and 65 (predictions equal,
           floats within rtol 1e-4, atol 1e-5), the kernels of one call
           from torch.profiler's records (K6 4 times with the flag, none
-          without); the flag-on artifact's K6 launches over one call; an
-          artifact exported on the CPU and moved to the card against the
-          card's own; device ms per call and images/s at batch 128 of
-          each artifact and of the live infer function; then
+          without); the flag-on artifact's K6 launches over its first
+          call (4 in its graph's warm-up call, 4 in the capture) and the
+          runtime assertions of its program; an artifact exported on the
+          CPU and moved to the card against the card's own. Then the
+          serving graphs (a CUDA graph replayed per batch size) of the
+          two artifacts and of the live infer function with the flag off
+          and on, under cuDNN's deterministic algorithms, at batch 128 and
+          65: each replay bit for bit the surface's eager call, the first
+          call's launches, one capture a batch size, K6 4 times a replay
+          in the profiler's records (none without the flag), a call's
+          outputs untouched by the next calls; device ms per call, ms per
+          call on CUDA events and images/s at batch 128 of each surface,
+          eager and graph in turns (eager, graph, graph, eager), and
+          tools.bench_serving on the flag-on artifact the same way; then
           python -m scae_tpu_torch.tools.export_model on the refit run's
-          checkpoints, which must exit 0
+          checkpoints, which must exit 0. ``--serve`` runs this phase
+          alone, without the export tool
   tools   the port's model tools (scae_tpu_torch/tools/) on the card: two
           model=mnist members (full width, f32 convs) trained through the
           CLI for 1 epoch of a synthetic 1,024 / 512 / 256 split shared by
           split_seed; ensemble_eval, ensemble_pool (a group a member,
-          --dump-probs), probe_eval (--c-grid 10 100) and probe_calibrate
+          --dump-probs), probe_eval (--c-grid 100) and probe_calibrate
           (--c-star, probe_eval's) on them; the card's calibrated
           checkpoint exported with the attention flag at batch 128, then
           verify_serving_readout and bench_serving on it. Each tool on the
@@ -144,7 +157,14 @@ Phases, each announced when it starts and when it ends, with its seconds:
           two within 2e-3 or twice the gap, or members disagreeing); the
           launch counts (K1 and K2+K3 in the members' graph scans, K6 4 a
           call of the artifact, none in the tools' forwards, which never
-          read the likelihood) and each tool's seconds
+          read the likelihood) and each tool's seconds. Then the
+          examples: examples.train_resume_demo on the card (2 epochs, a
+          resume to 4), and examples.infer_demo on its checkpoint on the
+          card and on the CPU (f32 convs): the same predictions,
+          confidences within 1e-4. Last, tools.pool_inprocess.train_members
+          with two model=mnist members (seeds 3 then 1, the members'
+          recipe) under deterministic cuDNN: the second bit for bit seed 1
+          trained alone
   mesh    the mesh (parallel/mesh.py) on the one card. Two gloo processes
           (NCCL refuses two ranks on one card) from the state of a
           one-process run, f32 convs, TF32 off, deterministic cuDNN, the
@@ -2414,26 +2434,20 @@ def trainer_options(torch, card, rows, tmp, base):
     parallel.train_step.captures). Returns the refit run's checkpoint
     directory."""
     from scae_tpu_torch.parallel import train_step
-    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
     from scae_tpu_torch.train import cli, loop
     from scae_tpu_torch.train.checkpoint import CheckpointManager
 
     def run_counted(argv, what):
-        zero_kernel_counts()
-        for k in train_step.captures:
-            train_step.captures[k] = 0
+        reset_captures()
         t0 = time.perf_counter()
         state, out = run_cli(cli, argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         caps = dict(train_step.captures)
-        per = WARMUP_STEPS + 1
         check_kernel_counts(
             card, rows, f"{what} ({caps['train']} train and {caps['eval']} "
             "eval graphs captured; the wrappers launch for each scan's "
-            "warm-up steps and its capture)",
-            {"K1": per * (caps["train"] + caps["eval"]),
-             "K2+K3": per * caps["train"]})
+            "warm-up steps and its capture)", graph_counts_expected(caps))
         if not caps["train"]:
             raise RuntimeError(f"{what}: the train scan captured no graph")
         say(f"{what}: {seconds!r} s [{card}]")
@@ -2545,6 +2559,7 @@ def trainer_options(torch, card, rows, tmp, base):
 SERVE_BATCHES = (BATCH, BATCH // 2 + 1)   # 128 and 65
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-5      # artifact vs live, as export_model
 SERVE_ITERS = 50
+SERVE_PROFILED = 10   # calls a profiler window of a timing turn holds
 
 # Run in a fresh interpreter by ``check_artifact_apart``: loads an artifact
 # (with torch alone, or through scae_tpu_torch.serve.load_serving), holds
@@ -2633,30 +2648,33 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
     transformer's use_pallas_attention (K6 by name), each loaded in a fresh
     interpreter (the xla one with torch alone) and held to the live infer
     function at batch 128 and 65, with the kernels of one call from the
-    profiler's records; the flag-on artifact's K6 launch count over one
-    call; an artifact exported on the CPU and moved to the card against
-    the card's own; device ms per call and images/s at batch 128 of each
-    artifact beside the live infer function's; then
+    profiler's records; the flag-on artifact's K6 launch count over its
+    first call (the warm-up and the capture of its graph); an artifact
+    exported on the CPU and moved to the card against the card's own; then
+    ``serve_graph_checks`` (each surface's CUDA graphs against its eager
+    call) and, where ``ckpt_dir`` is given,
     ``python -m scae_tpu_torch.tools.export_model`` on the trainer phase's
     checkpoint directory."""
     from scae_tpu_torch import serve
     from scae_tpu_torch.factory import make_scae
     from scae_tpu_torch.kernels import attention as k6
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
     os.makedirs(tmp, exist_ok=True)
     cuda = torch.device("cuda")
-    model, params, x = serve_model_and_input(torch)
-    model.obj_encoder.use_pallas_attention = False
+    flagged_model, params, x = serve_model_and_input(torch)
+    model = make_scae(params, device=cuda, seed=0)   # the flag off
     shape = tuple(params["image_shape"])
-    live = serve.make_infer_fn(model, device=cuda)
+    live = {False: serve.make_infer_fn(model, device=cuda),
+            True: serve.make_infer_fn(flagged_model, device=cuda)}
     artifacts = {}
     for flag in (False, True):
-        model.obj_encoder.use_pallas_attention = flag
         name = "pallas_attention" if flag else "xla"
         path = os.path.join(tmp, f"artifact_{name}")
         zero_kernel_counts()
         t0 = time.perf_counter()
-        serve.export_serving(model, image_shape=shape, batch_size=None,
+        serve.export_serving(flagged_model if flag else model,
+                             image_shape=shape, batch_size=None,
                              out_dir=path, device=cuda,
                              model_config=params, polymorphic_batch=True)
         seconds = time.perf_counter() - t0
@@ -2674,7 +2692,7 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
         say(f"exported the {name} artifact in {seconds!r} s: {size} B, "
             f"custom ops {manifest['custom_ops']}, device "
             f"{manifest['device']} [{card}]")
-        saved = {b: {k: v.cpu() for k, v in live(x[:b]).items()}
+        saved = {b: {k: v.cpu() for k, v in live[flag](x[:b]).items()}
                  for b in SERVE_BATCHES}
         saved["x"] = x
         saved_path = os.path.join(tmp, f"live_{name}.pt")
@@ -2684,18 +2702,22 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
                              {"K6": 4} if flag else {})
         artifacts[name] = (path, saved)
 
-    # the main path: every count at 0 just before one call of the flag-on
-    # artifact, read just after
+    # the main path: every count at 0 just before the first call of the
+    # flag-on artifact (its graph's warm-up and capture), read just after
     flagged = serve.load_serving(artifacts["pallas_attention"][0])
     xc = x.to(cuda)
     zero_kernel_counts()
     out = flagged(xc)
     torch.cuda.synchronize()
-    check_kernel_counts(card, rows, "one call of the flag-on artifact at "
-                        f"batch {BATCH} (three set-attention blocks and the "
-                        "final attention through "
-                        "scae_tpu_torch::attention_fwd)", {"K6": 4})
+    check_kernel_counts(card, rows, "the first call of the flag-on artifact"
+                        f" at batch {BATCH} (three set-attention blocks and "
+                        "the final attention through "
+                        "scae_tpu_torch::attention_fwd, in the graph's "
+                        f"{WARMUP_STEPS} warm-up call and its capture)",
+                        {"K6": 4 * (WARMUP_STEPS + 1)})
     serve_gaps(torch, out, artifacts["pallas_attention"][1][BATCH])
+    say("assertions in the flag-on artifact's program: "
+        + json.dumps(program_assertions(flagged.program)) + f" [{card}]")
 
     # an export on the CPU, moved to the card, against the card's own
     cpu_model = make_scae(params, device="cpu", seed=0)
@@ -2713,25 +2735,23 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
         f"{BATCH}: " + ", ".join(f"{k} {v}" for k, v in gaps.items())
         + f" [{card}]")
 
-    # device ms per call and images/s (CUDA events over back-to-back
-    # calls) of each artifact and of the live infer function
-    model.obj_encoder.use_pallas_attention = False
-    live_flagged = make_scae(params, device=cuda, seed=0)
-    live_flagged.obj_encoder.use_pallas_attention = True
-    infer_flagged = serve.make_infer_fn(live_flagged, device=cuda)
-    calls = {"xla artifact": lambda: own(xc),
-             "flag-on artifact": lambda: flagged(xc),
-             "live infer (xla)": lambda: live(xc),
-             "live infer (flag on)": lambda: infer_flagged(xc)}
-    for what, fn in calls.items():
-        device_ms = device_ms_per_call(torch, fn, iters=SERVE_ITERS,
-                                       warmup=5)
-        ms = time_cuda(torch, fn, SERVE_ITERS, 5)
-        say(f"serving, {what}, batch {BATCH}: {device_ms!r} ms of device "
-            f"time per call (torch.profiler, {SERVE_ITERS} calls), "
-            f"{ms!r} ms per call on CUDA events, {BATCH / ms * 1e3!r} "
-            f"images/s [{card}]")
+    t0 = time.perf_counter()
+    serve_graph_checks(torch, card, {
+        "xla artifact": (lambda: serve.load_serving(artifacts["xla"][0]),
+                         False),
+        "flag-on artifact": (lambda: serve.load_serving(
+            artifacts["pallas_attention"][0]), True),
+        "live infer (xla)": (lambda: serve.make_infer_fn(model,
+                                                         device=cuda), False),
+        "live infer (flag on)": (lambda: serve.make_infer_fn(
+            flagged_model, device=cuda), True)}, x)
+    t1 = time.perf_counter()
+    serve_bench_turns(torch, card, artifacts["pallas_attention"][0])
+    say(f"serving graphs: the checks and turns took {t1 - t0!r} s, "
+        f"bench_serving's turns {time.perf_counter() - t1!r} s [{card}]")
 
+    if ckpt_dir is None:
+        return
     # the export tool on the trainer phase's checkpoints
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(tmp, "artifact_tool")
@@ -2748,6 +2768,159 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
     result = json.loads(run.stdout.strip().splitlines()[-1])
     say(f"export_model on {ckpt_dir}: step {result['step']}, "
         f"{time.perf_counter() - t0!r} s, exit 0 [{card}]")
+
+
+def program_assertions(program) -> dict:
+    """{operator: count} of the runtime assertions and range constraints
+    in an ExportedProgram's graph (a polymorphic batch may add some)."""
+    found = {}
+    for n in program.graph.nodes:
+        name = str(n.target)
+        if n.op == "call_function" and any(
+                w in name for w in ("assert", "constrain_range")):
+            found[name] = found.get(name, 0) + 1
+    return found
+
+
+def output_gaps(torch, got, want) -> dict:
+    """{output: the largest gap relative to the output's largest entry
+    (predictions: how many differ)}."""
+    gaps = {}
+    for k in sorted(want):
+        g, w = got[k], want[k]
+        if k.endswith("prediction"):
+            gaps[k] = int((g != w).sum())
+        else:
+            gaps[k] = float((g.double() - w.double()).abs().max()
+                            / w.double().abs().max().clamp_min(1e-30))
+    return gaps
+
+
+def serve_graph_checks(torch, card, surfaces, x):
+    """Each serving surface (``surfaces``: name -> (a function that makes
+    it, whether it has the attention flag)), which on the card replays a
+    CUDA graph per batch size, against its own eager call
+    (``.eager``). Under cuDNN's deterministic algorithms, at batch 128 and
+    65: the first call's launch counts (K6 4 in the warm-up call and 4 in
+    the capture with the flag, nothing else), every output of the replay
+    bit for bit the eager call's (else the largest gap relative to each
+    output's largest entry, and a failure), one capture a batch size and
+    none for a second call, K6 4 times a replay in the profiler's records
+    (none without the flag), and a call's outputs untouched by the next
+    call. Then, under the default algorithms, each surface made anew and
+    timed in turns (eager, graph, graph, eager) at batch 128: device ms
+    per call (profiler), ms per call on CUDA events and images/s."""
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
+
+    cuda = torch.device("cuda")
+    xc = x.to(cuda)
+    other = (1.0 - xc).flip(-1).contiguous()
+    failures = []
+    was = deterministic_cudnn(torch)
+    try:
+        for what, (make, flag) in surfaces.items():
+            surface = make()
+            for b in SERVE_BATCHES:
+                zero_kernel_counts()
+                got = surface(xc[:b])
+                torch.cuda.synchronize()
+                counts = kernel_counts()
+                want_counts = {k: 0 for k in KERNELS}
+                if flag:
+                    want_counts["K6"] = 4 * (WARMUP_STEPS + 1)
+                if counts != want_counts:
+                    failures.append(f"{what} batch {b}: first call "
+                                    f"launched {counts}")
+                want = surface.eager(xc[:b])
+                same = all(torch.equal(got[k], want[k]) for k in want) \
+                    and sorted(got) == sorted(want)
+                gaps = output_gaps(torch, got, want)
+                say(f"serving graph, {what}, batch {b}: the replay "
+                    + ("bit for bit the eager call" if same else
+                       "differs from the eager call: " + ", ".join(
+                           f"{k} {v!r}" for k, v in gaps.items())
+                       + " (each of its largest entry; predictions: how "
+                       "many differ)")
+                    + f"; launches over the first call (warm-up and "
+                    f"capture): K6 {counts['K6']} [{card}]")
+                if not same:
+                    failures.append(f"{what} batch {b}: replay != eager")
+            captures = surface.graphs.captures
+            surface(xc)
+            if surface.graphs.captures != captures or \
+                    captures != len(SERVE_BATCHES):
+                failures.append(f"{what}: {captures} captures for "
+                                f"{len(SERVE_BATCHES)} batch sizes, "
+                                f"{surface.graphs.captures} after a "
+                                "second call")
+            say(f"serving graph, {what}: {captures} captures for batch "
+                f"sizes {list(SERVE_BATCHES)}, none for a second call "
+                f"[{card}]")
+            check_kernel_records(torch, card, f"one replay of the {what} "
+                                 f"at batch {BATCH}", lambda: surface(xc),
+                                 {"K6": 4} if flag else {})
+            first = surface(xc)
+            kept = {k: v.clone() for k, v in first.items()}
+            second = surface(other)
+            third = surface(xc)
+            torch.cuda.synchronize()
+            untouched = all(torch.equal(first[k], kept[k]) for k in kept)
+            moved = any(not torch.equal(second[k], first[k])
+                        for k in first if not k.endswith("prediction"))
+            if not untouched or not moved or \
+                    not all(torch.equal(third[k], kept[k]) for k in kept):
+                failures.append(f"{what}: outputs overwritten by a later "
+                                "call, or one input's outputs returned "
+                                "for another")
+            say(f"serving graph, {what}: a call's outputs untouched by the "
+                f"next two calls (fresh tensors: {untouched}); another "
+                f"input's outputs differ: {moved} [{card}]")
+    finally:
+        deterministic_cudnn(torch, was[0])
+    if failures:
+        raise RuntimeError("serving graphs: " + "; ".join(failures))
+
+    # eager against graph in turns, on surfaces made anew under the
+    # default algorithms
+    for what, (make, _) in surfaces.items():
+        surface = make()
+        turns = (("eager", surface.eager), ("graph", surface),
+                 ("graph", surface), ("eager", surface.eager))
+        for mode, fn in turns:
+            call = lambda: fn(xc)  # noqa: E731
+            device_ms = device_ms_per_call(torch, call,
+                                           iters=SERVE_PROFILED, warmup=5)
+            ms = time_cuda(torch, call, SERVE_ITERS, 5)
+            say(f"serving, {what}, {mode}, batch {BATCH}: {device_ms!r} ms "
+                f"of device time per call (torch.profiler, {SERVE_PROFILED} "
+                f"calls), {ms!r} ms per call on CUDA events "
+                f"({SERVE_ITERS} calls), "
+                f"{BATCH / ms * 1e3!r} images/s [{card}]")
+
+
+def serve_bench_turns(torch, card, artifact):
+    """``tools.bench_serving`` on the flag-on artifact (batch 128, best of
+    BENCH_REPEATS), eager and graph in turns (eager, graph, graph, eager):
+    the eager turns with ``serve``'s graphs left out, the graph turns as
+    the tool runs."""
+    from scae_tpu_torch import serve
+    from scae_tpu_torch.tools import bench_serving
+
+    graphed = serve._graphed
+    for mode in ("eager", "graph", "graph", "eager"):
+        if mode == "eager":
+            serve._graphed = lambda *args, **kwargs: None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                result = bench_serving.main([artifact, "--repeats",
+                                             str(BENCH_REPEATS)])
+        finally:
+            serve._graphed = graphed
+        say(f"bench_serving, {mode}, the flag-on flagship artifact at batch "
+            f"{result['batch_size']}: the artifact "
+            f"{result['artifact_images_per_sec']!r} images/s, the live xla "
+            f"model {result['live_images_per_sec']!r} images/s (best of "
+            f"{BENCH_REPEATS}, synchronized) [{card}]")
 
 
 # -------------------------------------------------------------- tools
@@ -2852,8 +3025,9 @@ def tools_argv(name, tmp, where, c_star=None):
         "ensemble_eval": ckpts + ["--"] + TOOLS_CLI,
         "ensemble_pool": [spec, "--dump-probs",
                           os.path.join(tmp, f"pool_{where}.npz")],
-        # two of the four default Cs: each fit takes 6-10 s on the host
-        "probe_eval": [spec, "--c-grid", "10", "100"],
+        # one of the four default Cs, the C* of every earlier run: each fit
+        # takes 6-16 s on the host, and the script stays under 700 s
+        "probe_eval": [spec, "--c-grid", "100"],
         "probe_calibrate": [ckpts[0], "--out",
                             os.path.join(tmp, f"calibrated_{where}"),
                             "--c-star", str(c_star), "--"] + TOOLS_CLI,
@@ -2913,21 +3087,17 @@ def tools_phase(torch, card, rows, tmp):
     n_batches = -(-n_test // BATCH)
     for seed in TOOLS_SEEDS:
         out = os.path.join(tmp, f"member{seed}")
-        zero_kernel_counts()
-        for k in train_step.captures:
-            train_step.captures[k] = 0
+        reset_captures()
         t0 = time.perf_counter()
         run_cli(cli, TOOLS_CLI + [f"seed={seed}",
                                   f"trainer.checkpoint_dir={out}/ckpt",
                                   f"trainer.log_dir={out}/logs"])
         torch.cuda.synchronize()
         caps = dict(train_step.captures)
-        per = WARMUP_STEPS + 1
         check_kernel_counts(
             card, rows, f"training member {seed} through the CLI "
             f"({caps['train']} train and {caps['eval']} eval graphs "
-            "captured)", {"K1": per * (caps["train"] + caps["eval"]),
-                          "K2+K3": per * caps["train"]})
+            "captured)", graph_counts_expected(caps))
         say(f"tools: member {seed} (model=mnist, f32 convs, 1 epoch of "
             f"{n_train} images, batch {BATCH}) trained in "
             f"{time.perf_counter() - t0!r} s [{card}]")
@@ -2965,8 +3135,10 @@ def tools_phase(torch, card, rows, tmp):
                                   tools_argv(name, tmp, where, c_star))
 
     failures = []
-    expected = {"verify_serving_readout": {"K6": 4 * n_batches},
-                "bench_serving": {"K6": 4 * (1 + BENCH_REPEATS)}}
+    # the artifact's calls replay one graph (batch 128): K6 launches 4
+    # times in its warm-up call and 4 in its capture, none in a replay
+    expected = {"verify_serving_readout": {"K6": 4 * (WARMUP_STEPS + 1)},
+                "bench_serving": {"K6": 4 * (WARMUP_STEPS + 1)}}
     accuracies = {
         "ensemble_eval": {"prior_acc": n_test, "posterior_acc": n_test,
                           "ensemble_acc": n_test},
@@ -3059,6 +3231,151 @@ def tools_phase(torch, card, rows, tmp):
         + f" [{card}]")
     if failures:
         raise RuntimeError("tools phase: " + "; ".join(failures))
+    demos_check(torch, card, rows, os.path.join(tmp, "demo"))
+    pool_check(torch, card, rows, os.path.join(tmp, "pool"))
+
+
+# the infer demo's forward in f32 on both sides (the demo trains with the
+# shipped bf16 convolutions, whose rounding the card and the CPU need not
+# share); its confidences card against CPU, abs
+DEMO_F32 = ["model.pcae_cnn_encoder_params.compute_dtype=null"]
+DEMO_CONF_TOL = 1e-4
+
+
+def graph_counts_expected(caps):
+    """The launches of a Trainer's graph scans whose captures are ``caps``
+    (parallel.train_step.captures): K1 and K2+K3 in each scan's warm-up
+    steps and in its capture."""
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
+
+    per = WARMUP_STEPS + 1
+    return {"K1": per * (caps["train"] + caps["eval"]),
+            "K2+K3": per * caps["train"]}
+
+
+def reset_captures():
+    from scae_tpu_torch.parallel import train_step
+
+    zero_kernel_counts()
+    for k in train_step.captures:
+        train_step.captures[k] = 0
+
+
+def demos_check(torch, card, rows, work):
+    """``examples.train_resume_demo`` on the card (its small model, 2
+    epochs, then a resume to epoch 4), then ``examples.infer_demo`` on its
+    checkpoint on the card and on the CPU: the same predictions and labels,
+    confidences within DEMO_CONF_TOL."""
+    from scae_tpu_torch.examples import infer_demo, train_resume_demo
+    from scae_tpu_torch.parallel import train_step
+
+    reset_captures()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        state = train_resume_demo.main([work])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for line in text.getvalue().splitlines():
+        say(f"  train_resume_demo: {line}")
+    caps = dict(train_step.captures)
+    check_kernel_counts(card, rows, "examples.train_resume_demo (its "
+                        f"{caps['train']} train and {caps['eval']} eval "
+                        "graphs captured)", graph_counts_expected(caps))
+    # 512 synthetic images, 128 held out for validation, batch 32
+    if "[demo] interrupted at step 24;" not in text.getvalue() or \
+            state.step != 48 or "resumed from step 24" not in \
+            text.getvalue():
+        raise RuntimeError(f"train_resume_demo: stopped at step "
+                           f"{state.step}, expected 24 then 48")
+    say(f"tools: examples.train_resume_demo on the card: 24 steps, resumed "
+        f"at step 24 to 48, in {seconds!r} s [{card}]")
+
+    argv = [*train_resume_demo.OVERRIDES, *DEMO_F32,
+            f"trainer.checkpoint_dir={work}/ckpt",
+            f"trainer.log_dir={work}/infer_logs"]
+    runs = {}
+    for where in ("card", "cpu"):
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            runs[where] = infer_demo.main(
+                argv + [f"--out={work}/infer_{where}"]
+                + (["--device=cpu"] if where == "cpu" else []))
+        if where == "card":
+            torch.cuda.synchronize()
+            check_kernel_counts(card, rows, "examples.infer_demo on the "
+                                "card (no kernel on its forward)", {})
+        for line in text.getvalue().splitlines():
+            say(f"  infer_demo ({where}): {line}")
+        say(f"tools: examples.infer_demo ({where}) in "
+            f"{time.perf_counter() - t0!r} s")
+    got, want = runs["card"]["records"], runs["cpu"]["records"]
+    gap = max(abs(g["confidence"] - w["confidence"])
+              for g, w in zip(got, want))
+    if len(got) != len(want) or any(
+            (g["index"], g["pred"], g["label"]) != (
+                w["index"], w["pred"], w["label"])
+            for g, w in zip(got, want)) or not gap <= DEMO_CONF_TOL + 1e-9:
+        raise RuntimeError(f"infer_demo: the card's {len(got)} records "
+                           f"differ from the CPU's {len(want)} (largest "
+                           f"confidence gap {gap})")
+    say(f"tools: examples.infer_demo on the card against the CPU from the "
+        f"same checkpoint (step {runs['card']['step']}): {len(got)} "
+        f"predictions equal, confidences within {gap!r} (4 decimals), "
+        f"accuracy {runs['card']['accuracy']!r} [{card}]")
+
+
+def pool_check(torch, card, rows, work):
+    """``tools.pool_inprocess.train_members`` with two model=mnist members
+    (the tools phase's recipe: f32 convs, one epoch of the synthetic
+    1,024 / 512 / 256 split; seeds 3 then 1) under cuDNN's deterministic
+    algorithms, against seed 1 trained alone through the Trainer: every
+    parameter bit for bit, and the other member different."""
+    from scae_tpu_torch.config import load_config
+    from scae_tpu_torch.parallel import train_step
+    from scae_tpu_torch.tools import pool_inprocess
+    from scae_tpu_torch.train.checkpoint import CheckpointManager
+    from scae_tpu_torch.train.loop import Trainer
+
+    def final(ckpt):
+        mgr = CheckpointManager(ckpt)
+        return mgr.latest_step, mgr.restore_params(mgr.latest_step)
+
+    was = deterministic_cudnn(torch)
+    try:
+        reset_captures()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            pool_inprocess.train_members(
+                members=[("m0", 1, ["seed=3"]), ("m1", 1, ["seed=1"])],
+                log_root=f"{work}/logs", ckpt_root=f"{work}/ckpt",
+                base_overrides=TOOLS_CLI)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_kernel_counts(card, rows, "pool_inprocess.train_members (2 "
+                            "members)", graph_counts_expected(
+                                dict(train_step.captures)))
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = Trainer(load_config("config", TOOLS_CLI + [
+                "seed=1", f"trainer.checkpoint_dir={work}/solo",
+                f"trainer.log_dir={work}/solo_logs"]))
+            trainer.run(max_epochs=1)
+            trainer.close()
+    finally:
+        deterministic_cudnn(torch, was[0])
+    (m_step, pooled), (s_step, solo) = final(f"{work}/ckpt/m1"), final(
+        f"{work}/solo")
+    _, other = final(f"{work}/ckpt/m0")
+    differ = [k for k in solo if not torch.equal(solo[k], pooled[k])]
+    if m_step != s_step or sorted(solo) != sorted(pooled) or differ or \
+            all(torch.equal(other[k], solo[k]) for k in solo):
+        raise RuntimeError(f"pool_inprocess: member m1 (step {m_step}) "
+                           f"against the solo run (step {s_step}): "
+                           f"{len(differ)} parameters differ")
+    say(f"tools: pool_inprocess.train_members, 2 model=mnist members of 1 "
+        f"epoch in {seconds!r} s: member m1 (after m0, seed 3) bit for bit "
+        f"seed 1 trained alone ({len(solo)} parameters, step {s_step}, "
+        f"deterministic cuDNN); m0 differs [{card}]")
 
 
 def profile_phase(torch, name, step, images, labels, n, card):
@@ -3394,9 +3711,10 @@ def mesh_serve_rank(torch, out, rank):
     export_counts = kernel_counts()
     loaded = serve.load_serving(path)
     xc = x.cuda()
-    loaded(xc)
-    torch.cuda.synchronize()
     zero_kernel_counts()
+    loaded(xc)     # the warm-up call and the capture of the rank's graph
+    torch.cuda.synchronize()
+    counts = kernel_counts()
     t0 = time.perf_counter()
     got = loaded(xc)
     torch.cuda.synchronize()
@@ -3404,7 +3722,7 @@ def mesh_serve_rank(torch, out, rank):
     torch.save({k: v.cpu() for k, v in got.items()},
                os.path.join(out, f"mesh_serve_{rank}.pt"))
     return {"export_seconds": export_seconds,
-            "export_counts": export_counts, "counts": kernel_counts(),
+            "export_counts": export_counts, "counts": counts,
             "call_ms": call_ms,
             "manifest": {k: loaded.manifest[k] for k in (
                 "batch_axis", "nr_devices", "mesh", "input",
@@ -3712,9 +4030,10 @@ def mesh_serving_check(torch, card, rows, tmp, ranks):
     """The 2x1 mesh artifact (flag on, global batch 128) that the step
     ranks exported and called, against the one-process artifact of the
     same model at batch 128: predictions equal, every other output within
-    MESH_SERVE_RTOL of its largest entry; K6 4 times a call on each rank
-    and never in the export."""
+    MESH_SERVE_RTOL of its largest entry; K6 4 times in the warm-up call
+    and 4 in the capture of each rank's graph, and never in the export."""
     from scae_tpu_torch import serve
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
     model, params, x = serve_model_and_input(torch)
     path = os.path.join(tmp, "single_artifact")
@@ -3746,7 +4065,7 @@ def mesh_serving_check(torch, card, rows, tmp, ranks):
                 m["input"]["shape"][0] != BATCH:
             failures.append(f"mesh artifact manifest {m}")
         expected = dict.fromkeys(KERNELS, 0)
-        expected["K6"] = 4
+        expected["K6"] = 4 * (WARMUP_STEPS + 1)
         if launches != expected or any(res["export_counts"].values()):
             failures.append(f"mesh artifact rank {r['rank']}: launches "
                             f"{launches}, export {res['export_counts']}")
@@ -3755,8 +4074,10 @@ def mesh_serving_check(torch, card, rows, tmp, ranks):
         say(f"mesh serving: the flag-on flagship exported on 2x1 (2 gloo "
             f"processes, global batch {BATCH}, {BATCH // 2} rows a "
             f"process) in {res['export_seconds']!r} s, rank {r['rank']}: "
-            f"K6 {launches['K6']} in one call ({res['call_ms']!r} ms), "
-            f"none in the export; against the one-process artifact: "
+            f"K6 {launches['K6']} in the first call (the warm-up call and "
+            f"the capture of the rank's graph), a replayed call "
+            f"{res['call_ms']!r} ms with the gather, none in the export; "
+            f"against the one-process artifact: "
             + ", ".join(f"{k} {v}" + (" differ" if isinstance(v, int)
                                       else "") for k, v in gaps.items())
             + f" (each of its largest entry) [{card}]")
@@ -4035,6 +4356,10 @@ def main(argv=None) -> int:
     ap.add_argument("--tools", action="store_true",
                     help="run only the tools phase (after env and build); "
                          "prints no result line")
+    ap.add_argument("--serve", action="store_true",
+                    help="run only the serve phase, without the export "
+                         "tool (after env and build); prints no result "
+                         "line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4095,9 +4420,13 @@ def main(argv=None) -> int:
                                            "Compiling")):
                     say(f"  ptxas: {line.strip()}")
 
-    if args.mesh or args.tools:
+    if args.mesh or args.tools or args.serve:
         rows = [{"launches": None} for _ in KERNELS]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            if args.serve:
+                with phase("serve"):
+                    serve_phase(torch, card, rows, os.path.join(tmp, "serve"),
+                                None, [])
             if args.tools:
                 with phase("tools"):
                     tools_phase(torch, card, rows, os.path.join(tmp, "tools"))

@@ -1,4 +1,5 @@
-"""CUDA graphs of one step, for the scans of ``parallel/train_step.py``.
+"""CUDA graphs of one step, for the scans of ``parallel/train_step.py``,
+and of one call, for serving (``serve.py``).
 
 JAX runs a scan's K steps as one compiled program. The port's counterpart
 on the card captures one step in a ``torch.cuda.CUDAGraph`` and replays it
@@ -30,6 +31,14 @@ are stream work that a graph can hold. Gloo's collectives run on the host
 and wait for the card, which no graph can hold: under gloo the scans run
 the eager step instead (``captures_collectives``, the one place of that
 rule, which says so once on process 0).
+
+Serving takes the same recipe per call (``CallGraphs``): JAX serves one
+compiled program a call, the port one replay of a graph captured per input
+shape and dtype and per ``tensors_key`` of the tensors the call reads,
+after ``WARMUP_STEPS`` eager calls on a side stream. Each call copies its
+input into the graph's static input, replays, and returns clones of the
+static outputs, so that the next call never overwrites what a caller
+holds.
 """
 
 import contextlib
@@ -94,8 +103,29 @@ def collector_off():
             gc.enable()
 
 
+def module_tensors(module) -> list:
+    """Every tensor that ``module`` holds: its parameters, its buffers and
+    the tensors set as plain attributes of it or of a submodule (the
+    constants of an ExportedProgram's module)."""
+    out = [*module.parameters(), *module.buffers()]
+    for m in module.modules():
+        out += [v for v in vars(m).values() if isinstance(v, torch.Tensor)]
+    return out
+
+
+def _clone(out):
+    """Fresh copies of a graph's static outputs: a tensor, or a dict,
+    tuple or list of them."""
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    if isinstance(out, dict):
+        return {k: _clone(v) for k, v in out.items()}
+    return type(out)(_clone(v) for v in out)
+
+
 class StepGraph:
-    """``fn()``, a step that returns one tensor, captured in a CUDA graph.
+    """``fn()``, a step that returns a tensor (or a dict, tuple or list of
+    them), captured in a CUDA graph.
 
     ``generators``: CUDA generators the step draws from; each is
     registered with the graph, so a replay draws from the generator's seed
@@ -105,7 +135,7 @@ class StepGraph:
     run at once; a private one when None. ``capture_error_mode``: as
     ``torch.cuda.graph``'s, its default where None ("thread_local" lets
     other threads, such as a process group's, query the card meanwhile).
-    ``replay()`` runs the step and returns its output tensor, which the
+    ``replay()`` runs the step and returns its output, whose tensors the
     next replay overwrites.
     """
 
@@ -121,6 +151,54 @@ class StepGraph:
                                                **mode):
             self.out = fn()
 
-    def replay(self) -> torch.Tensor:
+    def replay(self):
         self.graph.replay()
         return self.out
+
+
+class CallGraphs:
+    """``fn(x)`` on the card, replayed from a CUDA graph per input: one
+    graph for each shape and dtype of ``x``, all in one memory pool (they
+    never run at once), captured at the first call that needs it after
+    ``WARMUP_STEPS`` eager calls on a side stream. ``tensors()`` lists the
+    tensors ``fn`` reads besides ``x`` (a model's parameters and buffers,
+    ``module_tensors``): where their ``tensors_key`` changes (a tensor
+    replaced, not written in place), every graph is dropped and the call
+    captures anew. ``capture_error_mode`` as for ``StepGraph``.
+
+    A call copies ``x`` into the graph's static input, replays and
+    returns clones of the static outputs. It runs under the caller's
+    context (``torch.inference_mode()`` for serving) for the warm-up and
+    the capture alike. ``fn`` must take nothing from the host inside the
+    call: a capture that fails raises; nothing falls back to ``fn``.
+    ``captures`` counts the graphs captured."""
+
+    def __init__(self, fn: Callable, tensors: Callable[[], Sequence],
+                 device, capture_error_mode: Optional[str] = None):
+        self.fn, self.tensors, self.device = fn, tensors, device
+        self.mode = {} if capture_error_mode is None else {
+            "capture_error_mode": capture_error_mode}
+        self.key = None      # tensors_key of what the graphs read
+        self.graphs = {}     # (shape, dtype) -> (static input, StepGraph)
+        self.pool = None
+        self.captures = 0
+
+    def __call__(self, x: torch.Tensor):
+        key = tensors_key(self.tensors())
+        if key != self.key:
+            # free the old graphs' memory before capturing again
+            self.graphs, self.pool, self.key = {}, None, key
+        shape = (tuple(x.shape), x.dtype)
+        if shape not in self.graphs:
+            static = x.clone()
+            with side_stream(self.device):
+                for _ in range(WARMUP_STEPS):
+                    self.fn(static)
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            self.graphs[shape] = (static, StepGraph(
+                lambda: self.fn(static), pool=self.pool, **self.mode))
+            self.captures += 1
+        static, graph = self.graphs[shape]
+        static.copy_(x)
+        return _clone(graph.replay())

@@ -44,6 +44,23 @@ process of a group of that size, returns a ``ServingModel`` that takes the
 global batch on every rank, runs its rows and all-gathers the outputs in
 rank order over the data group, so that every rank returns the global
 batch's outputs; model ranks replicate.
+
+On the card both surfaces replay a CUDA graph per batch size
+(``parallel.graphs.CallGraphs``), the counterpart of the JAX package's one
+compiled program a call: the first call at a batch size (and dtype) runs
+``graphs.WARMUP_STEPS`` eager calls on a side stream and captures one, all
+of a surface's graphs in one memory pool; every call copies the image into
+the graph's static input, replays and returns fresh tensors (clones of the
+static outputs). The graphs are keyed by ``graphs.tensors_key`` of the
+tensors the call reads (the model's parameters and buffers, or the
+program's), so a model whose tensors are replaced, not written in place, is
+captured again. A capture that fails raises; nothing falls back to the
+eager call. A replay calls no kernel wrapper, so a kernel's launch count
+grows only at the warm-up and the capture (K6 4 times each with the
+attention flag); what a replay runs shows in torch.profiler's device
+records. Keep the batch fixed (pad the tail) for one graph. On the CPU
+both surfaces run eagerly. The eager call stays reachable for comparison:
+``infer.eager`` and ``ServingModel.eager``.
 """
 
 import json
@@ -54,6 +71,7 @@ import torch
 from torch import nn
 
 from scae_tpu_torch.parallel import mesh as mesh_lib
+from scae_tpu_torch.parallel.graphs import CallGraphs, module_tensors
 from scae_tpu_torch.utils.device import check_model_device, resolve_device
 
 ARTIFACT_NAME = "model.pt2"
@@ -78,19 +96,43 @@ def infer_outputs(res, with_reconstruction: bool = False
     return out
 
 
+def _graphed(fn, tensors, device, mesh=None) -> Optional[CallGraphs]:
+    """``fn`` replayed from a CUDA graph per batch size on the card
+    (``CallGraphs``; under a mesh the graphs let the process group's
+    threads query the card meanwhile); None on the CPU, where ``fn`` runs
+    as it is."""
+    if device.type != "cuda":
+        return None
+    return CallGraphs(fn, tensors, device, capture_error_mode=None
+                      if mesh is None else "thread_local")
+
+
 def make_infer_fn(model, with_reconstruction: bool = False,
                   device=None) -> Callable:
     """``infer(image) -> dict`` on ``device`` (CUDA unless given), where
-    ``model`` must already live; the outputs are ``infer_outputs``'."""
+    ``model`` must already live; the outputs are ``infer_outputs``'. On
+    the card a call replays a CUDA graph per batch size (the module's
+    docstring); ``infer.eager`` is the same function op by op, and
+    ``infer.graphs`` the ``CallGraphs`` (None on the CPU)."""
     device = resolve_device(device)
     check_model_device(model, device)
 
-    @torch.inference_mode()
-    def infer(image):
-        image = torch.as_tensor(image).to(device=device, dtype=torch.float32)
+    def forward(image):
         return infer_outputs(model(image, deterministic=True),
                              with_reconstruction)
 
+    graphs = _graphed(forward, lambda: module_tensors(model), device)
+
+    def on_device(fn):
+        @torch.inference_mode()
+        def run(image):
+            return fn(torch.as_tensor(image).to(device=device,
+                                                dtype=torch.float32))
+        return run
+
+    infer = on_device(graphs or forward)
+    infer.eager = on_device(forward)
+    infer.graphs = graphs
     return infer
 
 
@@ -205,10 +247,15 @@ class ServingModel:
     """A loaded serving artifact: ``model(image) -> dict``.
 
     ``program`` is the ExportedProgram; the call runs its module on
-    ``device`` after checking the image's shape against the manifest. With
-    ``mesh`` (a mesh artifact) the image is the global batch, the same on
-    every rank: each rank runs its rows and the outputs are gathered over
-    the data group, so every rank returns the global batch's."""
+    ``device`` after checking the image's shape against the manifest, on
+    the card from a CUDA graph per batch size (``graphs``; the module's
+    docstring), on the CPU eagerly; ``eager(image)`` runs it op by op
+    anywhere. With ``mesh`` (a mesh artifact) the image is the global
+    batch, the same on every rank: each rank runs its rows and the outputs
+    are gathered over the data group, so every rank returns the global
+    batch's. The graph holds the local program alone; the gather runs
+    after the replay, outside it (gloo's collectives cannot be captured:
+    ``graphs.captures_collectives``)."""
 
     def __init__(self, program, manifest: dict, device: torch.device,
                  mesh: Optional[mesh_lib.Mesh] = None):
@@ -217,6 +264,9 @@ class ServingModel:
         self.device = device
         self.mesh = mesh
         self._call = program.module()
+        self.graphs = _graphed(self._call,
+                               lambda: module_tensors(self._call), device,
+                               mesh)
 
     @property
     def input_shape(self):
@@ -225,6 +275,13 @@ class ServingModel:
         return tuple(self.manifest["input"]["shape"])
 
     def __call__(self, image) -> Dict[str, torch.Tensor]:
+        return self._run(self.graphs or self._call, image)
+
+    def eager(self, image) -> Dict[str, torch.Tensor]:
+        """The call op by op, with no graph."""
+        return self._run(self._call, image)
+
+    def _run(self, call, image) -> Dict[str, torch.Tensor]:
         image = torch.as_tensor(image).to(device=self.device,
                                           dtype=torch.float32)
         want = self.input_shape
@@ -234,8 +291,8 @@ class ServingModel:
                              f"(None: any batch), got {tuple(image.shape)}")
         with torch.inference_mode():
             if self.mesh is None:
-                return self._call(image)
-            out = self._call(mesh_lib.local_rows(image, mesh=self.mesh))
+                return call(image)
+            out = call(mesh_lib.local_rows(image, mesh=self.mesh))
             return {k: mesh_lib.gather_rows(v, self.mesh)
                     for k, v in out.items()}
 

@@ -1390,3 +1390,95 @@ def test_trainer_graph_scan_equals_an_eager_trainer(deterministic, tmp_path,
         for k in w:
             if k not in ("time", "images_per_sec"):
                 assert g[k] == w[k], (k, g["step"])
+
+
+# ------------------------------------------------ serving's CUDA graphs
+
+def serving_surfaces(cuda, tmp_path, flag):
+    """The live infer function and a loaded polymorphic-batch artifact of
+    one model at test width (the attention flag ``flag``)."""
+    from scae_tpu_torch import serve
+    from scae_tpu_torch.factory import make_scae
+
+    model = make_scae(dict(GRAPH_MODEL, pcae_decoder_params=dict(
+        fused_impl="xla")), device=cuda, seed=0)
+    model.obj_encoder.use_pallas_attention = flag
+    serve.export_serving(model, image_shape=GRAPH_MODEL["image_shape"],
+                         batch_size=None, out_dir=str(tmp_path / "art"),
+                         device=cuda, polymorphic_batch=True)
+    return model, {"live": serve.make_infer_fn(model, device=cuda),
+                   "artifact": serve.load_serving(str(tmp_path / "art"))}
+
+
+def serving_input(cuda, b, seed=0):
+    return torch.from_numpy(np.random.RandomState(seed).rand(
+        b, *GRAPH_MODEL["image_shape"]).astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("flag", [False, True])
+@pytest.mark.parametrize("surface", ["live", "artifact"])
+def test_serving_graph_equals_eager_call(deterministic, tmp_path, flag,
+                                         surface):
+    """At batch 8 and 5 the replay gives the eager call's bits; each batch
+    size captures once, and K6 launches only in the warm-up call and the
+    capture (4 each with the flag), never in a replay."""
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
+
+    _, surfaces = serving_surfaces(deterministic, tmp_path, flag)
+    call = surfaces[surface]
+    for b in (8, 5):
+        x = serving_input(deterministic, b, seed=b)
+        zero_graph_counts()
+        got = call(x)
+        assert k6.launches == (4 * (WARMUP_STEPS + 1) if flag else 0)
+        zero_graph_counts()
+        again = call(x)
+        assert k6.launches == 0
+        want = call.eager(x)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+            assert torch.equal(again[k], want[k]), k
+    assert call.graphs.captures == 2
+    ran = kernel_records(lambda: call(x), {"K6": 4 if flag else 0})
+    assert ran["K6"] == (4 if flag else 0)
+
+
+def test_serving_graph_captures_again_for_replaced_tensors(deterministic,
+                                                           tmp_path):
+    """A parameter written in place keeps the graph, which replays the new
+    values; a parameter replaced by a new tensor captures anew."""
+    model, surfaces = serving_surfaces(deterministic, tmp_path, False)
+    infer = surfaces["live"]
+    x = serving_input(deterministic, 8)
+    before = infer(x)
+    weight = model.prior_classifier.weight
+    with torch.no_grad():
+        weight.mul_(2.0)
+    in_place = infer(x)
+    assert infer.graphs.captures == 1
+    assert not torch.equal(in_place["prior_cls_prob"],
+                           before["prior_cls_prob"])
+    assert torch.equal(in_place["prior_cls_prob"],
+                       infer.eager(x)["prior_cls_prob"])
+    model.prior_classifier.weight = torch.nn.Parameter(weight.detach() / 2)
+    replaced = infer(x)
+    assert infer.graphs.captures == 2
+    for k in before:
+        assert torch.equal(replaced[k], before[k]), k
+
+
+@pytest.mark.parametrize("surface", ["live", "artifact"])
+def test_serving_graph_outputs_are_not_overwritten(deterministic, tmp_path,
+                                                   surface):
+    """A call returns fresh tensors: the next calls, on other images, leave
+    them as they were."""
+    _, surfaces = serving_surfaces(deterministic, tmp_path, True)
+    call = surfaces[surface]
+    first = call(serving_input(deterministic, 8, seed=1))
+    kept = {k: v.clone() for k, v in first.items()}
+    second = call(serving_input(deterministic, 8, seed=2))
+    call(serving_input(deterministic, 8, seed=3))
+    for k in kept:
+        assert torch.equal(first[k], kept[k]), k
+    assert not torch.equal(second["caps_presence"], first["caps_presence"])

@@ -38,7 +38,10 @@ def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
                  "train.logreg", "parallel.mesh", "tools.ensemble_pool",
                  "tools.ensemble_eval", "tools.probe_eval",
                  "tools.probe_calibrate", "tools.verify_serving_readout",
-                 "tools.bench_serving"):
+                 "tools.bench_serving", "utils.torch_port",
+                 "tools.port_trained", "tools.pool_inprocess", "examples",
+                 "examples.infer_demo", "examples.train_resume_demo",
+                 "parallel.graphs"):
         assert f"scae_tpu_torch.{name}" in modules
     code = textwrap.dedent(f"""
         import importlib, os, sys
