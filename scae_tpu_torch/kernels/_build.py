@@ -6,7 +6,10 @@ Libraries go to ``scae_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the source, the shared headers and the flags, and are
 built at the first call on a CUDA tensor, never at import. A build is written under a
 temporary name and renamed into place, so concurrent builds never see a
-half-written library and no lock file is needed.
+half-written library and no lock file is needed. The counters
+``kernels.builds``, ``kernels.build_s`` and ``kernels.build_cache_hits``
+(``utils/trace.py``) add up the builds, their seconds and the builds found
+made.
 """
 
 import ctypes
@@ -17,6 +20,8 @@ import os
 import shutil
 import subprocess
 import time
+
+from scae_tpu_torch.utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -76,6 +81,7 @@ def build(source_name: str) -> BuiltLibrary:
         if os.path.exists(log_path):
             with open(log_path) as f:
                 log = f.read()
+        trace.count("kernels.build_cache_hits")
         return BuiltLibrary(out, log, 0.0, cached=True)
 
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -93,6 +99,8 @@ def build(source_name: str) -> BuiltLibrary:
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, out)
+    trace.count("kernels.builds")
+    trace.add_seconds("kernels.build_s", seconds)
     return BuiltLibrary(out, log, seconds, cached=False)
 
 

@@ -48,6 +48,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from scae_tpu_torch.parallel.mesh import is_process_zero
+from scae_tpu_torch.utils import trace
 
 WARMUP_STEPS = 1
 _told = False   # whether captures_collectives has said its rule
@@ -171,7 +172,14 @@ class CallGraphs:
     context (``torch.inference_mode()`` for serving) for the warm-up and
     the capture alike. ``fn`` must take nothing from the host inside the
     call: a capture that fails raises; nothing falls back to ``fn``.
-    ``captures`` counts the graphs captured."""
+    ``captures`` counts the graphs captured.
+
+    A call's spans (``utils/trace.py``) are ``graphs.key``,
+    ``graphs.capture`` (where it captures), ``graphs.copy_in``,
+    ``graphs.replay`` (with its stream time on the card) and
+    ``graphs.clone``; the counters ``graphs.capture_s`` (host seconds of
+    the warm-ups and captures) and ``graphs.recaptures`` (graphs dropped
+    for a changed key) are always on."""
 
     def __init__(self, fn: Callable, tensors: Callable[[], Sequence],
                  device, capture_error_mode: Optional[str] = None):
@@ -184,21 +192,30 @@ class CallGraphs:
         self.captures = 0
 
     def __call__(self, x: torch.Tensor):
-        key = tensors_key(self.tensors())
+        with trace.span("graphs.key"):
+            key = tensors_key(self.tensors())
         if key != self.key:
+            if self.graphs:
+                trace.count("graphs.recaptures", len(self.graphs))
             # free the old graphs' memory before capturing again
             self.graphs, self.pool, self.key = {}, None, key
         shape = (tuple(x.shape), x.dtype)
         if shape not in self.graphs:
-            static = x.clone()
-            with side_stream(self.device):
-                for _ in range(WARMUP_STEPS):
-                    self.fn(static)
-            if self.pool is None:
-                self.pool = torch.cuda.graph_pool_handle()
-            self.graphs[shape] = (static, StepGraph(
-                lambda: self.fn(static), pool=self.pool, **self.mode))
-            self.captures += 1
+            with trace.span("graphs.capture"), \
+                    trace.timed("graphs.capture_s"):
+                static = x.clone()
+                with side_stream(self.device):
+                    for _ in range(WARMUP_STEPS):
+                        self.fn(static)
+                if self.pool is None:
+                    self.pool = torch.cuda.graph_pool_handle()
+                self.graphs[shape] = (static, StepGraph(
+                    lambda: self.fn(static), pool=self.pool, **self.mode))
+                self.captures += 1
         static, graph = self.graphs[shape]
-        static.copy_(x)
-        return _clone(graph.replay())
+        with trace.span("graphs.copy_in"):
+            static.copy_(x)
+        with trace.span("graphs.replay", device=self.device.type == "cuda"):
+            out = graph.replay()
+        with trace.span("graphs.clone"):
+            return _clone(out)

@@ -32,6 +32,12 @@ in its graph with the rest of the step; under gloo, whose collectives
 cannot be captured, the scans run the eager step on the card too
 (``graphs.captures_collectives``). Without a mesh, or with one that spans
 no process group, nothing calls a collective.
+
+Under a recording profiler the card's scans are the spans ``scan.train``
+and ``scan.eval`` (``utils/trace.py``), each with its stream time and K
+items, and inside them ``scan.indices``, ``scan.prepare`` and one
+``scan.replay`` a replayed row; the counter ``scan.capture_s`` adds the
+host seconds of the warm-up rows and the captures.
 """
 
 import dataclasses
@@ -51,6 +57,7 @@ from scae_tpu_torch.parallel.graphs import (
     tensors_key,
 )
 from scae_tpu_torch.train import data as data_lib
+from scae_tpu_torch.utils import trace
 from scae_tpu_torch.utils.device import check_model_device, resolve_device
 
 _MASK64 = (1 << 64) - 1
@@ -201,14 +208,17 @@ def make_eval_scan(model, canvas: int = 0, device=None,
             return _stack([_eval_step(model, images[k], labels[k], canvas,
                                       device, mesh)
                            for k in range(len(images))])
-        idxs = _chunk_indices(idxs, device, mesh)
-        key = (tensors_key([*model.parameters(), *model.buffers()]),
-               tensors_key([data["image"], data["label"]]), idxs.shape[1])
-        if current is None or current.key != key:
-            current = None       # free the old graph's memory first
-            current = _Captures(key, device, idxs.shape[1], kind="eval",
-                                mesh=mesh)
-        return _graph_eval_rows(current, model, data, idxs, canvas, mesh)
+        with trace.span("scan.eval", device=True, items=len(idxs)):
+            idxs = _chunk_indices(idxs, device, mesh)
+            key = (tensors_key([*model.parameters(), *model.buffers()]),
+                   tensors_key([data["image"], data["label"]]),
+                   idxs.shape[1])
+            if current is None or current.key != key:
+                current = None       # free the old graph's memory first
+                current = _Captures(key, device, idxs.shape[1], kind="eval",
+                                    mesh=mesh)
+            return _graph_eval_rows(current, model, data, idxs, canvas,
+                                    mesh)
 
     return scan
 
@@ -335,11 +345,13 @@ def _to_card(rows, dtype, device) -> torch.Tensor:
 def _chunk_indices(idxs, device, mesh=None) -> torch.Tensor:
     """This process's columns of a chunk's (K, B) indices on the card,
     copied without waiting."""
-    if not (isinstance(idxs, torch.Tensor) and idxs.device == device):
-        idxs = _to_card(idxs, torch.long, device)
-    if idxs.dim() != 2:
-        raise ValueError(f"idxs must be (K, B), got {tuple(idxs.shape)}")
-    return mesh_lib.local_rows(idxs.to(torch.long), dim=1, mesh=mesh)
+    with trace.span("scan.indices"):
+        if not (isinstance(idxs, torch.Tensor) and idxs.device == device):
+            idxs = _to_card(idxs, torch.long, device)
+        if idxs.dim() != 2:
+            raise ValueError(f"idxs must be (K, B), got "
+                             f"{tuple(idxs.shape)}")
+        return mesh_lib.local_rows(idxs.to(torch.long), dim=1, mesh=mesh)
 
 
 def _gather_chunk(data, idxs, device, mesh=None):
@@ -427,20 +439,22 @@ def make_train_scan(augment_fn=None, device=None, mesh=None) -> Callable:
     def scan(state: TrainState, data, idxs):
         nonlocal current
         check_model_device(state.model, device)
-        idxs = _chunk_indices(idxs, device, mesh)
-        model, optimizer = state.model, state.optimizer
-        key = (id(state), id(model), id(optimizer),
-               tensors_key([*model.parameters(), *model.buffers(),
-                            *optimizer.state_tensors()]),
-               tensors_key([data["image"], data["label"]]), idxs.shape[1])
-        if current is None or current.key != key:
-            current = None       # free the old graphs' memory first
-            # held, so that no new object takes the ids in the key
-            current = _Captures(key, device, idxs.shape[1],
-                                held=(state, model, optimizer), generators=2,
-                                kind="train", mesh=mesh)
-        return state, _graph_train_rows(current, state, data, idxs,
-                                        augment_fn, mesh)
+        with trace.span("scan.train", device=True, items=len(idxs)):
+            idxs = _chunk_indices(idxs, device, mesh)
+            model, optimizer = state.model, state.optimizer
+            key = (id(state), id(model), id(optimizer),
+                   tensors_key([*model.parameters(), *model.buffers(),
+                                *optimizer.state_tensors()]),
+                   tensors_key([data["image"], data["label"]]),
+                   idxs.shape[1])
+            if current is None or current.key != key:
+                current = None       # free the old graphs' memory first
+                # held, so that no new object takes the ids in the key
+                current = _Captures(key, device, idxs.shape[1],
+                                    held=(state, model, optimizer),
+                                    generators=2, kind="train", mesh=mesh)
+            return state, _graph_train_rows(current, state, data, idxs,
+                                            augment_fn, mesh)
 
     return scan
 
@@ -500,8 +514,9 @@ class _Captures:
         # their events meanwhile
         mode = {} if self.mesh is None else {
             "capture_error_mode": "thread_local"}
-        self.graphs[branch] = StepGraph(step, self.generators, self.pool,
-                                        **mode)
+        with trace.timed("scan.capture_s"):
+            self.graphs[branch] = StepGraph(step, self.generators, self.pool,
+                                            **mode)
         if self.kind is not None:
             captures[self.kind] += 1
         return self.graphs[branch]
@@ -517,18 +532,20 @@ class _Captures:
         self.warmup -= n_eager
         rows = []
         if n_eager:
-            with side_stream(self.device):
+            with trace.timed("scan.capture_s"), side_stream(self.device):
                 rows = [eager_step(idx) for idx in idxs[:n_eager]]
         if prepare is not None:
-            prepare(K - n_eager)
+            with trace.span("scan.prepare"):
+                prepare(K - n_eager)
         out = None
         for j in range(K - n_eager):
-            self.idx.copy_(idxs[n_eager + j])
-            vec = replay(j)
-            if out is None:
-                out = torch.empty((len(vec), K - n_eager), dtype=vec.dtype,
-                                  device=self.device)
-            out[:, j].copy_(vec)
+            with trace.span("scan.replay"):
+                self.idx.copy_(idxs[n_eager + j])
+                vec = replay(j)
+                if out is None:
+                    out = torch.empty((len(vec), K - n_eager),
+                                      dtype=vec.dtype, device=self.device)
+                out[:, j].copy_(vec)
         names = self.names if out is not None else list(rows[0])
         stacked = {}
         for i, name in enumerate(names):

@@ -61,6 +61,12 @@ attention flag); what a replay runs shows in torch.profiler's device
 records. Keep the batch fixed (pad the tail) for one graph. On the CPU
 both surfaces run eagerly. The eager call stays reachable for comparison:
 ``infer.eager`` and ``ServingModel.eager``.
+
+Under a recording profiler a call is the span ``serve.call``, the root of
+its request, with ``serve.input`` (the image on the device, the shape
+check) and the graphs' spans inside (``utils/trace.py``);
+``export_serving`` adds the seconds of ``torch.export.export`` to the
+counter ``export.seconds``.
 """
 
 import json
@@ -72,6 +78,7 @@ from torch import nn
 
 from scae_tpu_torch.parallel import mesh as mesh_lib
 from scae_tpu_torch.parallel.graphs import CallGraphs, module_tensors
+from scae_tpu_torch.utils import trace
 from scae_tpu_torch.utils.device import check_model_device, resolve_device
 
 ARTIFACT_NAME = "model.pt2"
@@ -126,8 +133,11 @@ def make_infer_fn(model, with_reconstruction: bool = False,
     def on_device(fn):
         @torch.inference_mode()
         def run(image):
-            return fn(torch.as_tensor(image).to(device=device,
-                                                dtype=torch.float32))
+            with trace.span("serve.call"):
+                with trace.span("serve.input"):
+                    image = torch.as_tensor(image).to(device=device,
+                                                      dtype=torch.float32)
+                return fn(image)
         return run
 
     infer = on_device(graphs or forward)
@@ -208,7 +218,7 @@ def export_serving(model, *, image_shape: Sequence[int],
                           device=device)
     dynamic = {"image": {0: torch.export.Dim("b", min=1)}} \
         if polymorphic_batch else None
-    with torch.no_grad():
+    with torch.no_grad(), trace.timed("export.seconds"):
         program = torch.export.export(_Serving(model, with_reconstruction),
                                       (example,), dynamic_shapes=dynamic)
     # the output dict's keys, from the trace (a call would launch kernels)
@@ -282,19 +292,22 @@ class ServingModel:
         return self._run(self._call, image)
 
     def _run(self, call, image) -> Dict[str, torch.Tensor]:
-        image = torch.as_tensor(image).to(device=self.device,
-                                          dtype=torch.float32)
-        want = self.input_shape
-        if image.dim() != 4 or any(
-                w is not None and g != w for g, w in zip(image.shape, want)):
-            raise ValueError(f"the artifact takes images of shape {want} "
-                             f"(None: any batch), got {tuple(image.shape)}")
-        with torch.inference_mode():
-            if self.mesh is None:
-                return call(image)
-            out = call(mesh_lib.local_rows(image, mesh=self.mesh))
-            return {k: mesh_lib.gather_rows(v, self.mesh)
-                    for k, v in out.items()}
+        with trace.span("serve.call"):
+            with trace.span("serve.input"):
+                image = torch.as_tensor(image).to(device=self.device,
+                                                  dtype=torch.float32)
+                want = self.input_shape
+                if image.dim() != 4 or any(w is not None and g != w for g, w
+                                           in zip(image.shape, want)):
+                    raise ValueError(
+                        f"the artifact takes images of shape {want} (None: "
+                        f"any batch), got {tuple(image.shape)}")
+            with torch.inference_mode():
+                if self.mesh is None:
+                    return call(image)
+                out = call(mesh_lib.local_rows(image, mesh=self.mesh))
+                return {k: mesh_lib.gather_rows(v, self.mesh)
+                        for k, v in out.items()}
 
 
 def load_serving(artifact_dir: str, device=None) -> ServingModel:

@@ -85,6 +85,7 @@ from scae_tpu_torch.train.metrics import (
     viz_grid_tensors,
     write_reconstruction_grids,
 )
+from scae_tpu_torch.utils import trace
 from scae_tpu_torch.utils.device import resolve_device
 
 
@@ -127,24 +128,26 @@ def _start_read(metrics):
     waiting: (names, host values, event). On the card the values are a
     copy into pinned memory behind a recorded CUDA event; on the CPU they
     are the metrics themselves and the event is None."""
-    names = list(metrics)
-    last = torch.stack([metrics[k][-1] for k in names])
-    if last.device.type != "cuda":
-        return names, last, None
-    host = torch.empty(last.shape, dtype=last.dtype, pin_memory=True)
-    host.copy_(last, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return names, host, event
+    with trace.span("read.start"):
+        names = list(metrics)
+        last = torch.stack([metrics[k][-1] for k in names])
+        if last.device.type != "cuda":
+            return names, last, None
+        host = torch.empty(last.shape, dtype=last.dtype, pin_memory=True)
+        host.copy_(last, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return names, host, event
 
 
 def _finish_read(read) -> Dict[str, float]:
     """The metrics of ``_start_read``, as host floats, once its event has
     completed."""
     names, host, event = read
-    if event is not None:
-        event.synchronize()
-    return dict(zip(names, host.tolist()))
+    with trace.span("read.wait"):
+        if event is not None:
+            event.synchronize()
+        return dict(zip(names, host.tolist()))
 
 
 def _say(message: str):

@@ -1,2 +1,2 @@
-"""Utilities: shapes, the flax-parameter bridge, device choice and the PNG
-writer."""
+"""Utilities: shapes, the flax-parameter bridge, device choice, the PNG
+writer, and the port's spans and counters (``trace``)."""

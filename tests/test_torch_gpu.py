@@ -1482,3 +1482,119 @@ def test_serving_graph_outputs_are_not_overwritten(deterministic, tmp_path,
     for k in kept:
         assert torch.equal(first[k], kept[k]), k
     assert not torch.equal(second["caps_presence"], first["caps_presence"])
+
+
+# ------------------------------------------------ the port's spans
+
+def recording_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def test_serving_replay_span_reads_the_replays_stream_time(cuda):
+    """``graphs.replay``'s stream time a call is within 20% of CUDA events
+    recorded around the same graph's replays, each on an idle device as a
+    closed loop's call finds it, in the same profiled window."""
+    from scae_tpu_torch import serve
+    from scae_tpu_torch.factory import make_scae
+    from scae_tpu_torch.utils import trace
+
+    model = make_scae(dict(GRAPH_MODEL, pcae_decoder_params=dict(
+        fused_impl="xla")), device=cuda, seed=0)
+    infer = serve.make_infer_fn(model, device=cuda)
+    x = serving_input(cuda, 128)
+    for _ in range(3):       # the warm-up call, the capture, replays
+        infer(x)
+    torch.cuda.synchronize()
+    _, graph = next(iter(infer.graphs.graphs.values()))
+    n, direct = 20, []
+    trace.reset()
+    with recording_profiler():
+        for _ in range(n):
+            infer(x)
+            torch.cuda.synchronize()
+        for _ in range(n):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            direct.append(start.elapsed_time(end))
+        found = trace.summary()
+    assert found["serve.call"]["calls"] == found["graphs.replay"]["calls"] \
+        == n
+    spanned = found["graphs.replay"]["device_ns"] / 1e6 / n
+    want = sum(direct) / n
+    assert abs(spanned - want) <= 0.2 * want, (spanned, want)
+    assert found["serve.call"]["device_ns"] is None
+
+
+def test_scan_spans_count_the_rows_and_time_the_stream(cuda):
+    """``scan.train`` and ``scan.eval`` record K items a call and stream
+    time; the rows' spans count the replays; the warm-up rows and the
+    captures add to ``scan.capture_s``."""
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+    from scae_tpu_torch.utils import trace
+
+    data, idxs = graph_data(cuda)
+    state = graph_state(cuda, "gather")
+    scan = ts.make_train_scan(make_augment_fn(canvas=24, max_shift=2), cuda)
+    eval_scan = ts.make_eval_scan(state.model, canvas=24, device=cuda)
+    trace.reset()
+    scan(state, data, idxs[:2])
+    eval_scan(data, idxs[:2])
+    torch.cuda.synchronize()
+    assert trace.counters()["scan.capture_s"] > 0
+    assert trace.summary() == {}
+    with recording_profiler():
+        scan(state, data, idxs[2:7])
+        eval_scan(data, idxs[2:5])
+        found = trace.summary()
+    assert found["scan.train"]["calls"] == 1
+    assert found["scan.train"]["items"] == 5
+    assert found["scan.eval"]["items"] == 3
+    assert found["scan.replay"]["calls"] == 5 + 3
+    assert found["scan.indices"]["calls"] == 2
+    assert found["scan.prepare"]["calls"] == 1
+    for name in ("scan.train", "scan.eval"):
+        assert found[name]["device_ns"] > 0, name
+        assert found[name]["max_ns"] > 0, name
+    for name in ("scan.indices", "scan.prepare", "scan.replay"):
+        assert found[name]["device_ns"] is None, name
+
+
+def test_captures_under_a_recording_profiler(deterministic):
+    """A scan's warm-up row and capture, and a serving graph's, under a
+    recording profiler: the captures succeed (no device span is recorded
+    inside one), and the replays give the eager steps' bits."""
+    from scae_tpu_torch import serve
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.train.loop import make_augment_fn
+    from scae_tpu_torch.utils import trace
+
+    cuda = deterministic
+    augment = make_augment_fn(canvas=24, max_shift=2)
+    data, idxs = graph_data(cuda)
+    graph, eager = graph_state(cuda, "gather"), graph_state(cuda, "gather")
+    scan = ts.make_train_scan(augment, cuda)
+    x = serving_input(cuda, 8)
+    trace.reset()
+    with recording_profiler():
+        _, got = scan(graph, data, idxs[:4])
+        infer = serve.make_infer_fn(graph.model, device=cuda)
+        served = infer(x)
+        torch.cuda.synchronize()
+    found = trace.summary()
+    assert found["scan.train"]["items"] == 4
+    assert found["scan.replay"]["calls"] == 4 - ts.WARMUP_STEPS
+    assert found["graphs.capture"]["calls"] == 1
+    assert infer.graphs.captures == 1
+    assert trace.counters()["graphs.capture_s"] > 0
+    want_served = infer.eager(x)
+    for k in want_served:
+        assert torch.equal(served[k], want_served[k]), k
+    want = eager_rows(eager, data, idxs[:4], augment, cuda)
+    assert_same_runs(got, want, graph, eager)
