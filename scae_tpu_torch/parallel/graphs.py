@@ -38,11 +38,15 @@ shape and dtype and per ``tensors_key`` of the tensors the call reads,
 after ``WARMUP_STEPS`` eager calls on a side stream. Each call copies its
 input into the graph's static input, replays, and returns clones of the
 static outputs, so that the next call never overwrites what a caller
-holds.
+holds. A call does not walk the model to key its graphs: it checks a
+snapshot of the slots the graphs read (``Slots``), a flat comparison, and
+walks the model in full (the counter ``graphs.rekeys``) only at the first
+call and after the check has seen a change.
 """
 
 import contextlib
 import gc
+import operator
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -114,6 +118,55 @@ def module_tensors(module) -> list:
     return out
 
 
+_data_ptr = torch.Tensor.data_ptr
+_shape = operator.attrgetter("shape")
+_dtype = operator.attrgetter("dtype")
+
+
+class Slots:
+    """A snapshot of the slots of ``module`` (None: no module) that hold
+    what a graph of its call reads: each submodule in its parent's
+    ``_modules``, each parameter in its owner's ``_parameters``, each
+    buffer in its owner's ``_buffers`` and each tensor set as a plain
+    attribute in its owner's ``__dict__`` (an ExportedProgram module's
+    constants), with the size of each of those dicts; and the tensors of
+    ``module_tensors(module)`` with their (address, shape, dtype), whose
+    ``tensors_key`` is ``key``.
+
+    ``hold()`` says whether all of it still stands, without walking the
+    module: flat comparisons, occupants by identity, tensors by address,
+    shape and dtype. A tensor written in place holds; a slot whose
+    occupant was replaced (a new parameter, buffer, tensor attribute or
+    submodule), a slot added or removed, or a tensor moved to other
+    storage, shape or dtype (``.data =``) does not."""
+
+    def __init__(self, module):
+        self.dicts, self.owners, self.names, self.occupants = [], [], [], []
+        for m in () if module is None else module.modules():
+            attrs = vars(m)
+            for d in (m._modules, m._parameters, m._buffers, attrs):
+                self.dicts.append(d)
+                for name, v in d.items():
+                    if d is not attrs or isinstance(v, torch.Tensor):
+                        self.owners.append(d)
+                        self.names.append(name)
+                        self.occupants.append(v)
+        self.sizes = list(map(len, self.dicts))
+        self.tensors = [] if module is None else module_tensors(module)
+        self.key = tensors_key(self.tensors)
+        self.ptrs = list(map(_data_ptr, self.tensors))
+        self.shapes = list(map(_shape, self.tensors))
+        self.dtypes = list(map(_dtype, self.tensors))
+
+    def hold(self) -> bool:
+        return (list(map(len, self.dicts)) == self.sizes
+                and all(map(operator.is_, map(dict.get, self.owners,
+                                              self.names), self.occupants))
+                and list(map(_data_ptr, self.tensors)) == self.ptrs
+                and list(map(_shape, self.tensors)) == self.shapes
+                and list(map(_dtype, self.tensors)) == self.dtypes)
+
+
 def _clone(out):
     """Fresh copies of a graph's static outputs: a tensor, or a dict,
     tuple or list of them."""
@@ -161,11 +214,15 @@ class CallGraphs:
     """``fn(x)`` on the card, replayed from a CUDA graph per input: one
     graph for each shape and dtype of ``x``, all in one memory pool (they
     never run at once), captured at the first call that needs it after
-    ``WARMUP_STEPS`` eager calls on a side stream. ``tensors()`` lists the
-    tensors ``fn`` reads besides ``x`` (a model's parameters and buffers,
-    ``module_tensors``): where their ``tensors_key`` changes (a tensor
-    replaced, not written in place), every graph is dropped and the call
-    captures anew. ``capture_error_mode`` as for ``StepGraph``.
+    ``WARMUP_STEPS`` eager calls on a side stream. ``module`` holds the
+    tensors ``fn`` reads besides ``x`` (a model, or an ExportedProgram's
+    module; None where ``fn`` reads none). The graphs are keyed by
+    ``tensors_key`` of ``module_tensors(module)``: where it changes (a
+    tensor replaced, not written in place), every graph is dropped and
+    the call captures anew. A call checks a snapshot of the slots the
+    graphs read (``Slots.hold``) and walks ``module`` in full only where
+    the check fails, and at the first call. ``capture_error_mode`` as for
+    ``StepGraph``.
 
     A call copies ``x`` into the graph's static input, replays and
     returns clones of the static outputs. It runs under the caller's
@@ -174,31 +231,35 @@ class CallGraphs:
     call: a capture that fails raises; nothing falls back to ``fn``.
     ``captures`` counts the graphs captured.
 
-    A call's spans (``utils/trace.py``) are ``graphs.key``,
-    ``graphs.capture`` (where it captures), ``graphs.copy_in``,
-    ``graphs.replay`` (with its stream time on the card) and
-    ``graphs.clone``; the counters ``graphs.capture_s`` (host seconds of
-    the warm-ups and captures) and ``graphs.recaptures`` (graphs dropped
-    for a changed key) are always on."""
+    A call's spans (``utils/trace.py``) are ``graphs.key`` (the check, and
+    the walk where it runs), ``graphs.capture`` (where it captures),
+    ``graphs.copy_in``, ``graphs.replay`` (with its stream time on the
+    card) and ``graphs.clone``; the counters ``graphs.capture_s`` (host
+    seconds of the warm-ups and captures), ``graphs.rekeys`` (full walks
+    of ``module``) and ``graphs.recaptures`` (graphs dropped for a changed
+    key) are always on."""
 
-    def __init__(self, fn: Callable, tensors: Callable[[], Sequence],
+    def __init__(self, fn: Callable, module: Optional[torch.nn.Module],
                  device, capture_error_mode: Optional[str] = None):
-        self.fn, self.tensors, self.device = fn, tensors, device
+        self.fn, self.module, self.device = fn, module, device
         self.mode = {} if capture_error_mode is None else {
             "capture_error_mode": capture_error_mode}
-        self.key = None      # tensors_key of what the graphs read
+        self.slots = None    # Slots of what the graphs read
         self.graphs = {}     # (shape, dtype) -> (static input, StepGraph)
         self.pool = None
         self.captures = 0
 
     def __call__(self, x: torch.Tensor):
         with trace.span("graphs.key"):
-            key = tensors_key(self.tensors())
-        if key != self.key:
-            if self.graphs:
-                trace.count("graphs.recaptures", len(self.graphs))
-            # free the old graphs' memory before capturing again
-            self.graphs, self.pool, self.key = {}, None, key
+            old = self.slots
+            if old is None or not old.hold():
+                trace.count("graphs.rekeys")
+                self.slots = Slots(self.module)
+                if old is None or self.slots.key != old.key:
+                    if self.graphs:
+                        trace.count("graphs.recaptures", len(self.graphs))
+                    # free the old graphs' memory before capturing again
+                    self.graphs, self.pool = {}, None
         shape = (tuple(x.shape), x.dtype)
         if shape not in self.graphs:
             with trace.span("graphs.capture"), \

@@ -54,13 +54,16 @@ the graph's static input, replays and returns fresh tensors (clones of the
 static outputs). The graphs are keyed by ``graphs.tensors_key`` of the
 tensors the call reads (the model's parameters and buffers, or the
 program's), so a model whose tensors are replaced, not written in place, is
-captured again. A capture that fails raises; nothing falls back to the
-eager call. A replay calls no kernel wrapper, so a kernel's launch count
-grows only at the warm-up and the capture (K6 4 times each with the
-attention flag); what a replay runs shows in torch.profiler's device
-records. Keep the batch fixed (pad the tail) for one graph. On the CPU
-both surfaces run eagerly. The eager call stays reachable for comparison:
-``infer.eager`` and ``ServingModel.eager``.
+captured again. A call does not walk the module for that key: it checks a
+snapshot of the slots the graphs read (``graphs.Slots``), and walks the
+module in full (the counter ``graphs.rekeys``) only at the first call and
+after the check has seen a change. A capture that fails raises; nothing
+falls back to the eager call. A replay calls no kernel wrapper, so a
+kernel's launch count grows only at the warm-up and the capture (K6 4
+times each with the attention flag); what a replay runs shows in
+torch.profiler's device records. Keep the batch fixed (pad the tail) for
+one graph. On the CPU both surfaces run eagerly. The eager call stays
+reachable for comparison: ``infer.eager`` and ``ServingModel.eager``.
 
 Under a recording profiler a call is the span ``serve.call``, the root of
 its request, with ``serve.input`` (the image on the device, the shape
@@ -77,7 +80,7 @@ import torch
 from torch import nn
 
 from scae_tpu_torch.parallel import mesh as mesh_lib
-from scae_tpu_torch.parallel.graphs import CallGraphs, module_tensors
+from scae_tpu_torch.parallel.graphs import CallGraphs
 from scae_tpu_torch.utils import trace
 from scae_tpu_torch.utils.device import check_model_device, resolve_device
 
@@ -103,14 +106,14 @@ def infer_outputs(res, with_reconstruction: bool = False
     return out
 
 
-def _graphed(fn, tensors, device, mesh=None) -> Optional[CallGraphs]:
-    """``fn`` replayed from a CUDA graph per batch size on the card
-    (``CallGraphs``; under a mesh the graphs let the process group's
-    threads query the card meanwhile); None on the CPU, where ``fn`` runs
-    as it is."""
+def _graphed(fn, module, device, mesh=None) -> Optional[CallGraphs]:
+    """``fn``, which reads the tensors of ``module``, replayed from a CUDA
+    graph per batch size on the card (``CallGraphs``; under a mesh the
+    graphs let the process group's threads query the card meanwhile); None
+    on the CPU, where ``fn`` runs as it is."""
     if device.type != "cuda":
         return None
-    return CallGraphs(fn, tensors, device, capture_error_mode=None
+    return CallGraphs(fn, module, device, capture_error_mode=None
                       if mesh is None else "thread_local")
 
 
@@ -128,7 +131,7 @@ def make_infer_fn(model, with_reconstruction: bool = False,
         return infer_outputs(model(image, deterministic=True),
                              with_reconstruction)
 
-    graphs = _graphed(forward, lambda: module_tensors(model), device)
+    graphs = _graphed(forward, model, device)
 
     def on_device(fn):
         @torch.inference_mode()
@@ -274,9 +277,7 @@ class ServingModel:
         self.device = device
         self.mesh = mesh
         self._call = program.module()
-        self.graphs = _graphed(self._call,
-                               lambda: module_tensors(self._call), device,
-                               mesh)
+        self.graphs = _graphed(self._call, self._call, device, mesh)
 
     @property
     def input_shape(self):

@@ -6,8 +6,11 @@ replay to the eager call bit for bit). Here a stand-in graph whose replay
 runs the captured call eagerly checks the bookkeeping: a warm-up and one
 capture for each input shape and dtype, none for a second call, all in one
 pool; a new capture, and the old graphs dropped, where a tensor the call
-reads is replaced; fresh output tensors every call; a failing capture
-raises. And the CPU surfaces stay eager and return fresh tensors.
+reads is replaced (each kind of slot, on a module and on its exported
+program's module), none where it is written in place; one full walk of the
+module for any number of calls that change nothing; fresh output tensors
+every call; a failing capture raises. And the CPU surfaces stay eager and
+return fresh tensors.
 """
 
 import contextlib
@@ -19,6 +22,7 @@ import torch
 from scae_tpu_torch import serve
 from scae_tpu_torch.factory import make_scae
 from scae_tpu_torch.parallel import graphs
+from scae_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -93,8 +97,7 @@ def test_one_capture_per_shape_in_one_pool(eager_graphs):
         calls.append(tuple(x.shape))
         return fn(x)
 
-    g = graphs.CallGraphs(counted, lambda: graphs.module_tensors(model),
-                          torch.device("cpu"))
+    g = graphs.CallGraphs(counted, model, torch.device("cpu"))
     with torch.inference_mode():
         for b in (4, 3, 4, 3, 4):
             assert_same(g(images(b, seed=b)), fn(images(b, seed=b)))
@@ -109,7 +112,7 @@ def test_one_capture_per_shape_in_one_pool(eager_graphs):
 
 
 def test_the_input_dtype_is_part_of_the_key(eager_graphs):
-    g = graphs.CallGraphs(lambda x: {"y": x * 2}, list, torch.device("cpu"))
+    g = graphs.CallGraphs(lambda x: {"y": x * 2}, None, torch.device("cpu"))
     x = torch.arange(4.0)
     assert_same(g(x), {"y": x * 2})
     assert_same(g(x.double()), {"y": x.double() * 2})
@@ -119,8 +122,8 @@ def test_the_input_dtype_is_part_of_the_key(eager_graphs):
 
 def test_calls_return_fresh_tensors(eager_graphs):
     model = small_model()
-    g = graphs.CallGraphs(forward(model), lambda: graphs.module_tensors(
-        model), torch.device("cpu"))
+    g = graphs.CallGraphs(forward(model), model,
+                          torch.device("cpu"))
     with torch.inference_mode():
         first = g(images(4, seed=1))
         kept = {k: v.clone() for k, v in first.items()}
@@ -136,8 +139,8 @@ def test_a_replaced_tensor_captures_anew(eager_graphs):
     """A parameter written in place keeps the graphs; one replaced by a new
     tensor drops them all (and their pool) and captures again."""
     model = small_model()
-    g = graphs.CallGraphs(forward(model), lambda: graphs.module_tensors(
-        model), torch.device("cpu"))
+    g = graphs.CallGraphs(forward(model), model,
+                          torch.device("cpu"))
     x = images(4)
     with torch.inference_mode():
         g(x)
@@ -158,6 +161,175 @@ def test_a_replaced_tensor_captures_anew(eager_graphs):
     assert_same(again, forward(model)(x))
 
 
+class Reads(torch.nn.Module):
+    """Reads a tensor from each kind of slot: a parameter, a buffer, a
+    plain tensor attribute and a submodule's parameters."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = torch.nn.Parameter(torch.arange(4.0))
+        self.register_buffer("scale", torch.full((4,), 2.0))
+        self.offset = torch.ones(4)
+        self.inner = torch.nn.Linear(4, 4)
+
+    def forward(self, x):
+        return {"y": self.inner(x * self.weight * self.scale + self.offset)}
+
+
+def reads(kind):
+    """A ``Reads``, as it is (``"module"``) or as its ExportedProgram's
+    module (``"exported"``, where ``offset`` is a lifted constant: a plain
+    tensor attribute of the program's module)."""
+    torch.manual_seed(0)
+    module = Reads()
+    if kind == "exported":
+        module = torch.export.export(module, (torch.rand(3, 4),)).module()
+        assert isinstance(vars(module).get("offset"), torch.Tensor)
+    return module
+
+
+def counted(name):
+    return trace.counters().get(name, 0)
+
+
+def _new_parameter(m):
+    m.weight = torch.nn.Parameter(m.weight.detach() + 1)
+
+
+def _new_buffer(m):
+    m.scale = m.scale + 1
+
+
+def _new_tensor_attribute(m):
+    m.offset = m.offset * 3
+
+
+def _new_submodule(m):
+    torch.manual_seed(1)
+    m.inner = torch.nn.Linear(4, 4)
+
+
+def _tensor_attribute_added(m):
+    m.extra = torch.zeros(2)
+
+
+def _data_same_shape(m):
+    m.weight.data = m.weight.detach() * 5
+
+
+def _data_new_shape(m):
+    m.weight.data = m.weight.data.view(1, 4)      # same address
+
+
+def _data_new_dtype(m):
+    m.scale.data = m.scale.data.view(torch.int32)   # same address, shape
+
+
+@pytest.mark.parametrize("kind", ["module", "exported"])
+@pytest.mark.parametrize("replace", [
+    _new_parameter, _new_buffer, _new_tensor_attribute, _new_submodule,
+    _tensor_attribute_added, _data_same_shape, _data_new_shape,
+    _data_new_dtype],
+    ids=lambda f: f.__name__.lstrip("_"))
+def test_each_replaced_slot_recaptures_once(eager_graphs, replace, kind):
+    """Whatever slot's occupant is replaced, a slot added, or a tensor
+    moved to other storage, shape or dtype, the check sees it: one full
+    walk, one recapture, and the calls return the module's outputs as it
+    now stands."""
+    module = reads(kind)
+    g = graphs.CallGraphs(module, module, torch.device("cpu"))
+    x = torch.rand(3, 4)
+    with torch.inference_mode():
+        g(x)
+        assert_same(g(x), module(x))
+    rekeys, recaptures = counted("graphs.rekeys"), counted("graphs.recaptures")
+    replace(module)
+    with torch.inference_mode():
+        got = [g(x), g(x)]
+        want = module(x)
+    assert g.captures == 2 and len(eager_graphs) == 2
+    assert counted("graphs.rekeys") == rekeys + 1
+    assert counted("graphs.recaptures") == recaptures + 1
+    for out in got:
+        assert_same(out, want)
+
+
+@pytest.mark.parametrize("write", ["mul_", "load_state_dict"])
+def test_an_in_place_write_keeps_the_graphs(eager_graphs, write):
+    model = small_model()
+    g = graphs.CallGraphs(forward(model), model, torch.device("cpu"))
+    x = images(4)
+    with torch.inference_mode():
+        g(x)
+    rekeys, recaptures = counted("graphs.rekeys"), counted("graphs.recaptures")
+    with torch.no_grad():
+        if write == "mul_":
+            model.prior_classifier.weight.mul_(2.0)
+        else:
+            model.load_state_dict(make_scae(MODEL, device="cpu",
+                                            seed=1).state_dict())
+    with torch.inference_mode():
+        got = g(x)
+        want = forward(model)(x)
+    assert g.captures == 1
+    assert counted("graphs.rekeys") == rekeys
+    assert counted("graphs.recaptures") == recaptures
+    assert_same(got, want)
+
+
+def test_calls_that_change_nothing_walk_the_model_once(eager_graphs,
+                                                      monkeypatch):
+    walks = []
+    module_tensors = graphs.module_tensors
+    monkeypatch.setattr(graphs, "module_tensors",
+                        lambda m: walks.append(m) or module_tensors(m))
+    model = small_model()
+    g = graphs.CallGraphs(forward(model), model, torch.device("cpu"))
+    rekeys = counted("graphs.rekeys")
+    with torch.inference_mode():
+        for b in (4, 3, 4, 3, 4, 4):
+            g(images(b, seed=b))
+    assert walks == [model]
+    assert counted("graphs.rekeys") == rekeys + 1
+    assert g.captures == 2
+
+
+@pytest.fixture(scope="module")
+def artifact(tmp_path_factory):
+    out = tmp_path_factory.mktemp("artifact")
+    serve.export_serving(small_model(), image_shape=(1, 24, 24),
+                         batch_size=None, out_dir=str(out), device="cpu",
+                         polymorphic_batch=True)
+    return str(out)
+
+
+def test_a_loaded_artifact_recaptures_for_a_replaced_tensor(
+        eager_graphs, monkeypatch, artifact):
+    """``ServingModel`` keys its graphs by the program's module: one of
+    its tensors replaced (this program lifts no constants; its tensors are
+    parameters, ``Reads`` covers a constant) recaptures, and the call
+    returns the replaced program's outputs."""
+    monkeypatch.setattr(serve, "_graphed", lambda fn, module, device,
+                        mesh=None: graphs.CallGraphs(fn, module, device))
+    served = serve.load_serving(artifact)
+    assert served.graphs.module is served._call
+    x = images(4)
+    with torch.inference_mode():
+        served(x)
+        served(x)
+    assert served.graphs.captures == 1
+    name, param = next(iter(served._call.named_parameters()))
+    owner, _, leaf = name.rpartition(".")
+    setattr(served._call.get_submodule(owner), leaf,
+            torch.nn.Parameter(param.detach() * 2))
+    recaptures = counted("graphs.recaptures")
+    with torch.inference_mode():
+        got = served(x)
+    assert served.graphs.captures == 2
+    assert counted("graphs.recaptures") == recaptures + 1
+    assert_same(got, served.eager(x))
+
+
 def test_module_tensors_see_plain_tensor_attributes():
     model = small_model()
     model.obj_encoder.constant = torch.zeros(3)
@@ -172,8 +344,8 @@ def test_a_failing_capture_raises(eager_graphs, monkeypatch):
 
     monkeypatch.setattr(graphs, "StepGraph", failing)
     model = small_model()
-    g = graphs.CallGraphs(forward(model), lambda: graphs.module_tensors(
-        model), torch.device("cpu"))
+    g = graphs.CallGraphs(forward(model), model,
+                          torch.device("cpu"))
     with pytest.raises(RuntimeError, match="capture failed"):
         with torch.inference_mode():
             g(images(2))
@@ -186,11 +358,11 @@ def test_the_card_graphs_and_the_cpu_stays_eager():
     def fn(x):
         return x
 
-    got = serve._graphed(fn, list, torch.device("cuda"))
+    got = serve._graphed(fn, None, torch.device("cuda"))
     assert isinstance(got, graphs.CallGraphs) and got.mode == {}
-    on_mesh = serve._graphed(fn, list, torch.device("cuda"), mesh=object())
+    on_mesh = serve._graphed(fn, None, torch.device("cuda"), mesh=object())
     assert on_mesh.mode == {"capture_error_mode": "thread_local"}
-    assert serve._graphed(fn, list, torch.device("cpu")) is None
+    assert serve._graphed(fn, None, torch.device("cpu")) is None
 
 
 def test_cpu_infer_fn_is_eager_and_fresh():

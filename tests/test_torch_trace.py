@@ -210,8 +210,7 @@ def test_call_graphs_span_order_and_counters(eager_graphs):
     def fn(x):
         return serve.infer_outputs(model(x, deterministic=True))
 
-    tensors = [graphs.module_tensors(model)]
-    calls = graphs.CallGraphs(fn, lambda: tensors[0], torch.device("cpu"))
+    calls = graphs.CallGraphs(fn, model, torch.device("cpu"))
     with torch.inference_mode(), recording():
         calls(images(2))
         calls(images(2, seed=1))
@@ -223,11 +222,14 @@ def test_call_graphs_span_order_and_counters(eager_graphs):
     assert all(r.parent is None for r in recs)
     assert trace.counters()["graphs.capture_s"] > 0
     assert "graphs.recaptures" not in trace.counters()
+    assert trace.counters()["graphs.rekeys"] == 1
     # a replaced tensor drops the one graph: a recapture
-    tensors[0] = tensors[0][:-1]
+    model.prior_classifier.weight = torch.nn.Parameter(
+        model.prior_classifier.weight.detach() / 2)
     with torch.inference_mode():
         calls(images(2))
     assert trace.counters()["graphs.recaptures"] == 1
+    assert trace.counters()["graphs.rekeys"] == 2
     assert calls.captures == 2
     # on the CPU no replay records stream time
     assert trace.summary()["graphs.replay"]["device_ns"] is None
