@@ -17,7 +17,10 @@ capture recipe does: they initialise what is made at first use (cuDNN
 and cuBLAS handles, the kernels' builds and launch plans). The recipe
 runs a few; one is enough here, and the card's tests capture after it on
 every likelihood path. A capture that fails raises; nothing falls back
-to the eager loop.
+to the eager loop. A scan's warm-up steps and captures run under
+``cudnn_search``: cuDNN times its convolution algorithms in the warm-up,
+and the graph holds the ones it timed fastest in place of its
+heuristic's choice (serving's ``CallGraphs`` keep the heuristic's).
 
 A kernel wrapper counts its launches where it launches: at capture it
 launches into the graph and counts once; a replay runs the graph's
@@ -90,6 +93,32 @@ def side_stream(device):
     with torch.cuda.stream(side):
         yield
     main.wait_stream(side)
+
+
+_CUDNN_SWITCHES = ("enabled", "benchmark", "deterministic", "allow_tf32")
+
+
+@contextlib.contextmanager
+def cudnn_search():
+    """Let cuDNN time its algorithms for each convolution the block runs
+    at a shape it has not met, and keep the one it timed fastest
+    (``torch.backends.cudnn.benchmark``). Its choices are cached per
+    shape for the process, whichever way they were made, so a capture
+    after a searched warm-up step replays the searched algorithms, and
+    a convolution met first without the search keeps its heuristic
+    choice. Where algorithms run within the timing's noise of each other,
+    two processes may keep different ones. The caller's ``deterministic``
+    (the search then times only deterministic algorithms) and
+    ``allow_tf32`` hold inside; every cuDNN switch is as it was after the
+    block, also where it raises."""
+    cudnn = torch.backends.cudnn
+    before = {name: getattr(cudnn, name) for name in _CUDNN_SWITCHES}
+    cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        for name, value in before.items():
+            setattr(cudnn, name, value)
 
 
 @contextlib.contextmanager

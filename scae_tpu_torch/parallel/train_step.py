@@ -53,6 +53,7 @@ from scae_tpu_torch.parallel.graphs import (
     WARMUP_STEPS,
     StepGraph,
     captures_collectives,
+    cudnn_search,
     side_stream,
     tensors_key,
 )
@@ -422,7 +423,8 @@ def make_train_scan(augment_fn=None, device=None, mesh=None) -> Callable:
     On the CPU this is ``make_eager_train_scan``'s loop. On the card each
     row replays a graph of the train step (see the module's docstring):
     one graph per branch of the optimizer, captured when a step first
-    takes it, after ``graphs.WARMUP_STEPS`` eager steps on a side stream.
+    takes it, after ``graphs.WARMUP_STEPS`` eager steps on a side stream,
+    both under ``graphs.cudnn_search``.
     A new state object, or a change of the addresses, shapes or dtypes of
     its tensors or of ``data``, or of the batch size, captures anew; a
     restore that copies in place (``load_state_dict``) keeps the graphs.
@@ -514,7 +516,7 @@ class _Captures:
         # their events meanwhile
         mode = {} if self.mesh is None else {
             "capture_error_mode": "thread_local"}
-        with trace.timed("scan.capture_s"):
+        with trace.timed("scan.capture_s"), cudnn_search():
             self.graphs[branch] = StepGraph(step, self.generators, self.pool,
                                             **mode)
         if self.kind is not None:
@@ -524,15 +526,18 @@ class _Captures:
     def run(self, idxs, eager_step, replay, prepare=None):
         """One step per row of ``idxs`` (K, B), its metrics stacked to (K,)
         each: the rows that the warm-up still holds by ``eager_step(idx)``
-        on a side stream; then ``prepare(n)`` before the n others, each
-        written into the index vector and run by ``replay(j)`` (j counts
-        the replayed rows), which returns its graph's output vector."""
+        on a side stream, under ``cudnn_search`` as the captures are (the
+        graphs hold the convolution algorithms that the warm-up timed);
+        then ``prepare(n)`` before the n others, each written into the
+        index vector and run by ``replay(j)`` (j counts the replayed
+        rows), which returns its graph's output vector."""
         K = idxs.shape[0]
         n_eager = min(self.warmup, K)
         self.warmup -= n_eager
         rows = []
         if n_eager:
-            with trace.timed("scan.capture_s"), side_stream(self.device):
+            with trace.timed("scan.capture_s"), side_stream(self.device), \
+                    cudnn_search():
                 rows = [eager_step(idx) for idx in idxs[:n_eager]]
         if prepare is not None:
             with trace.span("scan.prepare"):

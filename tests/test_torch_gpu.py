@@ -1128,20 +1128,26 @@ def graph_state(cuda, path, seed=0):
                                             1e-3, batch_size=8), seed=3)
 
 
-def graph_data(cuda, n=64, seed=0):
+def graph_data(cuda, n=64, seed=0, batch=8):
     rng = np.random.RandomState(seed)
     data = {"image": torch.from_numpy(rng.randint(
                 0, 256, (n, 20, 20)).astype(np.uint8)).to(cuda),
             "label": torch.from_numpy(rng.randint(0, 10, (n,))).to(cuda)}
-    idxs = np.stack([rng.permutation(n)[:8] for _ in range(12)])
+    idxs = np.stack([rng.permutation(n)[:batch] for _ in range(12)])
     return data, idxs
 
 
 def eager_rows(state, data, idxs, augment, cuda):
+    """The rows through the eager fused step, under cuDNN's search as the
+    scans' warm-up rows and captures run: a convolution met here first is
+    searched, as a scan would search it, and one a scan met first takes
+    the scan's cached choice."""
+    from scae_tpu_torch.parallel.graphs import cudnn_search
     from scae_tpu_torch.parallel.train_step import make_fused_train_step
 
     step = make_fused_train_step(state, augment, cuda)
-    rows = [step(data, idx) for idx in idxs]
+    with cudnn_search():
+        rows = [step(data, idx) for idx in idxs]
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
@@ -1180,6 +1186,64 @@ def test_graph_scan_equals_eager_steps(deterministic, path):
     assert graph.step == eager.step == w + 4
     assert all(v.shape == (4,) for v in got.values())
     assert_same_runs(got, want, graph, eager)
+
+
+def test_graph_scan_equals_eager_steps_under_the_search(deterministic):
+    """cuDNN's search on, as the scans always run it, at a batch of 12
+    rows, which no other test here takes: the scan's warm-up times the
+    convolutions' algorithms, in place of finding a choice that an earlier
+    test cached. Its warm-up and its capture run with the search on, the
+    fixture's deterministic algorithms and no TF32, and leave the switches
+    as the test set them. The warm-up row and 4 replays against the eager
+    fused step under the same search (which finds the scan's choices),
+    bit for bit; the eval scan's rows within GRAPH_LOSS_RTOL of the eager
+    eval step's under it."""
+    from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.parallel.graphs import cudnn_search
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = deterministic
+    cudnn = torch.backends.cudnn
+    before = cudnn.benchmark
+    cudnn.benchmark = False
+    seen = []    # (capturing, benchmark, deterministic, allow_tf32)
+    augment = make_augment_fn(canvas=24, max_shift=2)
+
+    def recording(batch, generator):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32))
+        return augment(batch, generator)
+
+    try:
+        data, idxs = graph_data(cuda, batch=12)
+        graph, eager = graph_state(cuda, "gather"), graph_state(cuda,
+                                                                "gather")
+        scan = ts.make_train_scan(recording, cuda)
+        w = ts.WARMUP_STEPS
+        _, got = scan(graph, data, idxs[:w + 4])
+        torch.cuda.synchronize()
+        assert seen == [(False, True, True, False)] * w \
+            + [(True, True, True, False)]
+        assert (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == (False, True,
+                                                           False, False)
+        want = eager_rows(eager, data, idxs[:w + 4], augment, cuda)
+        assert graph.step == eager.step == w + 4
+        assert_same_runs(got, want, graph, eager)
+
+        eval_scan = ts.make_eval_scan(graph.model, canvas=24, device=cuda)
+        eval_step = ts.make_fused_eval_step(graph.model, canvas=24,
+                                            device=cuda)
+        got = eval_scan(data, idxs[:w + 4])
+        with cudnn_search():
+            want = [eval_step(data, idx) for idx in idxs[:w + 4]]
+        for j in range(w + 4):
+            for k in want[j]:
+                assert torch.allclose(got[k][j], want[j][k],
+                                      rtol=GRAPH_LOSS_RTOL,
+                                      atol=GRAPH_LOSS_RTOL), (k, j)
+    finally:
+        cudnn.benchmark = before
 
 
 def test_graph_survives_a_restore_in_place(deterministic):
@@ -1230,6 +1294,7 @@ def test_graph_scans_count_launches_per_replay(cuda):
     per eval step, with no wrapper called; eval rows equal the eager eval
     step's."""
     from scae_tpu_torch.parallel import train_step as ts
+    from scae_tpu_torch.parallel.graphs import cudnn_search
     from scae_tpu_torch.train.loop import make_augment_fn
 
     data, idxs = graph_data(cuda)
@@ -1254,7 +1319,8 @@ def test_graph_scans_count_launches_per_replay(cuda):
         assert ran == dict(none, K1=len(chunk))
         assert graph_counts() == none
         for j, idx in enumerate(chunk):
-            want = eval_step(data, idx)
+            with cudnn_search():     # as the eval scan's capture
+                want = eval_step(data, idx)
             for k in want:
                 assert torch.allclose(got[k][j], want[k],
                                       rtol=GRAPH_LOSS_RTOL,
@@ -1355,6 +1421,7 @@ def test_trainer_graph_scan_equals_an_eager_trainer(deterministic, tmp_path,
     halved at the epoch boundary, an eval between: the JSONL losses of the
     graph scans equal, bit for bit, those of a run whose Trainer scans
     through the eager loop (``make_eager_train_scan``)."""
+    from scae_tpu_torch.parallel.graphs import cudnn_search
     from scae_tpu_torch.parallel.train_step import make_eager_train_scan
     from scae_tpu_torch.train import cli, loop
 
@@ -1381,7 +1448,8 @@ def test_trainer_graph_scan_equals_an_eager_trainer(deterministic, tmp_path,
 
     cli.main(argv("graph"))
     monkeypatch.setattr(loop, "make_train_scan", make_eager_train_scan)
-    cli.main(argv("eager"))
+    with cudnn_search():     # the convolutions as the graph scans run them
+        cli.main(argv("eager"))
     got, want = records("graph"), records("eager")
     assert [r["step"] for r in got] == list(range(1, 9))
     assert [r["step"] for r in want] == list(range(1, 9))
