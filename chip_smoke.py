@@ -42,13 +42,19 @@ Phases, each announced when it starts and when it ends, with its seconds:
           presence, twice for the same bits, beside PyTorch's
           scaled_dot_product_attention on the same inputs (device time
           from the profiler and CUDA events), its previous design's time,
-          its plan, occupancy and waves
+          its plan, occupancy and waves; V1f and V1b the object
+          capsules' vote head (kernels/capsule_votes.py) at the mnist40
+          and cifar10 shapes, deterministic and noisy, each twice for the
+          same bits, timed beside the plain version and their bound by
+          bytes
   slice   the flagship SCAE (1x40x40, M=40, O=32, 11x11 templates), built
           on the card from a seeded generator, through the eval step and
           the infer function at batch 128; the kernels' launch counts over
-          that run; the same weights and input through the port on the CPU,
-          term by term; the eval step's time, images per second and peak
-          device memory
+          that run (V1f, the vote head, in every forward of every phase,
+          V1b in every backward; in the Trainer's runs and the tools V1f
+          once besides in each forward they make op by op); the same
+          weights and input through the port on the CPU, term by term;
+          the eval step's time, images per second and peak device memory
   train   the flagship train step (uint8 decode, pad to 40x40, translate by
           up to 6, forward with noise, 8-term loss, backward through K1 and
           K2+K3, RMSprop): one step with noise and translation off on the
@@ -121,7 +127,8 @@ Phases, each announced when it starts and when it ends, with its seconds:
           exported with serve.export_serving and a polymorphic batch
           twice, on fused_impl="xla" and with use_pallas_attention (K6 by
           name, scae_tpu_torch::attention_fwd); each artifact loaded in a
-          fresh interpreter (the xla one with torch alone) and held to the
+          fresh interpreter (the xla one with torch and the vote head's
+          op alone) and held to the
           live infer function at batch 128 and 65 (predictions equal,
           floats within rtol 1e-4, atol 1e-5), the kernels of one call
           from torch.profiler's records (K6 4 times with the flag, none
@@ -165,35 +172,37 @@ Phases, each announced when it starts and when it ends, with its seconds:
           with two model=mnist members (seeds 3 then 1, the members'
           recipe) under deterministic cuDNN: the second bit for bit seed 1
           trained alone
-  mesh    the mesh (parallel/mesh.py) on the one card. Two gloo processes
-          (NCCL refuses two ranks on one card) from the state of a
-          one-process run, f32 convs, TF32 off, deterministic cuDNN, the
+  mesh    the mesh (parallel/mesh.py) on the one card. Two gloo processes (NCCL
+          refuses two ranks on one card) from the state of a one-process run (a
+          process of its own too, so that it takes cuDNN's algorithms as the
+          ranks do: a process keeps one a shape, and the earlier phases' scans
+          searched this one's), f32 convs, TF32 off, deterministic cuDNN, the
           flagship at global batch 128 on the gather path: 2x1 (64 images a
-          process) and 1x2 (the capsule banks split by shard_state), 8
-          eager steps each: every step's loss within 2e-3 of one process's,
-          the parameters within 1e-3 of each tensor's largest entry after
-          every step on 1x2 and after the first on 2x1 (each step's gap
-          printed beside a control: one process again under cuDNN's
-          default algorithms), the first batch's gradients (entry by entry
-          on 1x2, in norm on 2x1, within 1e-3), K1 and K2+K3 once a step
-          on each process, each run's host ms and device busy per step
-          beside one process's; one 2x1 banded step with the attention flag
-          (K5f 1, K5b 1, K6 4 a process). Then the CLI on model=mnist
-          under torch.distributed.run with a world-1 NCCL group, whose
-          graphs capture the collectives (counted as they are issued into
-          the capture), against the CLI with no group (JSONL losses bit for
-          bit, or the gap printed); then the CLI on two gloo processes: 2
-          epochs, a resume, mode=test, process 0 alone logging and
-          checkpointing. The step ranks also export the flag-on
-          flagship on 2x1 at global batch 128 (serve.export_serving(mesh=))
-          and call it: predictions equal to the one-process artifact's,
-          every other output within 1e-4 of its largest entry, K6 4 a
-          call on each rank. Last, the CLI with trainer.seed_probe.n=2 and
-          head_refit on two gloo processes (the probe alone with no group
-          as the reference): the ranks continue the same seed, each
-          candidate's score beside one process's, process 0 alone saves
-          the checkpoints, the refit's once. ``--mesh`` runs this phase
-          alone.
+          process) and 1x2 (the capsule banks split by shard_state), 8 eager
+          steps each: every step's loss within 2e-3 of one process's, the
+          parameters within 1e-3 of each tensor's largest entry after every
+          step on 1x2 and after the first on 2x1 (each step's gap printed
+          beside a control: one process again under cuDNN's default
+          algorithms), the first batch's gradients (entry by entry on 1x2, in
+          norm on 2x1, within 1e-3), K1, K2+K3, V1f and V1b once a step on each
+          process, each run's host ms and device busy per step beside one
+          process's; one 2x1 banded step with the attention flag (K5f 1, K5b 1,
+          K6 4 a process). Then the CLI on model=mnist under
+          torch.distributed.run with a world-1 NCCL group, whose graphs capture
+          the collectives (counted as they are issued into the capture),
+          against the CLI with no group, both with the scans' timed search of
+          cuDNN's algorithms off (JSONL losses bit for bit, or the gap
+          printed); then the CLI on two gloo processes: 2 epochs, a resume,
+          mode=test, process 0 alone logging and checkpointing. The step ranks
+          also export the flag-on flagship on 2x1 at global batch 128
+          (serve.export_serving(mesh=)) and call it: predictions equal to the
+          one-process artifact's, every other output within 1e-4 of its largest
+          entry, K6 4 and V1f 1 a call on each rank. Last, the CLI with
+          trainer.seed_probe.n=2 and head_refit on two gloo processes (the
+          probe alone with no group as the reference): the ranks continue the
+          same seed, each candidate's score beside one process's, process 0
+          alone saves the checkpoints, the refit's once. ``--mesh`` runs this
+          phase alone.
 
 Every number is printed beside the card's name and power limit. Imports
 torch, numpy, the standard library and scae_tpu_torch only. Exits
@@ -1259,6 +1268,161 @@ def attention_kernel_phase(torch, card):
                 library_ms=library_ms)
 
 
+# ------------------------------------------------ V1f and V1b (vote head)
+
+VOTE_SHAPES = (("mnist40", (BATCH, 32, 40)), ("cifar10", (BATCH, 32, 64)))
+VOTE_RTOL, VOTE_ATOL = 1e-5, 1e-6   # V1f: the plain version's rounding
+VOTE_BWD_TOL = 1e-5                 # V1b: of each gradient's largest entry
+
+
+def vote_inputs(torch, shape, seed, noise):
+    """The head's inputs at (B, O, V): all_param in the capsule banks' (O,
+    B) row order, as the layer gives it, the own parameters, a capsule
+    dropout draw and, with ``noise``, the noise's uniform draws; then
+    seeded gradients of the six outputs."""
+    B, O, V = shape
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*s, scale=1.0):
+        return (torch.randn(s, generator=g) * scale).cuda()
+
+    all_param = rand(O, B, 8 * V + 7, scale=0.7).transpose(0, 1)
+    exist = torch.bernoulli(torch.full((B, O, 1), 0.7), generator=g).cuda()
+    draws = ((torch.rand(B, O, 1, generator=g).cuda(),
+              torch.rand(B, O, V, generator=g).cuda()) if noise
+             else (None, None))
+    args = (all_param, rand(1, O, V, 6, scale=0.5), rand(1, O, 1, 6,
+            scale=0.5), rand(1, O, 1), rand(1, O, V), rand(1, O, V), exist,
+            *draws, False, True, True, noise, 4.0)
+    grads = [rand(*s) for s in ((B, O, V, 3, 3), (B, O, V), (B, O, V),
+                                (B, O, 1), (B, O, V), ())]
+    return args, grads
+
+
+def vote_bound_ms(shape, noise):
+    """The least time of V1f and of V1b by bytes (each input read once,
+    each output written once; float32) at the H100's 3.35 TB/s."""
+    B, O, V = shape
+    A = 8 * V + 7
+    own = O * A                           # cpr_static and caps_bias_*
+    rows = B * O * A                      # all_param, or its gradient
+    per_vote = B * O * V
+    draws = B * O * (V + 1) if noise else 0
+    fwd = 4 * (rows + own + B * O + draws + 9 * per_vote + 3 * per_vote
+               + B * O)
+    bwd = 4 * (rows + own + B * O + draws + 9 * per_vote + 3 * per_vote
+               + B * O + rows + own)
+    return fwd / PEAK_BYTES_S * 1e3, bwd / PEAK_BYTES_S * 1e3, fwd, bwd
+
+
+def capsule_votes_kernel_phase(torch, card):
+    """V1f and V1b against the plain version at the mnist40 and cifar10
+    shapes (B 128, O 32, V 40 and 64), deterministic and with the uniform
+    noise, each twice for the same bits; their device time (every kernel
+    of a launch: V1f's and its regulariser's sum, V1b's rows and columns),
+    the plain version's forward and forward plus backward, and the bound
+    by bytes."""
+    from scae_tpu_torch.kernels import capsule_votes as cv
+
+    def through(fn, args, grads):
+        leaves = [a.detach().requires_grad_() for a in args[:6]]
+        outs = fn(*leaves, *args[6:])
+        loss = sum((o * g).sum() for o, g in zip(outs, grads))
+        return ([o.detach() for o in outs],
+                list(torch.autograd.grad(loss, leaves)))
+
+    worst, row = 0.0, None
+    for label, shape in VOTE_SHAPES:
+        for noise in (None, "uniform"):
+            args, grads = vote_inputs(torch, shape, 1, noise)
+            got = through(cv.capsule_votes, args, grads)
+            again = through(cv.capsule_votes, args, grads)
+            want = through(cv.capsule_votes_plain, args, grads)
+            torch.cuda.synchronize()
+            for a, b in zip(got[0] + got[1], again[0] + again[1]):
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"V1 {label}: two runs differ")
+            fwd_err = 0.0
+            for a, b in zip(got[0], want[0]):
+                if not bool(torch.isfinite(a).all()):
+                    raise RuntimeError(f"V1f {label}: non-finite output")
+                if not torch.allclose(a, b, rtol=VOTE_RTOL, atol=VOTE_ATOL):
+                    raise RuntimeError(f"V1f {label}: off the plain version "
+                                       f"by {float((a - b).abs().max())}")
+                fwd_err = max(fwd_err, float((a - b).abs().max()))
+            bwd_err = 0.0
+            for a, b in zip(got[1], want[1]):
+                err = float((a - b).abs().max()) / float(b.abs().max())
+                if not err <= VOTE_BWD_TOL:
+                    raise RuntimeError(f"V1b {label}: off the plain version "
+                                       f"by {err} of the largest entry")
+                bwd_err = max(bwd_err, err)
+            say(f"V1f/V1b {label} {shape}, noise {noise}: forward max abs "
+                f"err {fwd_err:.3e} (rtol {VOTE_RTOL:.0e}, atol "
+                f"{VOTE_ATOL:.0e}), backward {bwd_err:.3e} of the largest "
+                f"entry (tolerance {VOTE_BWD_TOL:.0e}); a second run "
+                f"bit-identical [{card}]")
+            worst = max(worst, fwd_err)
+
+        args, grads = vote_inputs(torch, shape, 2, "uniform")
+        leaves = [a.detach().requires_grad_() for a in args[:6]]
+
+        def fwd():
+            return cv.capsule_votes(*leaves, *args[6:])
+
+        outs = fwd()
+
+        def bwd():
+            torch.autograd.grad(outs, leaves, grads, retain_graph=True)
+
+        def plain_step():
+            o = cv.capsule_votes_plain(*leaves, *args[6:])
+            torch.autograd.grad(o, leaves, grads)
+
+        ms = {k: kernel_device_ms(torch, f, k) for k, f in (
+            ("capsule_votes_fwd_kernel", fwd),
+            ("capsule_votes_reg_kernel", fwd),
+            ("capsule_votes_bwd_kernel", bwd),
+            ("capsule_votes_columns_kernel", bwd))}
+        v1f = ms["capsule_votes_fwd_kernel"] + ms["capsule_votes_reg_kernel"]
+        v1b = (ms["capsule_votes_bwd_kernel"]
+               + ms["capsule_votes_columns_kernel"])
+        op_ms = device_ms_per_call(torch, lambda: (fwd(), bwd()))
+        plain_fwd_ms = time_cuda(
+            torch, lambda: cv.capsule_votes_plain(*leaves, *args[6:]),
+            iters=50, warmup=5)
+        plain_device_ms = device_ms_per_call(torch, plain_step, iters=50,
+                                             warmup=5)
+        plain_ms = time_cuda(torch, plain_step, iters=50, warmup=5)
+        fwd_bound, bwd_bound, fwd_bytes, bwd_bytes = vote_bound_ms(
+            shape, "uniform")
+        say(f"V1f/V1b {label} time (device time per launch over 200 "
+            f"launches, torch.profiler): V1f {v1f:.4f} ms ("
+            f"{ms['capsule_votes_fwd_kernel']:.4f} + regulariser "
+            f"{ms['capsule_votes_reg_kernel']:.4f}), bound "
+            f"{fwd_bound * 1e3:.2f} us by bytes ({fwd_bytes / 1e6:.2f} MB), "
+            f"roofline share {fwd_bound / v1f:.1%}; V1b {v1b:.4f} ms (rows "
+            f"{ms['capsule_votes_bwd_kernel']:.4f} + columns "
+            f"{ms['capsule_votes_columns_kernel']:.4f}), bound "
+            f"{bwd_bound * 1e3:.2f} us ({bwd_bytes / 1e6:.2f} MB), roofline "
+            f"share {bwd_bound / v1b:.1%}; every device operation of the op "
+            f"forward and backward {op_ms:.4f} ms; the plain version: "
+            f"forward {plain_fwd_ms:.4f} ms on CUDA events, forward and "
+            f"backward {plain_device_ms:.4f} ms of device time "
+            f"(torch.profiler) and {plain_ms:.4f} ms on CUDA events; "
+            f"{cv.rows_per_block(shape[2])} rows a block, "
+            f"{cv.shared_memory_bytes(shape[2])} B of shared memory "
+            f"[{card}]")
+        if label == "mnist40":
+            row = dict(name="capsule_votes", route="cuda",
+                       source="scae_tpu_torch/csrc/capsule_votes.cu",
+                       replaces=None, launches=None, max_abs_err=worst,
+                       ms=v1f + v1b, plain_ms=plain_ms,
+                       bound_ms=fwd_bound + bwd_bound, bound_by="bytes",
+                       library_ms=None)
+    return row
+
+
 # --------------------------------------------------------------- slice
 
 def slice_phase(torch, card, rows):
@@ -1267,6 +1431,7 @@ def slice_phase(torch, card, rows):
     from scae_tpu_torch import serve
     from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
     from scae_tpu_torch.parallel.train_step import (
         decode_images,
         make_raw_eval_step,
@@ -1286,13 +1451,15 @@ def slice_phase(torch, card, rows):
 
     # the main path: every launch count at 0 just before, read just after.
     # The eval step reads the likelihood (one launch); the infer call
-    # returns none of it, and the decoder computes it only when read.
+    # returns none of it, and the decoder computes it only when read. The
+    # vote head runs in both: once in the eval step, and in the infer
+    # graph's warm-up call and its capture.
     zero_kernel_counts()
     metrics = eval_step(images, labels)
     served = infer(canvas_images)
     torch.cuda.synchronize()
     check_kernel_counts(card, rows, "the eval path (1 eval step, 1 infer "
-                        "call)", {"K1": 1})
+                        "call)", {"K1": 1, "V1f": 1 + WARMUP_STEPS + 1})
 
     terms = {k: float(v) for k, v in metrics.items()}
     for k, v in terms.items():
@@ -1363,13 +1530,20 @@ def slice_phase(torch, card, rows):
 
 # --------------------------------------------------------------- train
 
-# in the order of the kernel rows
-KERNELS = ("K1", "K2+K3", "K4f", "K4b", "K5f", "K5b", "K6", "P1", "P2")
+# the kernel rows, in the order main() builds them, and the launch counters
+# each row adds up (V1f and V1b share the capsule_votes row)
+KERNEL_ROWS = (("K1",), ("K2+K3",), ("K4f",), ("K4b",), ("K5f",), ("K5b",),
+               ("K6",), ("V1f", "V1b"), ("P1",), ("P2",))
+KERNELS = tuple(k for ids in KERNEL_ROWS for k in ids)
+# the vote head in a train step: its forward once (V1f), its backward once
+# (V1b); an eval step or a serving call runs V1f alone
+VOTES = {"V1f": 1, "V1b": 1}
 
 
 def kernel_counts():
     """Every kernel's launch count, by kernel id."""
     from scae_tpu_torch.kernels import attention as k6
+    from scae_tpu_torch.kernels import capsule_votes as cv
     from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
@@ -1378,11 +1552,13 @@ def kernel_counts():
     return {"K1": k1.launches, "K2+K3": k1.bwd_launches,
             "K4f": k4.launches, "K4b": k4.bwd_launches,
             "K5f": k5.launches, "K5b": k5.bwd_launches, "K6": k6.launches,
+            "V1f": cv.launches, "V1b": cv.bwd_launches,
             "P1": kp.affine_launches, "P2": kp.matmul_launches}
 
 
 def zero_kernel_counts():
     from scae_tpu_torch.kernels import attention as k6
+    from scae_tpu_torch.kernels import capsule_votes as cv
     from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
@@ -1390,7 +1566,46 @@ def zero_kernel_counts():
 
     k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
     k5.launches = k5.bwd_launches = k6.launches = 0
+    cv.launches = cv.bwd_launches = 0
     kp.affine_launches = kp.matmul_launches = 0
+
+
+def add_launches(rows, counts):
+    """Add ``counts`` (by kernel id) to the kernel rows' ``launches``."""
+    for row, ids in zip(rows, KERNEL_ROWS):
+        row["launches"] = (row["launches"] or 0) + sum(counts[k] for k in ids)
+
+
+@contextlib.contextmanager
+def eager_forwards():
+    """Count the model's forwards that run op by op on the card, outside
+    the scans' graphs: each launches V1f once. They are the batches of
+    ``loop.forward_outputs`` (the recall pass, the head refit's features,
+    the tools) and the calls of ``Trainer.write_viz`` (the grids); yields
+    {"batches": n, "grids": n}, filled as the runs go."""
+    from scae_tpu_torch.train import loop
+
+    seen = {"batches": 0, "grids": 0}
+    forward, write_viz = loop.forward_outputs, loop.Trainer.write_viz
+
+    def counting_forward(model, dataset, canvas, batch_size, device,
+                         outputs):
+        if str(device).startswith("cuda"):
+            seen["batches"] += -(-len(dataset.images) // batch_size)
+        return forward(model, dataset, canvas, batch_size, device, outputs)
+
+    def counting_write_viz(self, *args, **kwargs):
+        if self.device.type == "cuda":
+            seen["grids"] += 1
+        return write_viz(self, *args, **kwargs)
+
+    loop.forward_outputs = counting_forward
+    loop.Trainer.write_viz = counting_write_viz
+    try:
+        yield seen
+    finally:
+        loop.forward_outputs = forward
+        loop.Trainer.write_viz = write_viz
 
 
 def check_kernel_counts(card, rows, what, expected, counts=None):
@@ -1405,8 +1620,7 @@ def check_kernel_counts(card, rows, what, expected, counts=None):
     if counts != want:
         raise RuntimeError(f"launches over {what}: {counts}, expected {want}")
     if rows is not None:
-        for row, k in zip(rows, KERNELS):
-            row["launches"] = (row["launches"] or 0) + counts[k]
+        add_launches(rows, counts)
 
 
 def train_state(torch, device, noise, model_params, attention=False):
@@ -1551,10 +1765,8 @@ def train_phase(torch, card, rows, tag, model_params, per_step,
     losses = [float(v) for v in losses]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"non-finite {tag} train losses: {losses}")
-    counts = kernel_counts()
-    if any(counts[k] != steps * per_step.get(k, 0) for k in KERNELS):
-        raise RuntimeError(f"launches in {steps} {tag} train steps: "
-                           f"{counts}")
+    check_kernel_counts(card, None, f"{steps} timed {tag} train steps",
+                        {k: steps * v for k, v in per_step.items()})
     say(f"  {tag} train losses over the timed steps: first {losses[0]!r}, "
         f"last {losses[-1]!r} [{card}]")
     say(f"{tag} train step (batch {BATCH}, 28x28 uint8 -> 40x40, translate "
@@ -1742,14 +1954,17 @@ def graph_agreement(torch, card, tag, model_params, per_step, attention,
     return scan, graph, steps[0]
 
 
-# the kernels' names in the profiler's records
+# the kernels' names in the profiler's records (of V1f and V1b, the first
+# of their kernels: the regulariser's sum and the columns pass follow each)
 KERNEL_NAMES = {"K1": "decoder_ll_gather_fwd_kernel",
                 "K2+K3": "decoder_ll_gather_bwd_kernel",
                 "K4f": "decoder_ll_dense_fwd_kernel",
                 "K4b": "decoder_ll_dense_bwd_kernel",
                 "K5f": "decoder_ll_banded_fwd_kernel",
                 "K5b": "decoder_ll_banded_bwd_kernel",
-                "K6": "attention_fwd_kernel"}
+                "K6": "attention_fwd_kernel",
+                "V1f": "capsule_votes_fwd_kernel",
+                "V1b": "capsule_votes_bwd_kernel"}
 RECORD_STEPS = 5       # graph steps in each window of kernel records
 
 
@@ -1910,8 +2125,8 @@ def graph_branches(torch, card, data):
         check_kernel_counts(card, None, f"RAdam with LookAhead's graph scan "
                             f"({BRANCH_STEPS} steps: {ts.WARMUP_STEPS} "
                             f"warm-up, 3 captures)",
-                            {"K1": ts.WARMUP_STEPS + 3,
-                             "K2+K3": ts.WARMUP_STEPS + 3})
+                            {k: ts.WARMUP_STEPS + 3
+                             for k in ("K1", "K2+K3", "V1f", "V1b")})
         _, want = ts.make_eager_train_scan(augment, cuda)(eager, data, idxs)
         torch.cuda.synchronize()
     finally:
@@ -1942,14 +2157,14 @@ def graph_phase(torch, card):
     from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
 
     gather, data = graph_path(torch, card, "gather", FLAGSHIP_MODEL_PARAMS,
-                              {"K1": 1, "K2+K3": 1}, False)
+                              {"K1": 1, "K2+K3": 1, **VOTES}, False)
     graph_path(torch, card, "pallas", dict(
         FLAGSHIP_MODEL_PARAMS, pcae_decoder_params=dict(fused_impl="pallas")),
-        {"K4f": 1, "K4b": 1}, False)
+        {"K4f": 1, "K4b": 1, **VOTES}, False)
     graph_path(torch, card, "banded", dict(
         FLAGSHIP_MODEL_PARAMS,
         pcae_decoder_params=dict(fused_impl="pallas_banded")),
-        {"K5f": 1, "K5b": 1, "K6": 4}, True)
+        {"K5f": 1, "K5b": 1, "K6": 4, **VOTES}, True)
     graph_branches(torch, card, data)
     return gather
 
@@ -1965,7 +2180,7 @@ def cifar10_phase(torch, card):
     images = rng.randint(0, 256, (CPU_BATCH, 32, 32, 3)).astype(np.uint8)
     labels = rng.randint(0, 10, (CPU_BATCH,)).astype(np.int64)
     card_vs_cpu_step(torch, card, "cifar10", CIFAR10_MODEL_PARAMS, images,
-                     labels, None, {"K1": 1, "K2+K3": 1})
+                     labels, None, {"K1": 1, "K2+K3": 1, **VOTES})
 
 
 # --------------------------------------------------------------- probe
@@ -2174,11 +2389,18 @@ def trainer_phase(torch, card, rows, tmp):
 
     # the scans replay graphs: a wrapper launches for each scan's warm-up
     # steps and its one capture (one graph: RMSprop has one branch, and a
-    # Trainer's data and state keep their addresses), never in a replay
+    # Trainer's data and state keep their addresses), never in a replay;
+    # V1f besides once in each eager forward (``eager_forwards``)
     warm = WARMUP_STEPS
-    once_each = {"K1": 2 * (warm + 1), "K2+K3": warm + 1}
+
+    def once_each(forwards):
+        return {"K1": 2 * (warm + 1), "K2+K3": warm + 1,
+                "V1f": 2 * (warm + 1) + forwards["grids"]
+                + forwards["batches"], "V1b": warm + 1}
+
     captured = ("the wrappers launch for the train and eval scans' warm-up "
-                "steps and their one capture each")
+                "steps and their one capture each, V1f besides in each "
+                "grids' forward")
     base = ["model=mnist", "data_loader.source=synthetic",
             "data_loader.synthetic_train=2560", "data_loader.val_size=512",
             "data_loader.synthetic_test=512", "trainer.max_epochs=2",
@@ -2187,7 +2409,8 @@ def trainer_phase(torch, card, rows, tmp):
             f"trainer.log_dir={tmp}/logs"]
     jsonl = os.path.join(tmp, "logs", "metrics.jsonl")
 
-    # the grids' forward must launch no kernel: it reads only the modes
+    # the grids' forward reads only the modes: no likelihood kernel, the
+    # vote head once
     write_viz = loop.Trainer.write_viz
     viz_calls = []
 
@@ -2195,9 +2418,10 @@ def trainer_phase(torch, card, rows, tmp):
         before = kernel_counts()
         write_viz(self, *args, **kw)
         torch.cuda.synchronize()
-        if kernel_counts() != before:
-            raise RuntimeError(f"the grids' forward launched kernels: "
-                               f"{before} -> {kernel_counts()}")
+        launched = {k: v - before[k] for k, v in kernel_counts().items()}
+        if launched != dict(dict.fromkeys(KERNELS, 0), V1f=1):
+            raise RuntimeError(f"the grids' forward launched {launched}, "
+                               "expected V1f once and nothing else")
         viz_calls.append(1)
 
     loop.Trainer.write_viz = counted_write_viz
@@ -2207,7 +2431,8 @@ def trainer_phase(torch, card, rows, tmp):
         held = torch.cuda.memory_allocated()
         zero_kernel_counts()
         t0 = time.perf_counter()
-        state, out = run_cli(cli, base)
+        with eager_forwards() as forwards:
+            state, out = run_cli(cli, base)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         trained, train_s, train_rate = training_wall_time(out)
@@ -2222,7 +2447,7 @@ def trainer_phase(torch, card, rows, tmp):
                                "grid writes (expected 2 each)")
         check_kernel_counts(card, rows, f"the trainer CLI ({steps} train "
                             f"steps, {len(evals)} evals of 2 batches; "
-                            f"{captured})", once_each)
+                            f"{captured})", once_each(forwards))
         for r in train:
             missing = [k for k in TRAIN_KEYS if k not in r]
             if missing:
@@ -2262,8 +2487,9 @@ def trainer_phase(torch, card, rows, tmp):
 
         saved = CheckpointManager(os.path.join(tmp, "ckpt")).latest_step
         zero_kernel_counts()
-        state, out = run_cli(cli, base + ["trainer.max_epochs=3",
-                                          "resume=true"])
+        with eager_forwards() as forwards:
+            state, out = run_cli(cli, base + ["trainer.max_epochs=3",
+                                              "resume=true"])
         torch.cuda.synchronize()
         resumed = train_records(read_jsonl(jsonl))[len(train):]
         if (saved != 32 or f"resumed from step {saved}" not in out
@@ -2272,7 +2498,7 @@ def trainer_phase(torch, card, rows, tmp):
                                f"{resumed[0]['step']}, final {state.step}")
         check_kernel_counts(card, rows, "the resumed trainer CLI (16 train "
                             f"steps, 1 eval of 2 batches; {captured})",
-                            once_each)
+                            once_each(forwards))
         trained, train_s, train_rate = training_wall_time(out)
         say(f"trainer CLI resume: from step {saved} to {state.step}, first "
             f"logged step {resumed[0]['step']}, end to end "
@@ -2282,7 +2508,8 @@ def trainer_phase(torch, card, rows, tmp):
             f" [{card}]")
 
         zero_kernel_counts()
-        metrics, out = run_cli(cli, base + ["mode=test"])
+        with eager_forwards() as forwards:
+            metrics, out = run_cli(cli, base + ["mode=test"])
         torch.cuda.synchronize()
         recalls = [k for k in metrics if k.startswith("test_class")]
         if "per-class recall:" not in out or len(recalls) < 2:
@@ -2292,9 +2519,12 @@ def trainer_phase(torch, card, rows, tmp):
             if not math.isfinite(v):
                 raise RuntimeError(f"test metric {k} = {v}")
         check_kernel_counts(card, rows, "mode=test (4 eval batches; the "
-                            "recall pass reads no likelihood; the wrapper "
-                            "launches for the eval scan's warm-up step and "
-                            "its one capture)", {"K1": warm + 1})
+                            "recall pass reads no likelihood; the wrappers "
+                            "launch for the eval scan's warm-up step and "
+                            "its one capture, V1f besides in each of the "
+                            f"recall pass's {forwards['batches']} batches)",
+                            {"K1": warm + 1,
+                             "V1f": warm + 1 + forwards["batches"]})
         say(f"trainer CLI mode=test: test_loss {metrics['test_loss']!r}, "
             f"test_accuracy {metrics['test_accuracy']!r} [{card}]")
         return trainer_options(torch, card, rows, tmp, base)
@@ -2440,14 +2670,16 @@ def trainer_options(torch, card, rows, tmp, base):
     def run_counted(argv, what):
         reset_captures()
         t0 = time.perf_counter()
-        state, out = run_cli(cli, argv)
+        with eager_forwards() as forwards:
+            state, out = run_cli(cli, argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         caps = dict(train_step.captures)
         check_kernel_counts(
             card, rows, f"{what} ({caps['train']} train and {caps['eval']} "
             "eval graphs captured; the wrappers launch for each scan's "
-            "warm-up steps and its capture)", graph_counts_expected(caps))
+            "warm-up steps and its capture, V1f besides in each eager "
+            f"forward: {forwards})", graph_counts_expected(caps, forwards))
         if not caps["train"]:
             raise RuntimeError(f"{what}: the train scan captured no graph")
         say(f"{what}: {seconds!r} s [{card}]")
@@ -2562,7 +2794,8 @@ SERVE_ITERS = 50
 SERVE_PROFILED = 10   # calls a profiler window of a timing turn holds
 
 # Run in a fresh interpreter by ``check_artifact_apart``: loads an artifact
-# (with torch alone, or through scae_tpu_torch.serve.load_serving), holds
+# (with torch and the vote head's op, which every artifact calls, alone, or
+# through scae_tpu_torch.serve.load_serving), holds
 # it to the live outputs saved beside it at each batch, and reads the
 # kernels that one call runs from torch.profiler's device records.
 ARTIFACT_CHECK = """
@@ -2575,11 +2808,15 @@ torch.backends.cudnn.allow_tf32 = False
 artifact, saved_path, how, expected = sys.argv[1:5]
 saved = torch.load(saved_path)
 if how == "torch":
+    import scae_tpu_torch.kernels.capsule_votes
     call = torch.export.load(artifact + "/model.pt2").module()
     leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("scae_tpu_torch", "scae_tpu"))
+                    if m.split(".")[0] == "scae_tpu"
+                    or m.startswith(("scae_tpu_torch.models",
+                                     "scae_tpu_torch.serve")))
     if leaked:
-        raise RuntimeError(f"loading with torch alone imported {leaked}")
+        raise RuntimeError(f"loading with torch and the vote head's op "
+                           f"alone imported {leaked}")
 else:
     from scae_tpu_torch.serve import load_serving
     call = load_serving(artifact)
@@ -2646,8 +2883,9 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
     templates; the factory's weights from seed 0 on the card): two
     polymorphic-batch artifacts, on fused_impl="xla" and with the set
     transformer's use_pallas_attention (K6 by name), each loaded in a fresh
-    interpreter (the xla one with torch alone) and held to the live infer
-    function at batch 128 and 65, with the kernels of one call from the
+    interpreter (the xla one with torch and the vote head's op alone) and
+    held to the live infer function at batch 128 and 65, with the kernels
+    of one call from the
     profiler's records; the flag-on artifact's K6 launch count over its
     first call (the warm-up and the capture of its graph); an artifact
     exported on the CPU and moved to the card against the card's own; then
@@ -2658,6 +2896,7 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
     from scae_tpu_torch import serve
     from scae_tpu_torch.factory import make_scae
     from scae_tpu_torch.kernels import attention as k6
+    from scae_tpu_torch.kernels import capsule_votes as cv
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
     os.makedirs(tmp, exist_ok=True)
@@ -2683,7 +2922,7 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
                             "implementation)", {})
         with open(os.path.join(path, serve.MANIFEST_NAME)) as f:
             manifest = json.load(f)
-        want_ops = [k6.OP] if flag else []
+        want_ops = [k6.OP, cv.OP] if flag else [cv.OP]
         if manifest["custom_ops"] != want_ops:
             raise RuntimeError(f"{name} artifact calls "
                                f"{manifest['custom_ops']}, expected "
@@ -2699,7 +2938,7 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
         torch.save(saved, saved_path)
         check_artifact_apart(torch, card, path, saved_path,
                              "scae_tpu_torch" if flag else "torch",
-                             {"K6": 4} if flag else {})
+                             {"K6": 4, "V1f": 1} if flag else {"V1f": 1})
         artifacts[name] = (path, saved)
 
     # the main path: every count at 0 just before the first call of the
@@ -2712,9 +2951,11 @@ def serve_phase(torch, card, rows, tmp, ckpt_dir, overrides):
     check_kernel_counts(card, rows, "the first call of the flag-on artifact"
                         f" at batch {BATCH} (three set-attention blocks and "
                         "the final attention through "
-                        "scae_tpu_torch::attention_fwd, in the graph's "
-                        f"{WARMUP_STEPS} warm-up call and its capture)",
-                        {"K6": 4 * (WARMUP_STEPS + 1)})
+                        "scae_tpu_torch::attention_fwd, the vote head "
+                        "through scae_tpu_torch::capsule_votes_fwd, in the "
+                        f"graph's {WARMUP_STEPS} warm-up call and its "
+                        "capture)", {"K6": 4 * (WARMUP_STEPS + 1),
+                                     "V1f": WARMUP_STEPS + 1})
     serve_gaps(torch, out, artifacts["pallas_attention"][1][BATCH])
     say("assertions in the flag-on artifact's program: "
         + json.dumps(program_assertions(flagged.program)) + f" [{card}]")
@@ -2801,15 +3042,16 @@ def serve_graph_checks(torch, card, surfaces, x):
     it, whether it has the attention flag)), which on the card replays a
     CUDA graph per batch size, against its own eager call
     (``.eager``). Under cuDNN's deterministic algorithms, at batch 128 and
-    65: the first call's launch counts (K6 4 in the warm-up call and 4 in
-    the capture with the flag, nothing else), every output of the replay
-    bit for bit the eager call's (else the largest gap relative to each
-    output's largest entry, and a failure), one capture a batch size and
-    none for a second call, K6 4 times a replay in the profiler's records
-    (none without the flag), and a call's outputs untouched by the next
-    call. Then, under the default algorithms, each surface made anew and
-    timed in turns (eager, graph, graph, eager) at batch 128: device ms
-    per call (profiler), ms per call on CUDA events and images/s."""
+    65: the first call's launch counts (V1f once in the warm-up call and
+    once in the capture, K6 4 times in each with the flag, nothing else),
+    every output of the replay bit for bit the eager call's (else the
+    largest gap relative to each output's largest entry, and a failure),
+    one capture a batch size and none for a second call, V1f once and K6 4
+    times (none without the flag) a replay in the profiler's records, and
+    a call's outputs untouched by the next call. Then, under the default
+    algorithms, each surface made anew and timed in turns (eager, graph,
+    graph, eager) at batch 128: device ms per call (profiler), ms per call
+    on CUDA events and images/s."""
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
     cuda = torch.device("cuda")
@@ -2825,12 +3067,15 @@ def serve_graph_checks(torch, card, surfaces, x):
                 got = surface(xc[:b])
                 torch.cuda.synchronize()
                 counts = kernel_counts()
-                want_counts = {k: 0 for k in KERNELS}
+                want_counts = {"V1f": WARMUP_STEPS + 1}
                 if flag:
                     want_counts["K6"] = 4 * (WARMUP_STEPS + 1)
-                if counts != want_counts:
-                    failures.append(f"{what} batch {b}: first call "
-                                    f"launched {counts}")
+                try:
+                    check_kernel_counts(card, None, f"the {what}'s first "
+                                        f"call at batch {b}", want_counts,
+                                        counts)
+                except RuntimeError as error:
+                    failures.append(str(error))
                 want = surface.eager(xc[:b])
                 same = all(torch.equal(got[k], want[k]) for k in want) \
                     and sorted(got) == sorted(want)
@@ -2842,7 +3087,8 @@ def serve_graph_checks(torch, card, surfaces, x):
                        + " (each of its largest entry; predictions: how "
                        "many differ)")
                     + f"; launches over the first call (warm-up and "
-                    f"capture): K6 {counts['K6']} [{card}]")
+                    f"capture): K6 {counts['K6']}, V1f {counts['V1f']} "
+                    f"[{card}]")
                 if not same:
                     failures.append(f"{what} batch {b}: replay != eager")
             captures = surface.graphs.captures
@@ -2858,7 +3104,8 @@ def serve_graph_checks(torch, card, surfaces, x):
                 f"[{card}]")
             check_kernel_records(torch, card, f"one replay of the {what} "
                                  f"at batch {BATCH}", lambda: surface(xc),
-                                 {"K6": 4} if flag else {})
+                                 {"K6": 4, "V1f": 1} if flag else
+                                 {"V1f": 1})
             first = surface(xc)
             kept = {k: v.clone() for k, v in first.items()}
             second = surface(other)
@@ -3050,14 +3297,14 @@ def run_tool(torch, name, argv):
     module = importlib.import_module(f"scae_tpu_torch.tools.{name}")
     zero_kernel_counts()
     t0 = time.perf_counter()
-    with recorded_probabilities() as arrays, \
+    with recorded_probabilities() as arrays, eager_forwards() as forwards, \
             contextlib.redirect_stdout(io.StringIO()) as text:
         result = module.main(argv)
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return {"result": result, "arrays": arrays,
             "seconds": time.perf_counter() - t0, "text": text.getvalue(),
-            "counts": kernel_counts()}
+            "counts": kernel_counts(), "forwards": forwards}
 
 
 def tools_phase(torch, card, rows, tmp):
@@ -3089,15 +3336,17 @@ def tools_phase(torch, card, rows, tmp):
         out = os.path.join(tmp, f"member{seed}")
         reset_captures()
         t0 = time.perf_counter()
-        run_cli(cli, TOOLS_CLI + [f"seed={seed}",
-                                  f"trainer.checkpoint_dir={out}/ckpt",
-                                  f"trainer.log_dir={out}/logs"])
+        with eager_forwards() as forwards:
+            run_cli(cli, TOOLS_CLI + [f"seed={seed}",
+                                      f"trainer.checkpoint_dir={out}/ckpt",
+                                      f"trainer.log_dir={out}/logs"])
         torch.cuda.synchronize()
         caps = dict(train_step.captures)
         check_kernel_counts(
             card, rows, f"training member {seed} through the CLI "
             f"({caps['train']} train and {caps['eval']} eval graphs "
-            "captured)", graph_counts_expected(caps))
+            f"captured; eager forwards {forwards})",
+            graph_counts_expected(caps, forwards))
         say(f"tools: member {seed} (model=mnist, f32 convs, 1 epoch of "
             f"{n_train} images, batch {BATCH}) trained in "
             f"{time.perf_counter() - t0!r} s [{card}]")
@@ -3136,9 +3385,13 @@ def tools_phase(torch, card, rows, tmp):
 
     failures = []
     # the artifact's calls replay one graph (batch 128): K6 launches 4
-    # times in its warm-up call and 4 in its capture, none in a replay
-    expected = {"verify_serving_readout": {"K6": 4 * (WARMUP_STEPS + 1)},
-                "bench_serving": {"K6": 4 * (WARMUP_STEPS + 1)}}
+    # times in its warm-up call and 4 in its capture, none in a replay, and
+    # V1f once in each; bench_serving's live model replays a graph of its
+    # own. The forwards of the other tools run op by op: V1f once a batch.
+    expected = {"verify_serving_readout": {"K6": 4 * (WARMUP_STEPS + 1),
+                                           "V1f": WARMUP_STEPS + 1},
+                "bench_serving": {"K6": 4 * (WARMUP_STEPS + 1),
+                                  "V1f": 2 * (WARMUP_STEPS + 1)}}
     accuracies = {
         "ensemble_eval": {"prior_acc": n_test, "posterior_acc": n_test,
                           "ensemble_acc": n_test},
@@ -3158,8 +3411,11 @@ def tools_phase(torch, card, rows, tmp):
         for where, run in (("card", card_run), ("cpu", cpu_run)):
             for line in run["text"].splitlines():
                 say(f"  {name} ({where}): {line}")
-        check_kernel_counts(card, rows, f"{name} on the card",
-                            expected.get(name, {}), card_run["counts"])
+        want = dict(expected.get(name, {}))
+        want["V1f"] = want.get("V1f", 0) + card_run["forwards"]["batches"]
+        check_kernel_counts(card, rows, f"{name} on the card (eager "
+                            f"forwards {card_run['forwards']})", want,
+                            card_run["counts"])
         if any(cpu_run["counts"].values()):
             failures.append(f"{name} with --device cpu launched "
                             f"{cpu_run['counts']}")
@@ -3242,15 +3498,20 @@ DEMO_F32 = ["model.pcae_cnn_encoder_params.compute_dtype=null"]
 DEMO_CONF_TOL = 1e-4
 
 
-def graph_counts_expected(caps):
-    """The launches of a Trainer's graph scans whose captures are ``caps``
-    (parallel.train_step.captures): K1 and K2+K3 in each scan's warm-up
-    steps and in its capture."""
+def graph_counts_expected(caps, forwards):
+    """The launches of a Trainer's runs whose scans' captures are ``caps``
+    (parallel.train_step.captures) and whose eager forwards are
+    ``forwards`` (``eager_forwards``): K1 and V1f in each scan's warm-up
+    steps and in its capture, K2+K3 and V1b in the train scans', V1f
+    besides once in each eager forward."""
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
     per = WARMUP_STEPS + 1
     return {"K1": per * (caps["train"] + caps["eval"]),
-            "K2+K3": per * caps["train"]}
+            "K2+K3": per * caps["train"],
+            "V1f": per * (caps["train"] + caps["eval"]) + forwards["grids"]
+            + forwards["batches"],
+            "V1b": per * caps["train"]}
 
 
 def reset_captures():
@@ -3268,10 +3529,12 @@ def demos_check(torch, card, rows, work):
     confidences within DEMO_CONF_TOL."""
     from scae_tpu_torch.examples import infer_demo, train_resume_demo
     from scae_tpu_torch.parallel import train_step
+    from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
     reset_captures()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()) as text:
+    with contextlib.redirect_stdout(io.StringIO()) as text, \
+            eager_forwards() as forwards:
         state = train_resume_demo.main([work])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -3280,7 +3543,8 @@ def demos_check(torch, card, rows, work):
     caps = dict(train_step.captures)
     check_kernel_counts(card, rows, "examples.train_resume_demo (its "
                         f"{caps['train']} train and {caps['eval']} eval "
-                        "graphs captured)", graph_counts_expected(caps))
+                        f"graphs captured; eager forwards {forwards})",
+                        graph_counts_expected(caps, forwards))
     # 512 synthetic images, 128 held out for validation, batch 32
     if "[demo] interrupted at step 24;" not in text.getvalue() or \
             state.step != 48 or "resumed from step 24" not in \
@@ -3304,7 +3568,9 @@ def demos_check(torch, card, rows, work):
         if where == "card":
             torch.cuda.synchronize()
             check_kernel_counts(card, rows, "examples.infer_demo on the "
-                                "card (no kernel on its forward)", {})
+                                "card (no likelihood kernel on its forward; "
+                                "V1f in its graph's warm-up call and "
+                                "capture)", {"V1f": WARMUP_STEPS + 1})
         for line in text.getvalue().splitlines():
             say(f"  infer_demo ({where}): {line}")
         say(f"tools: examples.infer_demo ({where}) in "
@@ -3345,7 +3611,8 @@ def pool_check(torch, card, rows, work):
     try:
         reset_captures()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                eager_forwards() as forwards:
             pool_inprocess.train_members(
                 members=[("m0", 1, ["seed=3"]), ("m1", 1, ["seed=1"])],
                 log_root=f"{work}/logs", ckpt_root=f"{work}/ckpt",
@@ -3353,8 +3620,9 @@ def pool_check(torch, card, rows, work):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         check_kernel_counts(card, rows, "pool_inprocess.train_members (2 "
-                            "members)", graph_counts_expected(
-                                dict(train_step.captures)))
+                            f"members; eager forwards {forwards})",
+                            graph_counts_expected(
+                                dict(train_step.captures), forwards))
         with contextlib.redirect_stdout(io.StringIO()):
             trainer = Trainer(load_config("config", TOOLS_CLI + [
                 "seed=1", f"trainer.checkpoint_dir={work}/solo",
@@ -3794,15 +4062,20 @@ def nccl_capture_check(torch):
 def mesh_cli_rank(torch, out, argv):
     """A run of the training CLI with cuDNN's deterministic algorithms, its
     logs and checkpoints in ``out``: under a world-1 NCCL group (launched
-    by torch.distributed.run) or with none. Prints its result line: the
-    step, the launch counts, the graphs captured and, under the group, the
-    NCCL capture check."""
+    by torch.distributed.run) or with none. The scans' timed search of
+    cuDNN's algorithms is off (``graphs.cudnn_search`` replaced by a
+    context that changes nothing): it picks among the deterministic
+    algorithms by their times, which differ from process to process, and
+    two processes would then differ by the algorithms' rounding, not by
+    the group. Prints its result line: the step, the launch counts, the
+    graphs captured and, under the group, the NCCL capture check."""
     import torch.distributed as dist
 
     from scae_tpu_torch.parallel import train_step
     from scae_tpu_torch.train import cli
 
     deterministic_cudnn(torch)
+    train_step.cudnn_search = contextlib.nullcontext
     zero_kernel_counts()
     with contextlib.redirect_stdout(io.StringIO()) as text:
         state = cli.main(argv + [f"trainer.checkpoint_dir={out}/ckpt",
@@ -3872,9 +4145,68 @@ def mesh_options_rank(torch, out, argv):
         dist.destroy_process_group()
 
 
+def mesh_single_rank(torch, out):
+    """The mesh phase's one-process reference, with cuDNN's deterministic
+    algorithms: MESH_STEPS eager flagship steps from the ranks' state,
+    its parameters after each step (``single_<k>.pt``, for rank 0 to
+    compare with), the host and device times; the control (one process
+    again under cuDNN's default algorithms: what rounding alone moves the
+    same steps by); the first batch's gradients and the capsule MLPs'
+    pre-activations, and the control's gap to them; one banded step with
+    the attention flag. Writes them to ``single.pt`` in ``out``."""
+    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
+    from scae_tpu_torch.parallel.train_step import make_raw_train_step
+    from scae_tpu_torch.train.loop import make_augment_fn
+
+    cuda = torch.device("cuda")
+    augment = make_augment_fn(canvas=40, max_shift=6)
+    batches = mesh_batches(MESH_STEPS)
+
+    def one_process():
+        state = train_state(torch, cuda, True, FLAGSHIP_MODEL_PARAMS)
+        step = make_raw_train_step(state, augment, cuda)
+        losses, params = [], []
+        for b in batches:
+            losses.append(float(step(*b)["loss"]))
+            params.append({k: v.detach().cpu().clone()
+                           for k, v in state.model.state_dict().items()})
+        return step, losses, params
+
+    deterministic_cudnn(torch)
+    step, losses, params = one_process()
+    for k, p in enumerate(params, 1):
+        torch.save(p, os.path.join(out, f"single_{k}.pt"))
+    host_ms, busy_ms = step_times(torch, step, batches, MESH_TIMED)
+    deterministic_cudnn(torch, False)
+    _, control_losses, control = one_process()
+    deterministic_cudnn(torch)
+    want_grads, want_pre = first_batch_grads(torch, train_state(
+        torch, cuda, True, FLAGSHIP_MODEL_PARAMS).model)
+    deterministic_cudnn(torch, False)
+    control_grads = grad_gaps(want_grads, first_batch_grads(
+        torch, train_state(torch, cuda, True, FLAGSHIP_MODEL_PARAMS).model)[0])
+    deterministic_cudnn(torch)
+    banded = train_state(torch, cuda, True, dict(
+        FLAGSHIP_MODEL_PARAMS,
+        pcae_decoder_params=dict(fused_impl="pallas_banded")),
+        attention=True)
+    banded_loss = float(make_raw_train_step(banded, augment, cuda)(
+        *batches[0])["loss"])
+    torch.save({
+        "losses": losses, "host_ms": host_ms, "busy_ms": busy_ms,
+        "control_gaps": [state_gap(torch, c, p)
+                         for c, p in zip(control, params)],
+        "control_loss_gap": max(abs(a - b) / max(1.0, abs(b))
+                                for a, b in zip(control_losses, losses)),
+        "want_grads": want_grads, "want_pre": want_pre,
+        "control_grads": control_grads, "banded_loss": banded_loss},
+        os.path.join(out, "single.pt"))
+
+
 def mesh_rank(argv) -> int:
-    """The ranks' entry point: ``--mesh-rank steps OUT``, ``--mesh-rank
-    cli OUT [overrides]`` or ``--mesh-rank options OUT [overrides]``."""
+    """The ranks' entry point: ``--mesh-rank single OUT``, ``--mesh-rank
+    steps OUT``, ``--mesh-rank cli OUT [overrides]`` or ``--mesh-rank
+    options OUT [overrides]``."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3883,7 +4215,9 @@ def mesh_rank(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     role, out, rest = argv[0], argv[1], argv[2:]
-    if role == "steps":
+    if role == "single":
+        mesh_single_rank(torch, out)
+    elif role == "steps":
         deterministic_cudnn(torch)
         mesh_steps_rank(torch, out)
     elif role == "cli":
@@ -3955,10 +4289,12 @@ def mesh_nccl_runs(card, tmp):
                            f"captured, {per_replay} NCCL kernels a replay, "
                            f"{per_eager} an eager step, loss gap {gap}")
     say(f"mesh: the CLI on model=mnist under a world-1 NCCL group "
-        f"(torch.distributed.run, deterministic cuDNN): "
+        f"(torch.distributed.run, deterministic cuDNN, its algorithms by "
+        f"the heuristic in both runs): "
         f"{nccl['captures']['train']} train and {nccl['captures']['eval']} "
         f"eval graphs captured with their collectives, launches "
-        f"{ {k: nccl['counts'][k] for k in ('K1', 'K2+K3')} } as with no "
+        f"{ {k: nccl['counts'][k] for k in ('K1', 'K2+K3', *VOTES)} } as "
+        f"with no "
         f"group; its {len(nccl_records)} logged steps' loss terms "
         + ("equal the no-group CLI's bit for bit" if same else
            f"differ from the no-group CLI's by up to {max(gaps):.3e} "
@@ -4030,8 +4366,9 @@ def mesh_serving_check(torch, card, rows, tmp, ranks):
     """The 2x1 mesh artifact (flag on, global batch 128) that the step
     ranks exported and called, against the one-process artifact of the
     same model at batch 128: predictions equal, every other output within
-    MESH_SERVE_RTOL of its largest entry; K6 4 times in the warm-up call
-    and 4 in the capture of each rank's graph, and never in the export."""
+    MESH_SERVE_RTOL of its largest entry; K6 4 times and V1f once in the
+    warm-up call and in the capture of each rank's graph, and neither in
+    the export."""
     from scae_tpu_torch import serve
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
@@ -4065,17 +4402,17 @@ def mesh_serving_check(torch, card, rows, tmp, ranks):
                 m["input"]["shape"][0] != BATCH:
             failures.append(f"mesh artifact manifest {m}")
         expected = dict.fromkeys(KERNELS, 0)
-        expected["K6"] = 4 * (WARMUP_STEPS + 1)
+        expected.update(K6=4 * (WARMUP_STEPS + 1), V1f=WARMUP_STEPS + 1)
         if launches != expected or any(res["export_counts"].values()):
             failures.append(f"mesh artifact rank {r['rank']}: launches "
                             f"{launches}, export {res['export_counts']}")
-        for row, k in zip(rows, KERNELS):
-            row["launches"] = (row["launches"] or 0) + launches[k]
+        add_launches(rows, launches)
         say(f"mesh serving: the flag-on flagship exported on 2x1 (2 gloo "
             f"processes, global batch {BATCH}, {BATCH // 2} rows a "
             f"process) in {res['export_seconds']!r} s, rank {r['rank']}: "
-            f"K6 {launches['K6']} in the first call (the warm-up call and "
-            f"the capture of the rank's graph), a replayed call "
+            f"K6 {launches['K6']} and V1f {launches['V1f']} in the first "
+            f"call (the warm-up call and the capture of the rank's graph), "
+            f"a replayed call "
             f"{res['call_ms']!r} ms with the gather, none in the export; "
             f"against the one-process artifact: "
             + ", ".join(f"{k} {v}" + (" differ" if isinstance(v, int)
@@ -4130,7 +4467,8 @@ def mesh_options_runs(card, tmp):
                         f"{abs(s - o) / abs(o):.2e})"
                         for s, o in zip(r["scores"], one["scores"]))
             + f"; checkpoints saved {r['saves']}; launches K1 "
-            f"{r['counts']['K1']}, K2+K3 {r['counts']['K2+K3']}; "
+            f"{r['counts']['K1']}, K2+K3 {r['counts']['K2+K3']}, V1f "
+            f"{r['counts']['V1f']}, V1b {r['counts']['V1b']}; "
             f"{r['seconds']!r} s (one process {one['seconds']!r} s) "
             f"[{card}]")
     return failures
@@ -4141,57 +4479,26 @@ def mesh_phase(torch, card, rows, tmp):
     against the single-process run from the same state, a world-1 NCCL
     group whose graphs capture the collectives against no group, and the
     training CLI on two gloo processes."""
-    from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
     from scae_tpu_torch.parallel import mesh as mesh_lib
-    from scae_tpu_torch.parallel.train_step import make_raw_train_step
-    from scae_tpu_torch.train.loop import make_augment_fn
 
-    cuda = torch.device("cuda")
     os.makedirs(tmp, exist_ok=True)
     failures = []   # raised at the phase's end, after every part has run
     was = deterministic_cudnn(torch)
     try:
-        # the single-process run the ranks are held to, its parameters
-        # after each step saved for rank 0 to compare with
-        augment = make_augment_fn(canvas=40, max_shift=6)
-        batches = mesh_batches(MESH_STEPS)
-
-        def one_process():
-            state = train_state(torch, cuda, True, FLAGSHIP_MODEL_PARAMS)
-            step = make_raw_train_step(state, augment, cuda)
-            losses, params = [], []
-            for b in batches:
-                losses.append(float(step(*b)["loss"]))
-                params.append({k: v.detach().cpu().clone()
-                               for k, v in state.model.state_dict().items()})
-            return step, losses, params
-
-        step, losses, params = one_process()
-        for k, p in enumerate(params, 1):
-            torch.save(p, os.path.join(tmp, f"single_{k}.pt"))
-        host_ms, busy_ms = step_times(torch, step, batches, MESH_TIMED)
-        # the control: one process again under cuDNN's default algorithms,
-        # what rounding alone moves the same 8 steps by
-        deterministic_cudnn(torch, False)
-        _, control_losses, control = one_process()
-        deterministic_cudnn(torch)
-        control_gaps = [state_gap(torch, c, p)
-                        for c, p in zip(control, params)]
-        control_loss_gap = max(abs(a - b) / max(1.0, abs(b))
-                               for a, b in zip(control_losses, losses))
-        want_grads, want_pre = first_batch_grads(torch, train_state(
-            torch, cuda, True, FLAGSHIP_MODEL_PARAMS).model)
-        deterministic_cudnn(torch, False)
-        control_grads = grad_gaps(want_grads, first_batch_grads(
-            torch, train_state(torch, cuda, True,
-                               FLAGSHIP_MODEL_PARAMS).model)[0])
-        deterministic_cudnn(torch)
-        banded = train_state(torch, cuda, True, dict(
-            FLAGSHIP_MODEL_PARAMS,
-            pcae_decoder_params=dict(fused_impl="pallas_banded")),
-            attention=True)
-        banded_loss = float(make_raw_train_step(banded, augment, cuda)(
-            *batches[0])["loss"])
+        # the single-process run the ranks are held to, in a process of its
+        # own as theirs are: cuDNN keeps one algorithm a shape a process, and
+        # this process holds the ones earlier phases' scans searched
+        run_checked([sys.executable, os.path.abspath(__file__),
+                     "--mesh-rank", "single", tmp],
+                    "the one-process reference")
+        ref = torch.load(os.path.join(tmp, "single.pt"))
+        losses, host_ms, busy_ms = ref["losses"], ref["host_ms"], \
+            ref["busy_ms"]
+        control_gaps, control_loss_gap = ref["control_gaps"], \
+            ref["control_loss_gap"]
+        want_grads, want_pre = ref["want_grads"], ref["want_pre"]
+        control_grads, banded_loss = ref["control_grads"], \
+            ref["banded_loss"]
         say(f"mesh: one process, {MESH_STEPS} eager flagship steps (batch "
             f"{BATCH}, f32 convs, TF32 off, deterministic cuDNN, gather "
             f"path): losses {losses} [{card}]")
@@ -4268,12 +4575,13 @@ def mesh_phase(torch, card, rows, tmp):
                 gaps = [abs(a - b) / max(1.0, abs(b))
                         for a, b in zip(res["losses"], losses)]
                 launches = {k: res["counts"][k] for k in KERNELS}
-                expected = {k: MESH_STEPS if k in ("K1", "K2+K3") else 0
-                            for k in KERNELS}
+                expected = {k: MESH_STEPS if k in ("K1", "K2+K3", *VOTES)
+                            else 0 for k in KERNELS}
                 say(f"mesh {tag} (gloo, 2 processes on one card, batch "
                     f"{per_rank} a process) rank {r['rank']}: "
-                    f"{MESH_STEPS} steps, launches K1 {launches['K1']} and "
-                    f"K2+K3 {launches['K2+K3']} (one each a step), losses "
+                    f"{MESH_STEPS} steps, launches K1 {launches['K1']}, "
+                    f"K2+K3 {launches['K2+K3']}, V1f {launches['V1f']} and "
+                    f"V1b {launches['V1b']} (one each a step), losses "
                     f"within {max(gaps):.3e} of one process (tolerance "
                     f"{MESH_LOSS_RTOL:.0e}; each step: "
                     + ", ".join(f"{g:.1e}" for g in gaps)
@@ -4291,23 +4599,22 @@ def mesh_phase(torch, card, rows, tmp):
                 if tag == "1x2" and res["banks"] != 11:
                     failures.append(f"mesh 1x2: {res['banks']} banks "
                                     "split, expected 11")
-                for row, k in zip(rows, KERNELS):
-                    row["launches"] = (row["launches"] or 0) + launches[k]
+                add_launches(rows, launches)
         for r in ranks:
             res = r["banded"]
             launches = {k: res["counts"][k] for k in KERNELS}
             expected = dict.fromkeys(KERNELS, 0)
-            expected.update({"K5f": 1, "K5b": 1, "K6": 4})
+            expected.update({"K5f": 1, "K5b": 1, "K6": 4, **VOTES})
             gap = abs(res["loss"] - banded_loss) / max(1.0, abs(banded_loss))
             if launches != expected or not gap <= MESH_LOSS_RTOL:
                 failures.append(f"mesh banded rank {r['rank']}: launches "
                                 f"{launches} (expected {expected}), loss "
                                 f"{res['loss']} against {banded_loss}")
-            for row, k in zip(rows, KERNELS):
-                row["launches"] = (row["launches"] or 0) + launches[k]
+            add_launches(rows, launches)
             say(f"mesh 2x1 banded step with the attention flag, rank "
                 f"{r['rank']}: launches K5f {launches['K5f']}, K5b "
-                f"{launches['K5b']}, K6 {launches['K6']}; loss "
+                f"{launches['K5b']}, K6 {launches['K6']}, V1f "
+                f"{launches['V1f']}, V1b {launches['V1b']}; loss "
                 f"{res['loss']!r} against one process's {banded_loss!r} "
                 f"(gap {gap:.3e}) [{card}]")
         failures += mesh_serving_check(torch, card, rows, tmp, ranks)
@@ -4367,6 +4674,7 @@ def main(argv=None) -> int:
     from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS
     from scae_tpu_torch.kernels import _build
     from scae_tpu_torch.kernels import attention as k6
+    from scae_tpu_torch.kernels import capsule_votes as cv
     from scae_tpu_torch.kernels import decoder_ll_banded as k5
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
@@ -4407,7 +4715,8 @@ def main(argv=None) -> int:
                    "K5f": (k5.build_info, k5.SOURCE),
                    "K5b": (k5.build_info, k5.BWD_SOURCE),
                    "K6": (lambda _: k6.build_info(), k6.SOURCE),
-                   "P1+P2": (lambda _: kp.build_info(), kp.SOURCE)}
+                   "P1+P2": (lambda _: kp.build_info(), kp.SOURCE),
+                   "V1f+V1b": (lambda _: cv.build_info(), cv.SOURCE)}
         with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
             built = dict(zip(sources, pool.map(
                 lambda fs: fs[0](fs[1]), sources.values())))
@@ -4421,7 +4730,7 @@ def main(argv=None) -> int:
                     say(f"  ptxas: {line.strip()}")
 
     if args.mesh or args.tools or args.serve:
-        rows = [{"launches": None} for _ in KERNELS]
+        rows = [{"launches": None} for _ in KERNEL_ROWS]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             if args.serve:
                 with phase("serve"):
@@ -4439,7 +4748,8 @@ def main(argv=None) -> int:
         rows = [kernel_phase(torch, card), bwd_kernel_phase(torch, card),
                 *dense_kernel_phase(torch, card),
                 *banded_kernel_phase(torch, card),
-                attention_kernel_phase(torch, card)]
+                attention_kernel_phase(torch, card),
+                capsule_votes_kernel_phase(torch, card)]
 
     with phase("slice"):
         eval_step, images, labels = slice_phase(torch, card, rows)
@@ -4447,16 +4757,16 @@ def main(argv=None) -> int:
     with phase("train"):
         train_step, train_images, train_labels, _ = train_phase(
             torch, card, rows, "gather", FLAGSHIP_MODEL_PARAMS,
-            {"K1": 1, "K2+K3": 1})
+            {"K1": 1, "K2+K3": 1, **VOTES})
 
     with phase("pallas"):
         pallas_params = dict(FLAGSHIP_MODEL_PARAMS,
                              pcae_decoder_params=dict(fused_impl="pallas"))
         pallas_step, _, _, pallas_model = train_phase(
             torch, card, rows, "pallas", pallas_params,
-            {"K4f": 1, "K4b": 1})
+            {"K4f": 1, "K4b": 1, **VOTES})
         pallas_eval, _, _ = eval_timing(torch, card, rows, "pallas",
-                                        pallas_model, {"K4f": 1})
+                                        pallas_model, {"K4f": 1, "V1f": 1})
 
     with phase("banded"):
         banded_params = dict(
@@ -4464,9 +4774,10 @@ def main(argv=None) -> int:
             pcae_decoder_params=dict(fused_impl="pallas_banded"))
         banded_step, _, _, banded_model = train_phase(
             torch, card, rows, "banded", banded_params,
-            {"K5f": 1, "K5b": 1, "K6": 4}, attention=True)
-        banded_eval, _, _ = eval_timing(torch, card, rows, "banded",
-                                        banded_model, {"K5f": 1, "K6": 4})
+            {"K5f": 1, "K5b": 1, "K6": 4, **VOTES}, attention=True)
+        banded_eval, _, _ = eval_timing(
+            torch, card, rows, "banded", banded_model,
+            {"K5f": 1, "K6": 4, "V1f": 1})
 
     with phase("graph"):
         graph_scan = graph_phase(torch, card)

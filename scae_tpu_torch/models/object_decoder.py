@@ -6,7 +6,10 @@ O capsules), output split into OPR-dynamic / OVR / presences / scales,
 cpr = transform(static + dynamic) with an l2 reg on the dynamic part,
 vote = OVR @ OPR on the six affine coefficients, softplus vote scale;
 a parent's transform and presence may replace the OVR and the capsule
-presence.
+presence. Everything after the second bank (the vote head) is the custom
+op ``scae_tpu_torch::capsule_votes_fwd`` (``kernels/capsule_votes.py``:
+the CUDA kernels V1f and V1b on the card, the plain version on the CPU);
+a given parent transform or presence takes the plain version.
 When not deterministic, capsule dropout and presence-logit noise draw from
 an explicit ``torch.Generator``; the eval and serving path is
 deterministic. capsule_likelihood: Gaussian vote pdf, dummy component at
@@ -24,24 +27,18 @@ import math
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from scae_tpu_torch.kernels import capsule_votes
 from scae_tpu_torch.models.layers import StackedMLP
 from scae_tpu_torch.models.results import (
     CapsuleLayerResult,
     CapsuleLikelihoodResult,
     ObjectDecoderResult,
 )
-from scae_tpu_torch.ops.geometry import (
-    affine_to_matrix,
-    compose_affines,
-    geometric_transform,
-)
 from scae_tpu_torch.ops.gmm import normal_log_prob
 from scae_tpu_torch.ops.math_ops import (
     cross_entropy_safe,
-    l2_loss,
     log_safe,
     normalize,
 )
@@ -110,10 +107,6 @@ class CapsuleLayer(nn.Module):
                 "run the layer under the mesh they were split over")
         return active.m * held, (active.m + 1) * held
 
-    def _transform(self, params):
-        return geometric_transform(params, self.similarity_transform,
-                                   nonlinear=True, as_matrix=False)
-
     def forward(self, feature, parent_transform=None, parent_presence=None,
                 deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -150,56 +143,27 @@ class CapsuleLayer(nn.Module):
             all_param, *statics = mesh.gather_capsules([all_param, *statics])
         cpr_static, caps_bias = statics[0], statics[1:]
 
-        chunks = [c.reshape(B, O, *s) for c, s in zip(
-            torch.split(all_param, self.splits, dim=-1), self.output_shapes)]
-
-        cpr_dynamic = chunks[0]                               # (B, O, V, P)
-        if not self.allow_deformations:
-            cpr_dynamic = torch.zeros_like(cpr_dynamic)
-        cpr_dynamic_reg_loss = l2_loss(cpr_dynamic) / B
-        cpr = self._transform(cpr_dynamic + cpr_static)       # (B, O, V, 6)
-
-        cvr = chunks[1] + caps_bias[0]                        # (B, O, 1, P)
-        presence_logit_per_caps = chunks[2] + caps_bias[1]
-        presence_logit_per_vote = chunks[3] + caps_bias[2]
-        scale_per_vote = chunks[4] + caps_bias[3]
-        if parent_transform is None:
-            cvr = self._transform(cvr)                        # (B, O, 1, 6)
-        else:
-            # a homogeneous matrix: drop the [0, 0, 1] row
-            cvr = parent_transform[..., :2, :].reshape(
-                *parent_transform.shape[:-2], 6)
-        vote = affine_to_matrix(compose_affines(cvr, cpr))    # (B, O, V, 3, 3)
-
-        if caps_exist is not None:
-            presence_logit_per_caps = (presence_logit_per_caps
-                                       + log_safe(caps_exist))
-
-        def add_noise(t):
-            if deterministic or not self.noise_type:
-                return t
+        noise = (None, None)
+        if not deterministic and self.noise_type:
             if self.noise_type not in ("uniform", "logistic"):
                 raise ValueError(f"Invalid noise type: {self.noise_type}")
-            # drawn for the global batch under a mesh, this rank's rows kept
-            u = mesh.local_rows(torch.rand(
-                (mesh.global_rows(B), *t.shape[1:]), generator=generator,
-                dtype=t.dtype, device=t.device))
-            if self.noise_type == "uniform":
-                return t + (u - 0.5) * self.noise_scale
-            u = u.clamp(1e-7, 1 - 1e-7)
-            return t + torch.log(u / (1 - u)) * self.noise_scale
-
-        presence_logit_per_caps = add_noise(presence_logit_per_caps)
-        presence_logit_per_vote = add_noise(presence_logit_per_vote)
-
-        presence_per_caps = torch.sigmoid(presence_logit_per_caps) \
-            if parent_presence is None else parent_presence
-        vote_presence = (presence_per_caps
-                         * torch.sigmoid(presence_logit_per_vote))
-        if self.learn_vote_scale:
-            scale_per_vote = F.softplus(scale_per_vote + 0.5) + 1e-2
+            # the capsule's then the votes' presence-logit noise, drawn for
+            # the global batch under a mesh, this rank's rows kept
+            noise = tuple(mesh.local_rows(torch.rand(
+                (mesh.global_rows(B), O, n), generator=generator,
+                dtype=all_param.dtype, device=all_param.device))
+                for n in (1, self.n_votes))
+        args = (all_param, cpr_static, *caps_bias, caps_exist, *noise,
+                self.similarity_transform, self.allow_deformations,
+                self.learn_vote_scale, self.noise_type, self.noise_scale)
+        if parent_transform is None and parent_presence is None:
+            out = capsule_votes.capsule_votes(*args)
         else:
-            scale_per_vote = torch.ones_like(scale_per_vote)
+            out = capsule_votes.capsule_votes_plain(
+                *args, parent_transform=parent_transform,
+                parent_presence=parent_presence)
+        (vote, scale_per_vote, vote_presence, presence_logit_per_caps,
+         presence_logit_per_vote, cpr_dynamic_reg_loss) = out
 
         return CapsuleLayerResult(
             vote=vote,

@@ -12,8 +12,13 @@ writes the artifact with ``scae_tpu_torch.serve.export_serving`` on
 with ``load_serving``, against the live model's ``make_infer_fn`` on the
 same device and a random batch, predictions equal and every other output
 within ``--rtol`` / ``--atol``; with ``--polymorphic-batch`` again at
-``batch_size // 2 + 1``, the live model on the same rows. The last line printed is a JSON object of the
-artifact, the step and the outputs.
+``batch_size // 2 + 1``, the live model on the same rows. The last line
+printed is a JSON object of the artifact, the step and the outputs.
+
+The artifact calls the vote head's custom op,
+``scae_tpu_torch::capsule_votes_fwd``, on the CPU too: a consumer that
+reads it with ``torch.export.load`` instead of ``load_serving`` imports
+``scae_tpu_torch.kernels.capsule_votes`` first, which registers the op.
 """
 
 import argparse
@@ -54,7 +59,11 @@ def check_outputs(got, want, rtol, atol, where=""):
 
 def main(argv=None) -> dict:
     argv, overrides = split_args(argv)
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="The artifact calls scae_tpu_torch::capsule_votes_fwd: to "
+               "read it with torch.export.load rather than load_serving, "
+               "import scae_tpu_torch.kernels.capsule_votes first.")
     ap.add_argument("ckpt_dir", help="run checkpoint directory")
     ap.add_argument("--out", required=True, help="artifact output dir")
     ap.add_argument("--batch-size", type=int, default=128)

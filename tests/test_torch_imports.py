@@ -32,7 +32,8 @@ def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
     modules = port_modules() + ["chip_smoke"]
     for name in ("kernels.decoder_ll_gather", "kernels.decoder_ll_dense",
                  "kernels.decoder_ll_banded", "kernels.attention",
-                 "kernels.probe", "ops.decoder_ll", "ops.attention",
+                 "kernels.probe", "kernels.capsule_votes",
+                 "ops.decoder_ll", "ops.attention",
                  "config", "train.checkpoint", "train.metrics", "train.cli",
                  "tools.probe", "serve", "tools.export_model",
                  "train.logreg", "parallel.mesh", "tools.ensemble_pool",

@@ -5,7 +5,9 @@ holds scae_tpu's:
   * the artifact, loaded back, reproduces the live ``make_infer_fn``
     (rtol 1e-4, atol 1e-5, test_serve.py's tolerance);
   * it is self-contained: a fresh interpreter loads it and calls it with
-    ``torch`` alone, and ``scae_tpu_torch`` is never imported;
+    ``torch`` and the module that registers the vote head's op
+    (``scae_tpu_torch.kernels.capsule_votes``) alone: neither the port's
+    models nor ``scae_tpu`` are imported;
   * the manifest records the contract; a wrong batch is refused; a model
     without classes serves the unsupervised surface only; a polymorphic
     batch serves batches 1, 3 and 7; ``mesh`` is refused with a
@@ -46,6 +48,7 @@ from scae_tpu.factory import make_scae as j_make_scae
 from scae_tpu_torch import serve as t_serve
 from scae_tpu_torch.factory import make_scae as t_make_scae
 from scae_tpu_torch.kernels import attention as k6
+from scae_tpu_torch.kernels import capsule_votes as cv
 from scae_tpu_torch.optim import make_optimizer
 from scae_tpu_torch.parallel import mesh as t_mesh
 from scae_tpu_torch.parallel.train_step import TrainState
@@ -118,21 +121,26 @@ def test_roundtrip_matches_live_model(models, exported_dir):
 
 
 def test_artifact_is_self_contained(exported_dir, tmp_path):
-    """A fresh interpreter loads and calls the artifact with torch alone."""
+    """A fresh interpreter loads and calls the artifact with torch and the
+    vote head's op alone: every artifact calls
+    ``scae_tpu_torch::capsule_votes_fwd``, which its module registers."""
     code = textwrap.dedent(f"""
         import sys
         import torch
+        import scae_tpu_torch.kernels.capsule_votes
         program = torch.export.load(
             {os.path.join(exported_dir, t_serve.ARTIFACT_NAME)!r})
         res = program.module()(torch.zeros(({BATCH}, 1, 28, 28)))
-        assert "scae_tpu_torch" not in sys.modules
+        assert "scae_tpu_torch.models" not in sys.modules
+        assert "scae_tpu_torch.serve" not in sys.modules
         assert "scae_tpu" not in sys.modules
         probs = res["posterior_cls_prob"]
         assert torch.allclose(probs.sum(-1), torch.ones({BATCH}),
                               rtol=1e-5)
         print("served", sorted(res))
     """)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          env=env, capture_output=True, text=True,
                          timeout=300)
@@ -150,7 +158,7 @@ def test_manifest_records_contract(exported_dir):
     assert m["outputs"] == sorted(m["outputs"])
     assert m["model_config"]["n_part_caps"] == 16
     assert served.input_shape == (BATCH, 1, 28, 28)
-    assert m["device"] == "cpu" and m["custom_ops"] == []
+    assert m["device"] == "cpu" and m["custom_ops"] == [cv.OP]
     assert m["polymorphic_batch"] is False and m["batch_axis"] is None
     assert m["with_reconstruction"] is True
     assert m["torch_version"] == torch.__version__
@@ -264,7 +272,7 @@ def test_attention_flag_exports_the_op(models, tmp_path):
                            batch_size=None, out_dir=str(tmp_path),
                            device="cpu", polymorphic_batch=True)
     served = t_serve.load_serving(str(tmp_path))
-    assert served.manifest["custom_ops"] == [k6.OP]
+    assert served.manifest["custom_ops"] == [k6.OP, cv.OP]
     calls = [n for n in served.program.graph.nodes
              if n.target is torch.ops.scae_tpu_torch.attention_fwd.default]
     assert len(calls) == 4          # three set-attention blocks, the final
