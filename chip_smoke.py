@@ -122,7 +122,7 @@ Phases, each announced when it starts and when it ends, with its seconds:
           the source's best) with head_refit (the refit checkpoint at the
           last step + 1, with val_loss, only the posterior head changed);
           K1 and K2+K3 launch for each scan's warm-up steps and capture
-          (parallel.train_step.captures) and nowhere else
+          (the counters scan.captures.train and .eval) and nowhere else
   serve   the flagship (the factory's weights from seed 0 on the card)
           exported with serve.export_serving and a polymorphic batch
           twice, on fused_impl="xla" and with use_pallas_attention (K6 by
@@ -298,35 +298,6 @@ def k1_inputs(torch, shape, seed, pose_noise=0.6, edge=False,
         pose[:] = t(fixed_pose)
     return (templates, alpha, pose.contiguous(), t(presence), t(0.3),
             t(0.7), t(1.0), t(rng.rand(B, C, H, W)), (H, W))
-
-
-def k1_bound_ms(shape, alpha_batch=1):
-    """Least time of K1 on the card: the larger of bytes moved over the
-    memory rate and f32 operations over the f32 rate.
-
-    Bytes: each input read once (templates, alpha, pose, presence, target,
-    3 scalars) and each output written once (ll, num, den).
-    Operations per (capsule, pixel) pair: the function's work, as it was
-    fixed when K1 was first ported and kept since, so that the shares of
-    every design of the kernel compare (a design's own work, such as the
-    copies of the persistent kernel, is not counted):
-      16  source coordinates (two 2-FMA affine maps, two 4-op rescales)
-      14  taps (2 floors, 2 fractions, 2 complements, 8 bound tests)
-       9  4-tap blend, per plane (C template planes + alpha)
-       5  mixing logit (1) and the streaming LSE step of den (4)
-       9  per channel: residual, square, scale, offset, add mix (5) and
-          its streaming LSE step (4)
-    Integer index and address arithmetic is not counted.
-    """
-    B, M, C, Ht, Wt, H, W = shape
-    P, T = H * W, Ht * Wt
-    n_bytes = 4 * (B * M * C * T + alpha_batch * M * T + B * M * 6 + B * M
-                   + B * C * P + 3 + 2 * B * C * P + B * P)
-    ops = B * M * P * (16 + 14 + 9 * (C + 1) + 5 + 9 * C)
-    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), n_bytes, ops
 
 
 def time_cuda(torch, fn, iters, warmup):
@@ -510,6 +481,7 @@ def yardstick(kernel, ms, bound_ms):
 
 
 def kernel_phase(torch, card):
+    from portbench.counts.roofline import k1_bound_ms
     from scae_tpu_torch.kernels import decoder_ll_gather as k1
 
     cases = [
@@ -797,6 +769,7 @@ def dense_kernel_phase(torch, card):
     edge shapes, K4b twice for the same bits; their times."""
     import numpy as np
 
+    from portbench.counts.roofline import k1_bound_ms
     from scae_tpu_torch.kernels import decoder_ll_dense as k4
 
     identity, zero = IDENTITY_POSE, ZERO_POSE
@@ -970,6 +943,7 @@ def banded_kernel_phase(torch, card):
     for the same bits; their times."""
     import numpy as np
 
+    from portbench.counts.roofline import k1_bound_ms
     from scae_tpu_torch.kernels import decoder_ll_banded as k5
 
     identity, zero = IDENTITY_POSE, ZERO_POSE
@@ -1430,7 +1404,6 @@ def slice_phase(torch, card, rows):
 
     from scae_tpu_torch import serve
     from scae_tpu_torch.factory import FLAGSHIP_MODEL_PARAMS, make_scae
-    from scae_tpu_torch.kernels import decoder_ll_gather as k1
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
     from scae_tpu_torch.parallel.train_step import (
         decode_images,
@@ -1512,15 +1485,15 @@ def slice_phase(torch, card, rows):
         eval_step(images, labels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0
+    zero_kernel_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
         eval_step(images, labels)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
-    if k1.launches != steps:
-        raise RuntimeError(f"K1 launched {k1.launches} times in {steps} "
-                           "eval steps")
+    if kernel_counts()["K1"] != steps:
+        raise RuntimeError(f"K1 launched {kernel_counts()['K1']} times in "
+                           f"{steps} eval steps")
     say(f"eval step (batch {BATCH}, canvas 40): {dt * 1e3:.4f} ms/step "
         f"(host clock, {steps} steps after {warmup} warm-up), "
         f"{BATCH / dt:.1f} images/s, max_memory_allocated "
@@ -1540,34 +1513,28 @@ KERNELS = tuple(k for ids in KERNEL_ROWS for k in ids)
 VOTES = {"V1f": 1, "V1b": 1}
 
 
-def kernel_counts():
-    """Every kernel's launch count, by kernel id."""
-    from scae_tpu_torch.kernels import attention as k6
-    from scae_tpu_torch.kernels import capsule_votes as cv
-    from scae_tpu_torch.kernels import decoder_ll_banded as k5
-    from scae_tpu_torch.kernels import decoder_ll_dense as k4
-    from scae_tpu_torch.kernels import decoder_ll_gather as k1
-    from scae_tpu_torch.kernels import probe as kp
-
-    return {"K1": k1.launches, "K2+K3": k1.bwd_launches,
-            "K4f": k4.launches, "K4b": k4.bwd_launches,
-            "K5f": k5.launches, "K5b": k5.bwd_launches, "K6": k6.launches,
-            "V1f": cv.launches, "V1b": cv.bwd_launches,
-            "P1": kp.affine_launches, "P2": kp.matmul_launches}
+# the counters (utils/trace.py) as zero_kernel_counts last found them
+_counted = None
 
 
 def zero_kernel_counts():
-    from scae_tpu_torch.kernels import attention as k6
-    from scae_tpu_torch.kernels import capsule_votes as cv
-    from scae_tpu_torch.kernels import decoder_ll_banded as k5
-    from scae_tpu_torch.kernels import decoder_ll_dense as k4
-    from scae_tpu_torch.kernels import decoder_ll_gather as k1
-    from scae_tpu_torch.kernels import probe as kp
+    """Count launches and the scans' captures from zero again."""
+    global _counted
+    from scae_tpu_torch.utils import trace
 
-    k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
-    k5.launches = k5.bwd_launches = k6.launches = 0
-    cv.launches = cv.bwd_launches = 0
-    kp.affine_launches = kp.matmul_launches = 0
+    _counted = trace.Since()
+
+
+def kernel_counts():
+    """Every kernel's launches since ``zero_kernel_counts``, by kernel id
+    (the counters ``kernels.launches.<id>``)."""
+    return dict(zip(KERNELS, _counted.launches(*KERNELS)))
+
+
+def scan_captures():
+    """The graphs the train and eval scans captured since
+    ``zero_kernel_counts`` (the counters ``scan.captures.<kind>``)."""
+    return {k: _counted[f"scan.captures.{k}"] for k in ("train", "eval")}
 
 
 def add_launches(rows, counts):
@@ -2661,20 +2628,18 @@ def trainer_options(torch, card, rows, tmp, base):
     changed, the returned state's parameters against the last training
     checkpoint's, and that K1 and K2+K3 launch for each scan's warm-up steps and
     capture and nowhere else (the graphs each run captured are counted by
-    parallel.train_step.captures). Returns the refit run's checkpoint
-    directory."""
-    from scae_tpu_torch.parallel import train_step
+    ``scan_captures``). Returns the refit run's checkpoint directory."""
     from scae_tpu_torch.train import cli, loop
     from scae_tpu_torch.train.checkpoint import CheckpointManager
 
     def run_counted(argv, what):
-        reset_captures()
+        zero_kernel_counts()
         t0 = time.perf_counter()
         with eager_forwards() as forwards:
             state, out = run_cli(cli, argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        caps = dict(train_step.captures)
+        caps = scan_captures()
         check_kernel_counts(
             card, rows, f"{what} ({caps['train']} train and {caps['eval']} "
             "eval graphs captured; the wrappers launch for each scan's "
@@ -3053,6 +3018,7 @@ def serve_graph_checks(torch, card, surfaces, x):
     graph, eager) at batch 128: device ms per call (profiler), ms per call
     on CUDA events and images/s."""
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
+    from scae_tpu_torch.utils import trace
 
     cuda = torch.device("cuda")
     xc = x.to(cuda)
@@ -3062,6 +3028,7 @@ def serve_graph_checks(torch, card, surfaces, x):
     try:
         for what, (make, flag) in surfaces.items():
             surface = make()
+            captured = trace.Since()
             for b in SERVE_BATCHES:
                 zero_kernel_counts()
                 got = surface(xc[:b])
@@ -3091,13 +3058,13 @@ def serve_graph_checks(torch, card, surfaces, x):
                     f"[{card}]")
                 if not same:
                     failures.append(f"{what} batch {b}: replay != eager")
-            captures = surface.graphs.captures
+            captures = captured["graphs.captures"]
             surface(xc)
-            if surface.graphs.captures != captures or \
+            if captured["graphs.captures"] != captures or \
                     captures != len(SERVE_BATCHES):
                 failures.append(f"{what}: {captures} captures for "
                                 f"{len(SERVE_BATCHES)} batch sizes, "
-                                f"{surface.graphs.captures} after a "
+                                f"{captured['graphs.captures']} after a "
                                 "second call")
             say(f"serving graph, {what}: {captures} captures for batch "
                 f"sizes {list(SERVE_BATCHES)}, none for a second call "
@@ -3324,7 +3291,6 @@ def tools_phase(torch, card, rows, tmp):
     from scae_tpu_torch import serve
     from scae_tpu_torch.config import load_config
     from scae_tpu_torch.factory import make_scae
-    from scae_tpu_torch.parallel import train_step
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
     from scae_tpu_torch.train import cli
     from scae_tpu_torch.train.checkpoint import CheckpointManager
@@ -3334,14 +3300,14 @@ def tools_phase(torch, card, rows, tmp):
     n_batches = -(-n_test // BATCH)
     for seed in TOOLS_SEEDS:
         out = os.path.join(tmp, f"member{seed}")
-        reset_captures()
+        zero_kernel_counts()
         t0 = time.perf_counter()
         with eager_forwards() as forwards:
             run_cli(cli, TOOLS_CLI + [f"seed={seed}",
                                       f"trainer.checkpoint_dir={out}/ckpt",
                                       f"trainer.log_dir={out}/logs"])
         torch.cuda.synchronize()
-        caps = dict(train_step.captures)
+        caps = scan_captures()
         check_kernel_counts(
             card, rows, f"training member {seed} through the CLI "
             f"({caps['train']} train and {caps['eval']} eval graphs "
@@ -3500,7 +3466,7 @@ DEMO_CONF_TOL = 1e-4
 
 def graph_counts_expected(caps, forwards):
     """The launches of a Trainer's runs whose scans' captures are ``caps``
-    (parallel.train_step.captures) and whose eager forwards are
+    (``scan_captures``) and whose eager forwards are
     ``forwards`` (``eager_forwards``): K1 and V1f in each scan's warm-up
     steps and in its capture, K2+K3 and V1b in the train scans', V1f
     besides once in each eager forward."""
@@ -3514,24 +3480,15 @@ def graph_counts_expected(caps, forwards):
             "V1b": per * caps["train"]}
 
 
-def reset_captures():
-    from scae_tpu_torch.parallel import train_step
-
-    zero_kernel_counts()
-    for k in train_step.captures:
-        train_step.captures[k] = 0
-
-
 def demos_check(torch, card, rows, work):
     """``examples.train_resume_demo`` on the card (its small model, 2
     epochs, then a resume to epoch 4), then ``examples.infer_demo`` on its
     checkpoint on the card and on the CPU: the same predictions and labels,
     confidences within DEMO_CONF_TOL."""
     from scae_tpu_torch.examples import infer_demo, train_resume_demo
-    from scae_tpu_torch.parallel import train_step
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
-    reset_captures()
+    zero_kernel_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as text, \
             eager_forwards() as forwards:
@@ -3540,7 +3497,7 @@ def demos_check(torch, card, rows, work):
     seconds = time.perf_counter() - t0
     for line in text.getvalue().splitlines():
         say(f"  train_resume_demo: {line}")
-    caps = dict(train_step.captures)
+    caps = scan_captures()
     check_kernel_counts(card, rows, "examples.train_resume_demo (its "
                         f"{caps['train']} train and {caps['eval']} eval "
                         f"graphs captured; eager forwards {forwards})",
@@ -3598,7 +3555,6 @@ def pool_check(torch, card, rows, work):
     algorithms, against seed 1 trained alone through the Trainer: every
     parameter bit for bit, and the other member different."""
     from scae_tpu_torch.config import load_config
-    from scae_tpu_torch.parallel import train_step
     from scae_tpu_torch.tools import pool_inprocess
     from scae_tpu_torch.train.checkpoint import CheckpointManager
     from scae_tpu_torch.train.loop import Trainer
@@ -3609,7 +3565,7 @@ def pool_check(torch, card, rows, work):
 
     was = deterministic_cudnn(torch)
     try:
-        reset_captures()
+        zero_kernel_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()), \
                 eager_forwards() as forwards:
@@ -3621,8 +3577,8 @@ def pool_check(torch, card, rows, work):
         seconds = time.perf_counter() - t0
         check_kernel_counts(card, rows, "pool_inprocess.train_members (2 "
                             f"members; eager forwards {forwards})",
-                            graph_counts_expected(
-                                dict(train_step.captures), forwards))
+                            graph_counts_expected(scan_captures(),
+                                                  forwards))
         with contextlib.redirect_stdout(io.StringIO()):
             trainer = Trainer(load_config("config", TOOLS_CLI + [
                 "seed=1", f"trainer.checkpoint_dir={work}/solo",
@@ -4084,7 +4040,7 @@ def mesh_cli_rank(torch, out, argv):
     for line in text.getvalue().splitlines():
         say(f"  cli: {line}")
     result = {"step": state.step, "counts": kernel_counts(),
-              "captures": dict(train_step.captures),
+              "captures": scan_captures(),
               "wall": training_wall_time(text.getvalue()),
               "group": dist.is_initialized()}
     if dist.is_initialized():

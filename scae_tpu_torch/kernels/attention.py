@@ -9,19 +9,18 @@ Replaces the Pallas kernel ``scae_tpu/ops/pallas_attention.py``
     softmax((Q K^T - (1 - presence) * 1e9) / sqrt(d_k)) V
 
 with the mask subtracted before the scaling. Forward only: the backward
-recomputes the plain path (``ops/attention.py::AttentionFunction``), as the
-JAX package's custom VJP does. The TPU kernel pads N to 8 and M, d_k, d_v
+recomputes the plain path, as the JAX package's custom VJP
+(``_pallas_attn_bwd``) does. The TPU kernel pads N to 8 and M, d_k, d_v
 to 128; this one takes the sizes as they are.
 
-K6 is the operator ``torch.ops.scae_tpu_torch.attention_fwd`` (``OP``), a
-``torch.library`` custom op registered when this module is imported: its
-CUDA implementation launches K6 (``csrc/attention.cu``) and raises on
-anything the kernel does not take, its CPU implementation is the plain
-version, and its fake implementation gives the output's shape, so that
-``torch.export`` records a call to the op (a serving artifact calls K6 by
-name) rather than tracing into either. Registering builds nothing: K6 is
-built at its first launch. ``attention`` calls the op. K6 has no atomics:
-its results repeat bit for bit.
+K6 is the operator ``torch.ops.scae_tpu_torch.attention_fwd`` (``OP``),
+defined with ``_common.define_op`` when this module is imported: its CUDA
+implementation launches K6 (``csrc/attention.cu``) and raises on anything
+the kernel does not take, its CPU implementation is the plain version, its
+fake gives the output's shape, so that a serving artifact calls K6 by
+name, and its gradient is the plain path's autograd, recomputed from the
+inputs (``_backward``), which launches no kernel. ``attention`` calls the
+op. K6 has no atomics: its results repeat bit for bit.
 """
 
 import functools
@@ -29,33 +28,11 @@ import functools
 import torch
 
 from scae_tpu_torch.kernels import _build
-from scae_tpu_torch.kernels._common import SMEM_LIMIT, raise_on
+from scae_tpu_torch.kernels._common import SMEM_LIMIT, define_op, launch, pad4
 from scae_tpu_torch.ops.attention import qkv_attention_plain
 
 SOURCE = "attention.cu"
 _SIGNATURE = ("scae_attention_fwd", 5, 8)
-OP = "scae_tpu_torch::attention_fwd"
-
-# K6 launches since the counter was last set to 0; only the CUDA path adds.
-launches = 0
-
-
-@torch.library.custom_op(OP, mutates_args=(), device_types="cuda")
-def attention_fwd(queries: torch.Tensor, keys: torch.Tensor,
-                  values: torch.Tensor, presence: torch.Tensor
-                  ) -> torch.Tensor:
-    """(B, N, d_v): K6 on CUDA tensors, the plain version on CPU ones."""
-    return _launch(queries, keys, values, presence)
-
-
-@attention_fwd.register_kernel("cpu")
-def _attention_fwd_cpu(queries, keys, values, presence):
-    return attention_plain(queries, keys, values, presence)
-
-
-@attention_fwd.register_fake
-def _attention_fwd_fake(queries, keys, values, presence):
-    return queries.new_empty((*queries.shape[:-1], values.shape[-1]))
 
 
 def attention(queries, keys, values, presence):
@@ -69,11 +46,26 @@ def attention(queries, keys, values, presence):
 attention_plain = qkv_attention_plain
 
 
+def _fake(queries, keys, values, presence):
+    return queries.new_empty((*queries.shape[:-1], values.shape[-1]))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """The plain path's autograd, recomputed from the inputs (JAX
+    ``_pallas_attn_bwd``); None for an input that needs no gradient."""
+    inputs = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+    with torch.enable_grad():
+        out = attention_plain(*inputs)
+    grads = torch.autograd.grad(out, inputs, g)
+    return tuple(gr if need else None
+                 for gr, need in zip(grads, ctx.needs_input_grad))
+
+
 MAX_WARPS = 8                # warps of a K6 block
-
-
-def _pad4(n):
-    return -(-n // 4) * 4
 
 
 def ld_k(d_k, vec):
@@ -120,7 +112,7 @@ def shared_memory_bytes(N, M, d_k, d_v, rows_per_warp=None, warps=None,
         rows_per_warp, warps, vec = p["rows_per_warp"], p["warps"], p["vec"]
     tile = rows_per_warp * warps
     return 4 * (tile * d_k + M * ld_k(d_k, vec) + M * ld_v(d_v, vec)
-                + (_pad4(M) if vec else M) + tile * M)
+                + (pad4(M) if vec else M) + tile * M)
 
 
 @functools.cache
@@ -199,15 +191,14 @@ def _check(queries, keys, values, presence):
 
 def _launch(queries, keys, values, presence):
     """Launch K6 on CUDA tensors with the planner's tile plan."""
-    global launches
     B, N, M, d_k, d_v, p = _check(queries, keys, values, presence)
     out = torch.empty((B, N, d_v), dtype=torch.float32, device=queries.device)
-    fn, err, _ = _build.load(SOURCE, *_SIGNATURE)
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
-        rc = fn(queries.data_ptr(), keys.data_ptr(), values.data_ptr(),
-                presence.data_ptr(), out.data_ptr(), B, N, M, d_k, d_v,
-                p["rows_per_warp"], p["warps"], int(p["vec"]), stream)
-    raise_on(rc, err, "attention")
-    launches += 1
+    launch("K6", _build.load(SOURCE, *_SIGNATURE), queries, keys, values,
+           presence, out, B, N, M, d_k, d_v, p["rows_per_warp"], p["warps"],
+           int(p["vec"]))
     return out
+
+
+OP = define_op("attention_fwd(Tensor queries, Tensor keys, Tensor values, "
+               "Tensor presence) -> Tensor", _launch, attention_plain, _fake,
+               _backward, _setup_context)

@@ -1,6 +1,5 @@
 """The object capsules' vote head: the CUDA kernels V1f (forward) and V1b
-(backward), their plain PyTorch version, and the custom op that joins
-them.
+(backward), their plain PyTorch version, and the op that joins them.
 
 The head is the part of ``models/object_decoder.py::CapsuleLayer`` after
 its second bank of MLPs: from ``all_param`` (B, O, A), A = 8 V + 7, with
@@ -19,8 +18,8 @@ eager PyTorch ran it as about 96 operations forward and 150 backward. See
 ``csrc/capsule_votes.cu`` for their bound on the H100 and their design.
 
 The head is the operator ``torch.ops.scae_tpu_torch.capsule_votes_fwd``
-(``OP``), defined in a ``torch.library`` fragment (``_LIB``) when this
-module is imported: its CUDA implementation launches V1f and raises on anything it
+(``OP``), defined with ``_common.define_op`` when this module is imported:
+its CUDA implementation launches V1f and raises on anything it
 does not take (another dtype than float32, P other than 6, a layout other
 than contiguous or the capsule banks' (O, B) row order), its CPU
 implementation is the plain version, and its fake implementation gives the
@@ -29,8 +28,7 @@ serving artifact calls it by name). Its gradient (``register_autograd``) is
 a second op on CUDA tensors, ``scae_tpu_torch::capsule_votes_bwd``
 (``BWD_OP``), which launches V1b, and on CPU ones ``torch.autograd.grad``
 of the plain forward (``plain_backward``; taken in the backward itself,
-since an op's kernel runs below autograd). Registering builds nothing: the
-kernels are built at their first launch. V1f and V1b have no atomics:
+since an op's kernel runs below autograd). V1f and V1b have no atomics:
 their results repeat bit for bit.
 """
 
@@ -41,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from scae_tpu_torch.kernels import _build
-from scae_tpu_torch.kernels._common import raise_on
+from scae_tpu_torch.kernels._common import define_op, launch, pad4
 from scae_tpu_torch.ops.geometry import (
     affine_to_matrix,
     compose_affines,
@@ -52,16 +50,9 @@ from scae_tpu_torch.ops.math_ops import l2_loss, log_safe
 SOURCE = "capsule_votes.cu"
 _FWD_SIGNATURE = ("scae_capsule_votes_fwd", 16, 6)
 _BWD_SIGNATURE = ("scae_capsule_votes_bwd", 21, 6)
-OP = "scae_tpu_torch::capsule_votes_fwd"
-BWD_OP = "scae_tpu_torch::capsule_votes_bwd"
 NOISE_KINDS = {"uniform": 1, "logistic": 2}
 ROW_THREADS = 256          # votes a block takes: R = max(1, 256 // V) rows
 STATIC_SMEM = 48 * 1024    # a block's shared memory without an opt-in
-
-# Launches since a counter was last set to 0: ``launches`` for V1f,
-# ``bwd_launches`` for V1b. Only the CUDA paths add, once per launch.
-launches = 0
-bwd_launches = 0
 
 
 # --------------------------------------------------------------- the op
@@ -71,17 +62,6 @@ _ARGS = ("Tensor all_param, Tensor cpr_static, Tensor caps_bias_0, "
          "Tensor? caps_exist, Tensor? noise_caps, Tensor? noise_vote")
 _SETTINGS = ("bool similarity_transform, bool allow_deformations, "
              "bool learn_vote_scale, str? noise_type, float noise_scale")
-# Registered through a library fragment, not ``torch.library.custom_op``,
-# whose kernels run inside ``torch._dynamo``'s disable wrapper: the first
-# call would import torch._dynamo, seconds of every training process's
-# set-up.
-_LIB = torch.library.Library("scae_tpu_torch", "FRAGMENT")
-_LIB.define(f"capsule_votes_fwd({_ARGS}, {_SETTINGS}) -> "
-            "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
-_LIB.define(f"capsule_votes_bwd({_ARGS}, Tensor? g_vote, Tensor? g_scale, "
-            "Tensor? g_vote_presence, Tensor? g_presence_logit_per_caps, "
-            "Tensor? g_presence_logit_per_vote, "
-            f"Tensor? g_cpr_dynamic_reg_loss, {_SETTINGS}) -> Tensor[]")
 
 
 def _capsule_votes_fwd_cpu(*args):
@@ -241,7 +221,6 @@ def shared_memory_bytes(V) -> int:
     rows, their votes (or the votes' gradients), the per-vote terms of the
     row sums, and per row the sums, the OVR and the capsule presence."""
     R = rows_per_block(V)
-    pad4 = lambda n: -(-n // 4) * 4  # noqa: E731
     A = 8 * V + 7
     return 4 * (pad4(R * A) + pad4(9 * R * V) + pad4(7 * R * V)
                 + pad4(7 * R + 32) + pad4(6 * R) + pad4(R))
@@ -251,10 +230,6 @@ def build_info() -> _build.BuiltLibrary:
     """Build V1f and V1b now if needed; the path, ``-Xptxas -v`` report and
     build seconds of their library."""
     return _build.load(SOURCE, *_FWD_SIGNATURE)[2]
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def _check(all_param, cpr_static, biases, caps_exist, noise_caps, noise_vote,
@@ -338,7 +313,6 @@ def _launch_fwd(all_param, cpr_static, b0, b1, b2, b3, caps_exist,
                 noise_caps, noise_vote, similarity, deform, learn_scale,
                 noise_type, noise_scale):
     """Launch V1f (and its regulariser's sum) on CUDA tensors."""
-    global launches
     biases = (b0, b1, b2, b3)
     B, O, V, o_major = _check(all_param, cpr_static, biases, caps_exist,
                               noise_caps, noise_vote, noise_type)
@@ -350,15 +324,9 @@ def _launch_fwd(all_param, cpr_static, b0, b1, b2, b3, caps_exist,
     partial = new(-(-(B * O) // R))
     flags = _flags(similarity, deform, learn_scale, caps_exist, noise_caps,
                    noise_type, o_major)
-    fn, err, _ = _build.load(SOURCE, *_FWD_SIGNATURE)
-    with torch.cuda.device(all_param.device):
-        stream = torch.cuda.current_stream(all_param.device).cuda_stream
-        rc = fn(*(_ptr(t) for t in (all_param, cpr_static, *biases,
-                                    caps_exist, noise_caps, noise_vote,
-                                    *outs, partial)),
-                B, O, V, R, flags, _float_bits(noise_scale), stream)
-    raise_on(rc, err, "capsule_votes_fwd")
-    launches += 1
+    launch("V1f", _build.load(SOURCE, *_FWD_SIGNATURE), all_param,
+           cpr_static, *biases, caps_exist, noise_caps, noise_vote, *outs,
+           partial, B, O, V, R, flags, _float_bits(noise_scale))
     return outs
 
 
@@ -367,7 +335,6 @@ def _launch_bwd(all_param, cpr_static, b0, b1, b2, b3, caps_exist,
                 g_reg, similarity, deform, learn_scale, noise_type,
                 noise_scale):
     """Launch V1b (rows, then columns) on CUDA tensors."""
-    global bwd_launches
     biases = (b0, b1, b2, b3)
     grads = (g_vote, g_scale, g_pres, g_lc, g_lv, g_reg)
     B, O, V, o_major = _check(all_param, cpr_static, biases, caps_exist,
@@ -377,16 +344,9 @@ def _launch_bwd(all_param, cpr_static, b0, b1, b2, b3, caps_exist,
             for t in (all_param, cpr_static, *biases)]
     flags = _flags(similarity, deform, learn_scale, caps_exist, noise_caps,
                    noise_type, o_major)
-    fn, err, _ = _build.load(SOURCE, *_BWD_SIGNATURE)
-    with torch.cuda.device(all_param.device):
-        stream = torch.cuda.current_stream(all_param.device).cuda_stream
-        rc = fn(*(_ptr(t) for t in (all_param, cpr_static, *biases,
-                                    caps_exist, noise_caps, noise_vote,
-                                    *grads, *outs)),
-                B, O, V, rows_per_block(V), flags, _float_bits(noise_scale),
-                stream)
-    raise_on(rc, err, "capsule_votes_bwd")
-    bwd_launches += 1
+    launch("V1b", _build.load(SOURCE, *_BWD_SIGNATURE), all_param,
+           cpr_static, *biases, caps_exist, noise_caps, noise_vote, *grads,
+           *outs, B, O, V, rows_per_block(V), flags, _float_bits(noise_scale))
     return outs
 
 
@@ -395,13 +355,16 @@ def _launch_bwd(all_param, cpr_static, b0, b1, b2, b3, caps_exist,
 # (vote, scale, vote_presence, presence_logit_per_caps,
 # presence_logit_per_vote, cpr_dynamic_reg_loss): V1f on CUDA tensors, the
 # plain version on CPU ones
-_LIB.impl("capsule_votes_fwd", _launch_fwd, "CUDA")
-_LIB.impl("capsule_votes_fwd", _capsule_votes_fwd_cpu, "CPU")
-torch.library.register_fake(OP, _capsule_votes_fwd_fake, lib=_LIB)
-torch.library.register_autograd(OP, _backward, setup_context=_setup_context,
-                                lib=_LIB)
+OP = define_op(f"capsule_votes_fwd({_ARGS}, {_SETTINGS}) -> "
+               "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+               _launch_fwd, _capsule_votes_fwd_cpu, _capsule_votes_fwd_fake,
+               _backward, _setup_context)
 # the gradients of all_param, cpr_static and caps_bias_0..3 from those of
 # the six outputs (None: no gradient), by V1b: CUDA tensors only (the CPU's
 # backward is ``plain_backward``)
-_LIB.impl("capsule_votes_bwd", _launch_bwd, "CUDA")
-torch.library.register_fake(BWD_OP, _capsule_votes_bwd_fake, lib=_LIB)
+BWD_OP = define_op(
+    f"capsule_votes_bwd({_ARGS}, Tensor? g_vote, Tensor? g_scale, "
+    "Tensor? g_vote_presence, Tensor? g_presence_logit_per_caps, "
+    "Tensor? g_presence_logit_per_vote, "
+    f"Tensor? g_cpr_dynamic_reg_loss, {_SETTINGS}) -> Tensor[]",
+    _launch_bwd, None, _capsule_votes_bwd_fake)

@@ -1,6 +1,5 @@
 """Banded, row-windowed fused decoder log-likelihood: the CUDA kernels K5f
-(forward) and K5b (backward), their plain PyTorch version, and the
-autograd Function that joins them.
+(forward) and K5b (backward) and their plain PyTorch version.
 
 Replaces the Pallas kernels of ``scae_tpu/ops/pallas_decoder_ll_banded.py``,
 ``_fwd_kernel`` (K5f) and ``_bwd_kernel`` (K5b), which the decoder reaches
@@ -30,17 +29,18 @@ exactly when the windows hold every touched row. The TPU kernel warps
 through a block-diagonal bfloat16 matrix product on its MXU; these kernels
 and their plain version are float32 throughout.
 
-``decoder_ll_banded`` goes through ``DecoderLLBanded`` on every device: the
-plain version for CPU tensors, K5f and K5b (``csrc/decoder_ll_banded.cu``,
-``csrc/decoder_ll_banded_bwd.cu``) for CUDA tensors, which raise on
-anything the kernels do not take. K5f is K4f's design with the windows: a
-block per (band, example), the capsules' window rows streamed through a
-two-buffer ``cp.async`` ring of capsule chunks that ``forward_plan`` sizes
-by the blocks per SM that the registers allow.
-K5b is K4b's run scatter (``csrc/decoder_ll_tap_bwd.cuh``) with the y-taps
-masked by the windows: one block per (capsule, example), no
-floating-point atomics, so its results repeat bit for bit;
-``bwd_tap_keys`` computes its scatter keys on the CPU.
+``decoder_ll_banded`` computes the windows once and goes through
+``DecoderLLFunction`` (``_common.py``) on every device, both halves taking
+those windows: the plain version for CPU tensors, K5f and K5b
+(``csrc/decoder_ll_banded.cu``, ``csrc/decoder_ll_banded_bwd.cu``) for CUDA
+tensors, which raise on anything the kernels do not take. K5f is K4f's
+design with the windows: a block per (band, example), the capsules' window
+rows streamed through a two-buffer ``cp.async`` ring of capsule chunks that
+``forward_plan`` sizes by the blocks per SM that the registers allow. K5b
+is K4b's run scatter (``csrc/decoder_ll_tap_bwd.cuh``) with the y-taps
+masked by the windows: one block per (capsule, example), no floating-point
+atomics, so its results repeat bit for bit; ``bwd_tap_keys`` computes its
+scatter keys on the CPU.
 """
 
 import functools
@@ -49,13 +49,14 @@ import torch
 
 from scae_tpu_torch.kernels import _build
 from scae_tpu_torch.kernels._common import (
+    DecoderLLFunction,
     check_inputs,
     check_smem,
-    output_grid,
-    raise_on,
+    likelihood_forward,
+    pad4,
+    run_scatter_backward,
     run_scatter_shared_memory_bytes,
     scalar_tensor,
-    scalars,
     scatter_keys,
 )
 from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
@@ -70,11 +71,6 @@ _SIGNATURES = {
     SOURCE: ("scae_decoder_ll_banded_fwd", 12, 11),
     BWD_SOURCE: ("scae_decoder_ll_banded_bwd", 18, 8),
 }
-
-# Kernel launches since a counter was last set to 0: ``launches`` for K5f,
-# ``bwd_launches`` for K5b. Only the CUDA paths add to them.
-launches = 0
-bwd_launches = 0
 
 
 def band_rows(H: int, W: int) -> int:
@@ -175,11 +171,15 @@ def decoder_ll_banded(templates, alpha, pose, presence, bg_value,
                       bg_mixing_logit, scale, target, out_size):
     """Per-pixel reconstruction mixture log-likelihood (B, C, H, W) and its
     LSE terms num (B, C, P) and den (B, 1, P): the capsules sorted and
-    padded, then ``DecoderLLBanded``: the plain version on CPU tensors, K5f
+    padded, their windows computed once, then ``DecoderLLFunction`` with
+    both halves on those windows: the plain version on CPU tensors, K5f
     and K5b on CUDA tensors."""
     device = templates.device
-    return DecoderLLBanded.apply(
-        *sort_and_pad(templates, alpha, pose, presence),
+    sorted_ = sort_and_pad(templates, alpha, pose, presence)
+    _, win = _windows(sorted_[2], sorted_[0], out_size)
+    return DecoderLLFunction.apply(
+        functools.partial(decoder_ll_banded_fwd, win=win),
+        functools.partial(decoder_ll_banded_bwd, win=win), *sorted_,
         *(as_scalar(v, torch.float32, device)
           for v in (bg_value, bg_mixing_logit, scale)),
         target.contiguous(), tuple(out_size))
@@ -187,7 +187,7 @@ def decoder_ll_banded(templates, alpha, pose, presence, bg_value,
 
 def _windows(pose, templates, out_size, win=None):
     """(rows, win): the band height and the windows of the sorted, padded
-    inputs; ``win`` when given (``DecoderLLBanded`` computes it once for
+    inputs; ``win`` when given (``decoder_ll_banded`` computes it once for
     the forward and the backward), else computed here."""
     H, W = out_size
     rows = band_rows(H, W)
@@ -260,10 +260,6 @@ SM_THREADS = 2048
 SM_BLOCKS = 32
 
 
-def _pad4(n):
-    return -(-n // 4) * 4
-
-
 def threads_per_block(H, W, pixels=FWD_PIXELS) -> int:
     """Threads of a K5f block: its band's pixels over ``pixels`` a thread,
     rounded up to whole warps."""
@@ -278,8 +274,8 @@ def shared_memory_bytes(C, Ht, Wt, chunk, M) -> int:
     poses and presences; then one texel of zeros, which a tap outside its
     window reads."""
     buffers = 2 if M > chunk else 1
-    return 4 * (buffers * _pad4(_pad4(chunk * (C + 1) * Ht * Wt) + 7 * chunk)
-                + _pad4(C + 1))
+    return 4 * (buffers * pad4(pad4(chunk * (C + 1) * Ht * Wt) + 7 * chunk)
+                + pad4(C + 1))
 
 
 def blocks_by_registers(registers, threads) -> int:
@@ -394,7 +390,6 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
     planner's plan (``forward_plan``) unless ``plan`` gives the threads,
     pixels and chunk (chip_plans.py and the card's tests time and check
     other plans)."""
-    global launches
     B, M, C, Ht, Wt, H, W = _check(templates, alpha, pose, presence, target,
                                    out_size)
     # the planner's ring fits a block whenever its floor, two one-capsule
@@ -403,102 +398,21 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
                "K5f's ring of one-capsule buffers")
     if plan is None:
         plan = forward_plan((B, M, C, Ht, Wt, H, W), fwd_registers(C))
-    device = templates.device
     rows, win = _windows(pose, templates, out_size, win)
-    scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = output_grid(out_size, device)
-    f32 = dict(dtype=torch.float32, device=device)
-    ll = torch.empty((B, C, H, W), **f32)
-    num = torch.empty((B, C, H * W), **f32)
-    den = torch.empty((B, 1, H * W), **f32)
-    fn, err, _ = _build.load(SOURCE, *_SIGNATURES[SOURCE])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
-                presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
-                grid_x.data_ptr(), grid_y.data_ptr(), win.data_ptr(),
-                ll.data_ptr(), num.data_ptr(), den.data_ptr(),
-                B, M, C, Ht, Wt, H, W, rows, plan["threads"], plan["pixels"],
-                plan["chunk"], stream)
-    raise_on(rc, err, "decoder_ll_banded")
-    launches += 1
-    return ll, num, den
+    return likelihood_forward(
+        "K5f", _build.load(SOURCE, *_SIGNATURES[SOURCE]), win,
+        (rows, plan["threads"], plan["pixels"], plan["chunk"]), templates,
+        alpha, pose, presence, bg_value, bg_mixing_logit, scale, target,
+        out_size)
 
 
 def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 bg_mixing_logit, scale, target, out_size, target_grad=True,
                 win=None):
     """Launch K5b on sorted, padded CUDA tensors; returns what
-    ``decoder_ll_banded_bwd`` does. The scalar gradients are taken here,
-    over the kernel's per-capsule terms, in a fixed order."""
-    global bwd_launches
-    B, M, C, Ht, Wt = templates.shape
-    H, W = out_size
-    P = H * W
-    _check(templates, alpha, pose, presence, target, out_size,
-           g=(g, (B, C, H, W)), num=(num, (B, C, P)), den=(den, (B, 1, P)))
-    check_smem(bwd_shared_memory_bytes(C, Ht, Wt),
-               "K5b's capsule table and warp tables")
-    device = templates.device
+    ``decoder_ll_banded_bwd`` does."""
     rows, win = _windows(pose, templates, out_size, win)
-    scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = output_grid(out_size, device)
-    f32 = dict(dtype=torch.float32, device=device)
-    gtab = torch.empty((B, M, C + 1, Ht, Wt), **f32)
-    gpose = torch.empty((B, M, 6), **f32)
-    gpres = torch.empty((B, M), **f32)
-    cscal = torch.empty((B, M + 1, 3), **f32)
-    tpart = torch.empty((B, M, C, P), **f32) if target_grad else None
-    gtarget = torch.empty((B, C, H, W), **f32) if target_grad else None
-    fn, err, _ = _build.load(BWD_SOURCE, *_SIGNATURES[BWD_SOURCE])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
-                presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
-                g.data_ptr(), num.data_ptr(), den.data_ptr(),
-                grid_x.data_ptr(), grid_y.data_ptr(), win.data_ptr(),
-                gtab.data_ptr(), gpose.data_ptr(), gpres.data_ptr(),
-                cscal.data_ptr(),
-                tpart.data_ptr() if target_grad else None,
-                gtarget.data_ptr() if target_grad else None,
-                B, M, C, Ht, Wt, H, W, rows, stream)
-    raise_on(rc, err, "decoder_ll_banded backward")
-    bwd_launches += 1
-    gscal = cscal.sum(dim=(0, 1))
-    return (gtab[:, :, :C], gtab[:, :, C:], gpose, gpres, gscal[0], gscal[1],
-            gscal[2], gtarget)
-
-
-class DecoderLLBanded(torch.autograd.Function):
-    """K5f forward, K5b backward on sorted, padded CUDA tensors; the plain
-    version's forward and backward on CPU tensors.
-
-    The forward saves num and den, as the JAX package's ``_core_fwd``
-    does, and the windows, which it computes once for both kernels; the
-    backward returns a gradient for every array input that needs
-    one (None elsewhere), each in its input's shape.
-    """
-
-    @staticmethod
-    def forward(ctx, templates, alpha, pose, presence, bg_value,
-                bg_mixing_logit, scale, target, out_size):
-        _, win = _windows(pose, templates, out_size)
-        ll, num, den = decoder_ll_banded_fwd(
-            templates, alpha, pose, presence, bg_value, bg_mixing_logit,
-            scale, target, out_size, win)
-        ctx.save_for_backward(templates, alpha, pose, presence, bg_value,
-                              bg_mixing_logit, scale, target, num, den)
-        ctx.out_size, ctx.win = out_size, win
-        ctx.mark_non_differentiable(num, den)
-        return ll, num, den
-
-    @staticmethod
-    def backward(ctx, g, _g_num, _g_den):
-        needs = ctx.needs_input_grad[:8]
-        *inputs, num, den = ctx.saved_tensors
-        # the gradient of a sum or a mean arrives expanded, with zero strides
-        grads = decoder_ll_banded_bwd(g.contiguous(), num, den, *inputs,
-                                      ctx.out_size, target_grad=needs[7],
-                                      win=ctx.win)
-        return (*(gr.reshape(x.shape) if need else None
-                  for gr, x, need in zip(grads, inputs, needs)), None)
+    return run_scatter_backward(
+        "K5b", _build.load(BWD_SOURCE, *_SIGNATURES[BWD_SOURCE]), _check,
+        win, rows, g, num, den, templates, alpha, pose, presence, bg_value,
+        bg_mixing_logit, scale, target, out_size, target_grad)

@@ -1,6 +1,5 @@
 """Dense fused decoder log-likelihood: the CUDA kernels K4f (forward) and
-K4b (backward), their plain PyTorch version, and the autograd Function
-that joins them.
+K4b (backward) and their plain PyTorch version.
 
 Replaces the Pallas kernels of ``scae_tpu/ops/pallas_decoder_ll.py``,
 ``_fwd_kernel`` (K4f) and ``_bwd_kernel`` (K4b), which the decoder reaches
@@ -15,16 +14,16 @@ warp, the mixture and its hand-derived backward, whose tap derivative is
 TPU kernel contracts its template and alpha gradients in bfloat16 on the
 MXU; these kernels and their plain version are float32 throughout.
 
-``decoder_ll_dense`` goes through ``DecoderLLDense`` on every device: its
-forward and backward take the plain version for CPU tensors and launch
-K4f and K4b (``csrc/decoder_ll_dense.cu``, ``csrc/decoder_ll_dense_bwd.cu``)
-for CUDA tensors. A CUDA wrapper raises on anything its kernel does not
-take rather than falling back. K4b is the run scatter of
-``csrc/decoder_ll_tap_bwd.cuh``, which K5b shares: one block per (capsule,
-example), no floating-point atomics, so its results are the same bit for
-bit from run to run; ``bwd_tap_keys`` computes its scatter keys on the
-CPU. See the sources for each kernel's bound on the H100 and how its
-design meets it.
+``decoder_ll_dense`` goes through ``DecoderLLFunction`` (``_common.py``) on
+every device: its forward and backward take the plain version for CPU
+tensors and launch K4f and K4b (``csrc/decoder_ll_dense.cu``,
+``csrc/decoder_ll_dense_bwd.cu``) for CUDA tensors. A CUDA wrapper raises
+on anything its kernel does not take rather than falling back. K4b is the
+run scatter of ``csrc/decoder_ll_tap_bwd.cuh``, which K5b shares: one block
+per (capsule, example), no floating-point atomics, so its results are the
+same bit for bit from run to run; ``bwd_tap_keys`` computes its scatter
+keys on the CPU. See the sources for each kernel's bound on the H100 and
+how its design meets it.
 """
 
 import functools
@@ -33,13 +32,14 @@ import torch
 
 from scae_tpu_torch.kernels import _build
 from scae_tpu_torch.kernels._common import (
+    DecoderLLFunction,
     check_inputs,
     check_smem,
-    output_grid,
-    raise_on,
+    likelihood_forward,
+    pad4,
+    run_scatter_backward,
     run_scatter_shared_memory_bytes,
     scalar_tensor,
-    scalars,
     scatter_keys,
 )
 from scae_tpu_torch.ops.decoder_ll import decoder_ll_backward, decoder_ll_terms
@@ -52,22 +52,17 @@ _SIGNATURES = {
     BWD_SOURCE: ("scae_decoder_ll_dense_bwd", 17, 8),
 }
 
-# Kernel launches since a counter was last set to 0: ``launches`` for K4f,
-# ``bwd_launches`` for K4b (one per backward call, which with a target
-# gradient is two CUDA kernels from the one source). Only the CUDA paths add
-# to them; the plain version never does.
-launches = 0
-bwd_launches = 0
-
 
 def decoder_ll_dense(templates, alpha, pose, presence, bg_value,
                      bg_mixing_logit, scale, target, out_size):
     """Per-pixel reconstruction mixture log-likelihood (B, C, H, W) and its
-    LSE terms num (B, C, P) and den (B, 1, P), through ``DecoderLLDense``:
-    the plain version on CPU tensors, K4f and K4b on CUDA tensors."""
+    LSE terms num (B, C, P) and den (B, 1, P), through
+    ``DecoderLLFunction``: the plain version on CPU tensors, K4f and K4b on
+    CUDA tensors."""
     device = templates.device
-    return DecoderLLDense.apply(
-        templates, alpha, pose, presence,
+    return DecoderLLFunction.apply(
+        decoder_ll_dense_fwd, decoder_ll_dense_bwd, templates, alpha, pose,
+        presence,
         *(as_scalar(v, torch.float32, device)
           for v in (bg_value, bg_mixing_logit, scale)),
         target, tuple(out_size))
@@ -128,10 +123,6 @@ FWD_SMEM_BUDGET = 100 * 1024   # the ring's bytes (two blocks to an SM),
                                # where one capsule allows
 
 
-def _pad4(n):
-    return -(-n // 4) * 4
-
-
 def shared_memory_bytes(C, Ht, Wt, chunk=None) -> int:
     """Dynamic shared memory of one K4f block: a ring of ``FWD_STAGES``
     buffers of ``chunk`` capsules, each buffer the capsules' template and
@@ -141,7 +132,7 @@ def shared_memory_bytes(C, Ht, Wt, chunk=None) -> int:
     if chunk is None:
         chunk = forward_ring(C, Ht, Wt)
     T = Ht * Wt
-    return 4 * FWD_STAGES * _pad4(_pad4(chunk * (C + 1) * T) + 7 * chunk)
+    return 4 * FWD_STAGES * pad4(pad4(chunk * (C + 1) * T) + 7 * chunk)
 
 
 @functools.cache
@@ -219,107 +210,24 @@ def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
             scale, target, out_size):
     """Launch K4f on CUDA tensors: (ll, num, den), with the planner's
     plan (``forward_plan``)."""
-    global launches
     check_inputs(templates, alpha, pose, presence, target, out_size)
     B, M, C, Ht, Wt = templates.shape
-    H, W = out_size
-    P = H * W
-    device = templates.device
-    p = forward_plan((B, M, C, Ht, Wt, H, W))
+    p = forward_plan((B, M, C, Ht, Wt, *out_size))
     check_smem(p["smem"], "K4f's ring of staged capsule tables")
-    scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = output_grid(out_size, device)
-
-    f32 = dict(dtype=torch.float32, device=device)
-    ll = torch.empty((B, C, H, W), **f32)
-    num = torch.empty((B, C, P), **f32)
-    den = torch.empty((B, 1, P), **f32)
-    fn, err, _ = _build.load(SOURCE, *_SIGNATURES[SOURCE])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
-                presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
-                grid_x.data_ptr(), grid_y.data_ptr(), ll.data_ptr(),
-                num.data_ptr(), den.data_ptr(),
-                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), p["tiles"],
-                p["threads"], p["chunk"], stream)
-    raise_on(rc, err, "decoder_ll_dense")
-    launches += 1
-    return ll, num, den
+    return likelihood_forward(
+        "K4f", _build.load(SOURCE, *_SIGNATURES[SOURCE]), None,
+        (int(alpha.shape[0] != 1), p["tiles"], p["threads"], p["chunk"]),
+        templates, alpha, pose, presence, bg_value, bg_mixing_logit, scale,
+        target, out_size)
 
 
 def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 bg_mixing_logit, scale, target, out_size, target_grad=True):
     """Launch K4b on CUDA tensors; returns what ``decoder_ll_dense_bwd``
-    does. The scalar gradients and alpha's batch sum are taken here, over
-    the kernel's per-capsule terms, in a fixed order."""
-    global bwd_launches
-    B, M, C, Ht, Wt = templates.shape
-    H, W = out_size
-    P = H * W
-    check_inputs(templates, alpha, pose, presence, target, out_size,
-                  g=(g, (B, C, H, W)),
-                  num=(num, (B, C, P)), den=(den, (B, 1, P)))
-    check_smem(bwd_shared_memory_bytes(C, Ht, Wt),
-                "K4b's capsule table and warp tables")
-    device = templates.device
-    scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = output_grid(out_size, device)
-    f32 = dict(dtype=torch.float32, device=device)
-    gtab = torch.empty((B, M, C + 1, Ht, Wt), **f32)
-    gpose = torch.empty((B, M, 6), **f32)
-    gpres = torch.empty((B, M), **f32)
-    cscal = torch.empty((B, M + 1, 3), **f32)
-    tpart = torch.empty((B, M, C, P), **f32) if target_grad else None
-    gtarget = torch.empty((B, C, H, W), **f32) if target_grad else None
-    fn, err, _ = _build.load(BWD_SOURCE, *_SIGNATURES[BWD_SOURCE])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
-                presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
-                g.data_ptr(), num.data_ptr(), den.data_ptr(),
-                grid_x.data_ptr(), grid_y.data_ptr(), gtab.data_ptr(),
-                gpose.data_ptr(), gpres.data_ptr(), cscal.data_ptr(),
-                tpart.data_ptr() if target_grad else None,
-                gtarget.data_ptr() if target_grad else None,
-                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), stream)
-    raise_on(rc, err, "decoder_ll_dense backward")
-    bwd_launches += 1
-    g_alpha = gtab[:, :, C:]
-    if alpha.shape[0] == 1:
-        g_alpha = g_alpha.sum(dim=0, keepdim=True)
-    gscal = cscal.sum(dim=(0, 1))
-    return (gtab[:, :, :C], g_alpha, gpose, gpres, gscal[0], gscal[1],
-            gscal[2], gtarget)
-
-
-class DecoderLLDense(torch.autograd.Function):
-    """K4f forward, K4b backward on CUDA tensors; the plain version's
-    forward and backward on CPU tensors.
-
-    The forward saves num and den, as the JAX package's ``_pallas_fwd``
-    does; the backward returns a gradient for every array input that needs
-    one (None elsewhere), each in its input's shape.
-    """
-
-    @staticmethod
-    def forward(ctx, templates, alpha, pose, presence, bg_value,
-                bg_mixing_logit, scale, target, out_size):
-        ll, num, den = decoder_ll_dense_fwd(
-            templates, alpha, pose, presence, bg_value, bg_mixing_logit,
-            scale, target, out_size)
-        ctx.save_for_backward(templates, alpha, pose, presence, bg_value,
-                              bg_mixing_logit, scale, target, num, den)
-        ctx.out_size = out_size
-        ctx.mark_non_differentiable(num, den)
-        return ll, num, den
-
-    @staticmethod
-    def backward(ctx, g, _g_num, _g_den):
-        needs = ctx.needs_input_grad[:8]
-        *inputs, num, den = ctx.saved_tensors
-        # the gradient of a sum or a mean arrives expanded, with zero strides
-        grads = decoder_ll_dense_bwd(g.contiguous(), num, den, *inputs,
-                                     ctx.out_size, target_grad=needs[7])
-        return (*(gr.reshape(x.shape) if need else None
-                  for gr, x, need in zip(grads, inputs, needs)), None)
+    does. One launch with a target gradient is two CUDA kernels from the
+    one source."""
+    return run_scatter_backward(
+        "K4b", _build.load(BWD_SOURCE, *_SIGNATURES[BWD_SOURCE]),
+        check_inputs, None, int(alpha.shape[0] != 1), g, num, den,
+        templates, alpha, pose, presence, bg_value, bg_mixing_logit, scale,
+        target, out_size, target_grad)

@@ -1,6 +1,5 @@
 """Gather-form fused decoder log-likelihood: the CUDA kernels K1
-(forward) and K2+K3 (backward), their plain PyTorch versions, and the
-autograd Function that joins them.
+(forward) and K2+K3 (backward) and their plain PyTorch versions.
 
 Replaces the Pallas kernels of ``scae_tpu/ops/pallas_decoder_ll_gather.py``:
 ``_fwd_kernel`` (K1) and the backward pair ``_bwd_kernel`` + ``_gt_kernel``
@@ -14,9 +13,10 @@ H, W) and the two log-sum-exps it is the difference of, num (B, C, P) and
 den (B, 1, P), kept for the backward.
 
 ``decoder_ll_gather`` runs the plain version for CPU tensors, which
-autograd differentiates, and for CUDA tensors the autograd Function whose
-forward launches K1 (``csrc/decoder_ll_gather.cu``) and whose backward
-launches the backward kernel (``csrc/decoder_ll_gather_bwd.cu``). A CUDA
+autograd differentiates, and for CUDA tensors ``DecoderLLFunction``
+(``_common.py``), whose forward launches K1 (``csrc/decoder_ll_gather.cu``)
+and whose backward launches the backward kernel
+(``csrc/decoder_ll_gather_bwd.cu``). A CUDA
 wrapper raises on anything its kernel does not take rather than falling
 back. The plain backward is ``torch.autograd.grad`` of the plain forward.
 See the sources for each kernel's bound on the H100 and how its design
@@ -31,13 +31,14 @@ from scae_tpu_torch.kernels import _build
 from scae_tpu_torch.kernels._common import (
     RUN_SCATTER_WARPS,
     SMEM_LIMIT,
+    DecoderLLFunction,
     check_inputs,
     check_smem,
-    output_grid,
-    raise_on,
+    likelihood_forward,
+    pad4,
+    run_scatter_backward,
     run_scatter_shared_memory_bytes,
     scalar_tensor,
-    scalars,
     scatter_keys,
 )
 from scae_tpu_torch.ops.math_ops import as_scalar, log_safe
@@ -47,19 +48,13 @@ SOURCE = "decoder_ll_gather.cu"
 BWD_SOURCE = "decoder_ll_gather_bwd.cu"
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
-# Kernel launches since a counter was last set to 0: ``launches`` for K1,
-# ``bwd_launches`` for the backward kernel. Only the CUDA paths add to them,
-# once per launch; the plain versions never do.
-launches = 0
-bwd_launches = 0
-
 
 def decoder_ll_gather(templates, alpha, pose, presence, bg_value,
                       bg_mixing_logit, scale, target, out_size):
     """Per-pixel reconstruction mixture log-likelihood and its LSE terms.
 
     CPU tensors take the plain version; CUDA tensors go through
-    ``DecoderLLGather``, which launches K1 and, in the backward, the
+    ``DecoderLLFunction``, which launches K1 and, in the backward, the
     backward kernel.
     """
     if templates.device.type == "cpu":
@@ -67,8 +62,8 @@ def decoder_ll_gather(templates, alpha, pose, presence, bg_value,
                                        bg_value, bg_mixing_logit, scale,
                                        target, out_size)
     device = templates.device
-    return DecoderLLGather.apply(
-        templates, alpha, pose, presence,
+    return DecoderLLFunction.apply(
+        _launch, _bwd_launch, templates, alpha, pose, presence,
         *(as_scalar(v, torch.float32, device)
           for v in (bg_value, bg_mixing_logit, scale)),
         target, tuple(out_size))
@@ -140,19 +135,15 @@ FWD_THREADS = 256      # K1's threads per block: one pixel each
 BWD_WARPS = RUN_SCATTER_WARPS  # backward warps, each with its own table
 
 
-def _pad4(n):
-    return -(-n // 4) * 4
-
-
 def shared_memory_bytes(M, C, Ht, Wt, alpha_batched=False, buffers=2) -> int:
     """Dynamic shared memory of one K1 block: a batch-shared alpha table
     (alpha of batch 1), then ``buffers`` example buffers, each holding an
     example's templates, its alpha where alpha is per example, poses,
     presences and log-presences; every region padded to 4 floats."""
     T = Ht * Wt
-    buf = (_pad4(M * C * T) + (_pad4(M * T) if alpha_batched else 0)
-           + _pad4(6 * M) + 2 * _pad4(M))
-    return 4 * ((0 if alpha_batched else _pad4(M * T)) + buffers * buf)
+    buf = (pad4(M * C * T) + (pad4(M * T) if alpha_batched else 0)
+           + pad4(6 * M) + 2 * pad4(M))
+    return 4 * ((0 if alpha_batched else pad4(M * T)) + buffers * buf)
 
 
 def forward_buffers(M, C, Ht, Wt, alpha_batched=False) -> int:
@@ -213,36 +204,18 @@ def blocks_per_sm(source, *sizes) -> int:
 def _launch(templates, alpha, pose, presence, bg_value, bg_mixing_logit,
             scale, target, out_size):
     """Launch K1 on CUDA tensors: (ll, num, den)."""
-    global launches
     check_inputs(templates, alpha, pose, presence, target, out_size)
     B, M, C, Ht, Wt = templates.shape
     H, W = out_size
-    P = H * W
-    device = templates.device
     batched = alpha.shape[0] != 1
     buffers = forward_buffers(M, C, Ht, Wt, batched)
     if buffers == 0:
         check_smem(shared_memory_bytes(M, C, Ht, Wt, batched, 1),
                    "K1's capsule tables")
-    scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = output_grid(out_size, device)
-
-    f32 = dict(dtype=torch.float32, device=device)
-    ll = torch.empty((B, C, H, W), **f32)
-    num = torch.empty((B, C, P), **f32)
-    den = torch.empty((B, 1, P), **f32)
-    fn, err, _ = _library(SOURCE)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
-                presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
-                grid_x.data_ptr(), grid_y.data_ptr(), ll.data_ptr(),
-                num.data_ptr(), den.data_ptr(), B, M, C, Ht, Wt, H, W,
-                int(batched), forward_tiles(P), buffers, stream)
-    raise_on(rc, err, "decoder_ll_gather")
-    launches += 1
-    return ll, num, den
-
+    return likelihood_forward(
+        "K1", _library(SOURCE), None,
+        (int(batched), forward_tiles(H * W), buffers), templates, alpha,
+        pose, presence, bg_value, bg_mixing_logit, scale, target, out_size)
 
 
 # ------------------------------------------------------------- backward
@@ -290,75 +263,9 @@ def decoder_ll_gather_bwd_plain(g, num, den, templates, alpha, pose,
 def _bwd_launch(g, num, den, templates, alpha, pose, presence, bg_value,
                 bg_mixing_logit, scale, target, out_size, target_grad=True):
     """Launch the backward kernel on CUDA tensors; returns what
-    ``decoder_ll_gather_bwd`` does. The scalar gradients and alpha's batch
-    sum are taken here, over the kernel's per-capsule terms, in a fixed
-    order; every buffer is written in full by the kernel, so none is
-    zeroed."""
-    global bwd_launches
-    B, M, C, Ht, Wt = templates.shape
-    H, W = out_size
-    P = H * W
-    check_inputs(templates, alpha, pose, presence, target, out_size,
-                  g=(g, (B, C, H, W)),
-                  num=(num, (B, C, P)), den=(den, (B, 1, P)))
-    check_smem(bwd_shared_memory_bytes(C, Ht, Wt),
-               "the backward's capsule and gradient tables")
-    device = templates.device
-    scal = scalars(device, bg_value, bg_mixing_logit, scale)
-    grid_x, grid_y = output_grid(out_size, device)
-    f32 = dict(dtype=torch.float32, device=device)
-    gtab = torch.empty((B, M, C + 1, Ht, Wt), **f32)
-    gpose = torch.empty((B, M, 6), **f32)
-    gpres = torch.empty((B, M), **f32)
-    cscal = torch.empty((B, M + 1, 3), **f32)
-    tpart = torch.empty((B, M, C, P), **f32) if target_grad else None
-    gtarget = torch.empty((B, C, H, W), **f32) if target_grad else None
-    fn, err, _ = _library(BWD_SOURCE)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(templates.data_ptr(), alpha.data_ptr(), pose.data_ptr(),
-                presence.data_ptr(), target.data_ptr(), scal.data_ptr(),
-                g.data_ptr(), num.data_ptr(), den.data_ptr(),
-                grid_x.data_ptr(), grid_y.data_ptr(), gtab.data_ptr(),
-                gpose.data_ptr(), gpres.data_ptr(), cscal.data_ptr(),
-                tpart.data_ptr() if target_grad else None,
-                gtarget.data_ptr() if target_grad else None,
-                B, M, C, Ht, Wt, H, W, int(alpha.shape[0] != 1), stream)
-    raise_on(rc, err, "decoder_ll_gather backward")
-    bwd_launches += 1
-    g_alpha = gtab[:, :, C:]
-    if alpha.shape[0] == 1:
-        g_alpha = g_alpha.sum(dim=0, keepdim=True)
-    gscal = cscal.sum(dim=(0, 1))
-    return (gtab[:, :, :C], g_alpha, gpose, gpres, gscal[0], gscal[1],
-            gscal[2], gtarget)
-
-
-class DecoderLLGather(torch.autograd.Function):
-    """K1 forward, backward-kernel backward, on CUDA tensors.
-
-    The forward saves num and den, as ``_core_fwd`` does in the JAX
-    package; the backward returns a gradient for every array input that
-    needs one (None elsewhere), each in its input's shape.
-    """
-
-    @staticmethod
-    def forward(ctx, templates, alpha, pose, presence, bg_value,
-                bg_mixing_logit, scale, target, out_size):
-        ll, num, den = _launch(templates, alpha, pose, presence, bg_value,
-                               bg_mixing_logit, scale, target, out_size)
-        ctx.save_for_backward(templates, alpha, pose, presence, bg_value,
-                              bg_mixing_logit, scale, target, num, den)
-        ctx.out_size = out_size
-        ctx.mark_non_differentiable(num, den)
-        return ll, num, den
-
-    @staticmethod
-    def backward(ctx, g, _g_num, _g_den):
-        needs = ctx.needs_input_grad[:8]
-        *inputs, num, den = ctx.saved_tensors
-        # the gradient of a sum or a mean arrives expanded, with zero strides
-        grads = _bwd_launch(g.contiguous(), num, den, *inputs, ctx.out_size,
-                            target_grad=needs[7])
-        return (*(gr.reshape(x.shape) if need else None
-                  for gr, x, need in zip(grads, inputs, needs)), None)
+    ``decoder_ll_gather_bwd`` does."""
+    return run_scatter_backward(
+        "K2+K3", _library(BWD_SOURCE), check_inputs, None,
+        int(alpha.shape[0] != 1), g, num, den, templates, alpha, pose,
+        presence, bg_value, bg_mixing_logit, scale, target, out_size,
+        target_grad)

@@ -23,7 +23,7 @@ False, PyTorch's default.
 import torch
 
 from scae_tpu_torch.kernels import _build
-from scae_tpu_torch.kernels._common import raise_on
+from scae_tpu_torch.kernels._common import launch
 
 SOURCE = "probe.cu"
 _AFFINE = ("scae_probe_affine", 2, 1)
@@ -38,10 +38,6 @@ MATMUL_TILES = ((16, 32, 2, 2, 1), (16, 32, 2, 2, 2), (16, 32, 2, 2, 4),
                 (16, 64, 2, 4, 4))
 MATMUL_TILE = (16, 32, 2, 2, 4)  # the planner's tile
 MATMUL_KC = 128                 # depths of a staged chunk, at most
-
-# launches since the counters were last set to 0; only the CUDA paths add
-affine_launches = 0
-matmul_launches = 0
 
 
 def affine_probe_plain(x: torch.Tensor) -> torch.Tensor:
@@ -112,17 +108,11 @@ def _check(name, t, device):
 def affine_probe(x: torch.Tensor) -> torch.Tensor:
     """x * 2 + 1 for a 2-D float32 tensor: the plain version on the CPU, P1
     on a CUDA tensor."""
-    global affine_launches
     _check("x", x, x.device)
     if x.device.type == "cpu":
         return affine_probe_plain(x)
     out = torch.empty_like(x)
-    fn, err, _ = _build.load(SOURCE, *_AFFINE)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), stream)
-    raise_on(rc, err, "P1 (affine probe)")
-    affine_launches += 1
+    launch("P1", _build.load(SOURCE, *_AFFINE), x, out, x.numel())
     return out
 
 
@@ -148,14 +138,8 @@ def matmul_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _matmul_launch(a, b, plan):
     """Launch P2 on checked CUDA tensors with ``plan`` (``matmul_plan``'s;
     chip_plans.py and the card's tests take the other tiles)."""
-    global matmul_launches
     (M, K), N = a.shape, b.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    fn, err, _ = _build.load(SOURCE, *_MATMUL)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, K, N,
-                *_tile(plan), plan["kc"], stream)
-    raise_on(rc, err, "P2 (matmul probe)")
-    matmul_launches += 1
+    launch("P2", _build.load(SOURCE, *_MATMUL), a, b, out, M, K, N,
+           *_tile(plan), plan["kc"])
     return out

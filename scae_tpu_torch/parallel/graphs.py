@@ -258,12 +258,12 @@ class CallGraphs:
     context (``torch.inference_mode()`` for serving) for the warm-up and
     the capture alike. ``fn`` must take nothing from the host inside the
     call: a capture that fails raises; nothing falls back to ``fn``.
-    ``captures`` counts the graphs captured.
 
     A call's spans (``utils/trace.py``) are ``graphs.key`` (the check, and
     the walk where it runs), ``graphs.capture`` (where it captures),
     ``graphs.copy_in``, ``graphs.replay`` (with its stream time on the
-    card) and ``graphs.clone``; the counters ``graphs.capture_s`` (host
+    card) and ``graphs.clone``; the counters ``graphs.captures`` (graphs
+    captured), ``graphs.capture_s`` (host
     seconds of the warm-ups and captures), ``graphs.rekeys`` (full walks
     of ``module``) and ``graphs.recaptures`` (graphs dropped for a changed
     key) are always on."""
@@ -276,7 +276,6 @@ class CallGraphs:
         self.slots = None    # Slots of what the graphs read
         self.graphs = {}     # (shape, dtype) -> (static input, StepGraph)
         self.pool = None
-        self.captures = 0
 
     def __call__(self, x: torch.Tensor):
         with trace.span("graphs.key"):
@@ -301,7 +300,7 @@ class CallGraphs:
                     self.pool = torch.cuda.graph_pool_handle()
                 self.graphs[shape] = (static, StepGraph(
                     lambda: self.fn(static), pool=self.pool, **self.mode))
-                self.captures += 1
+                trace.count("graphs.captures")
         static, graph = self.graphs[shape]
         with trace.span("graphs.copy_in"):
             static.copy_(x)

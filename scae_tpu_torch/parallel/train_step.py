@@ -37,7 +37,10 @@ Under a recording profiler the card's scans are the spans ``scan.train``
 and ``scan.eval`` (``utils/trace.py``), each with its stream time and K
 items, and inside them ``scan.indices``, ``scan.prepare`` and one
 ``scan.replay`` a replayed row; the counter ``scan.capture_s`` adds the
-host seconds of the warm-up rows and the captures.
+host seconds of the warm-up rows and the captures, and
+``scan.captures.train`` and ``scan.captures.eval`` count the graphs the
+scans captured (one per branch of a step, each after
+``graphs.WARMUP_STEPS`` eager steps of its key).
 """
 
 import dataclasses
@@ -62,11 +65,6 @@ from scae_tpu_torch.utils import trace
 from scae_tpu_torch.utils.device import check_model_device, resolve_device
 
 _MASK64 = (1 << 64) - 1
-
-# CUDA graphs the train and eval scans captured since the counts were last
-# set to 0 (a scan captures one graph per branch of its step, each after
-# graphs.WARMUP_STEPS eager steps of its key)
-captures = {"train": 0, "eval": 0}
 
 
 @dataclasses.dataclass
@@ -469,9 +467,9 @@ class _Captures:
     read (the batch's index vector, the train step's optimizer numbers and
     generators); the metrics' names, in the graphs' output order; and the
     warm-up steps still to run. ``held``: objects kept alive with it.
-    ``kind``: "train" or "eval", the count of ``captures`` that its
-    captures add to (none where None). ``mesh``: the live mesh whose NCCL
-    collectives the graphs capture, or None."""
+    ``kind``: "train" or "eval", the counter ``scan.captures.<kind>``
+    that its captures add to (none where None). ``mesh``: the live mesh
+    whose NCCL collectives the graphs capture, or None."""
 
     def __init__(self, key, device, batch, held=(), generators=0,
                  kind=None, mesh=None):
@@ -520,7 +518,7 @@ class _Captures:
             self.graphs[branch] = StepGraph(step, self.generators, self.pool,
                                             **mode)
         if self.kind is not None:
-            captures[self.kind] += 1
+            trace.count(f"scan.captures.{self.kind}")
         return self.graphs[branch]
 
     def run(self, idxs, eager_step, replay, prepare=None):

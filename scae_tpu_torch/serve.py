@@ -11,7 +11,7 @@ model and its weights into a self-contained artifact with
                     ops the program calls, and the model config
 
 that ``load_serving``, or ``torch.export.load`` after importing
-``scae_tpu_torch.kernels.capsule_votes``, reads back and calls without the
+``scae_tpu_torch.kernels``, reads back and calls without the
 model's source. Both surfaces compute
 
     image (B, C, H, W) float32 in [0, 1]  ->
@@ -25,13 +25,12 @@ Exports default to what the caller built; ``tools/export_model.py``
 rebuilds on ``fused_impl="xla"``, as the JAX package's tool does (an
 inference forward reads no likelihood, so the choice changes nothing
 there). Every program calls the object capsules' vote head by name,
-``torch.ops.scae_tpu_torch.capsule_votes_fwd`` (``kernels/capsule_votes.py``:
-V1f on the card), and a model with the set transformer's
-``use_pallas_attention`` calls K6 too,
-``torch.ops.scae_tpu_torch.attention_fwd`` (``kernels/attention.py``): the
-manifest lists them under ``custom_ops``, and loading needs
-``scae_tpu_torch`` importable, whose kernel modules ``load_serving``
-imports to register the ops.
+``torch.ops.scae_tpu_torch.capsule_votes_fwd`` (V1f on the card), and a
+model with the set transformer's ``use_pallas_attention`` calls K6 too,
+``torch.ops.scae_tpu_torch.attention_fwd``: the manifest lists them under
+``custom_ops``, and loading needs ``scae_tpu_torch`` importable:
+``load_serving`` imports ``scae_tpu_torch.kernels``, which registers every
+op of the package.
 
 A trace records device literals (a tensor made on the templates' device,
 for one), so export on the device you serve on. ``load_serving(...,
@@ -319,9 +318,8 @@ def load_serving(artifact_dir: str, device=None) -> ServingModel:
     """Load an artifact of ``export_serving``: on the device it was
     exported on, or moved to ``device``. A program that calls custom ops
     (the manifest's ``custom_ops``) needs them registered first: this
-    imports ``scae_tpu_torch.kernels.attention`` and
-    ``scae_tpu_torch.kernels.capsule_votes``, which register K6's and the
-    vote head's.
+    imports ``scae_tpu_torch.kernels``, which registers every op of the
+    package.
 
     A mesh artifact (``batch_axis`` set) is loaded by every process of a
     group of ``nr_devices`` processes, which lays them out as the mesh it
@@ -350,14 +348,12 @@ def load_serving(artifact_dir: str, device=None) -> ServingModel:
         mesh = mesh_lib.make_mesh(**layout)
     if manifest["custom_ops"]:
         try:
-            import scae_tpu_torch.kernels.attention  # noqa: F401
-            import scae_tpu_torch.kernels.capsule_votes  # noqa: F401
+            import scae_tpu_torch.kernels  # noqa: F401
         except ImportError as e:
             raise ImportError(
                 f"the artifact calls {manifest['custom_ops']}: loading it "
-                "needs scae_tpu_torch.kernels.attention and "
-                "scae_tpu_torch.kernels.capsule_votes (scae_tpu_torch on "
-                "the path)") from e
+                "needs scae_tpu_torch.kernels (scae_tpu_torch on the "
+                "path)") from e
     program = torch.export.load(os.path.join(artifact_dir, ARTIFACT_NAME))
     exported_on = torch.device(manifest["device"])
     if device is not None:

@@ -18,7 +18,7 @@ printed is a JSON object of the artifact, the step and the outputs.
 The artifact calls the vote head's custom op,
 ``scae_tpu_torch::capsule_votes_fwd``, on the CPU too: a consumer that
 reads it with ``torch.export.load`` instead of ``load_serving`` imports
-``scae_tpu_torch.kernels.capsule_votes`` first, which registers the op.
+``scae_tpu_torch.kernels`` first, which registers the package's ops.
 """
 
 import argparse
@@ -63,7 +63,7 @@ def main(argv=None) -> dict:
         description=__doc__.splitlines()[0],
         epilog="The artifact calls scae_tpu_torch::capsule_votes_fwd: to "
                "read it with torch.export.load rather than load_serving, "
-               "import scae_tpu_torch.kernels.capsule_votes first.")
+               "import scae_tpu_torch.kernels first.")
     ap.add_argument("ckpt_dir", help="run checkpoint directory")
     ap.add_argument("--out", required=True, help="artifact output dir")
     ap.add_argument("--batch-size", type=int, default=128)

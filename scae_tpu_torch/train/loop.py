@@ -68,7 +68,6 @@ from scae_tpu_torch import factory
 from scae_tpu_torch.models.layers import init_parameters
 from scae_tpu_torch.optim import make_optimizer
 from scae_tpu_torch.parallel import mesh as mesh_lib
-from scae_tpu_torch.parallel import train_step
 from scae_tpu_torch.parallel.train_step import (
     TrainState,
     make_eval_scan,
@@ -587,7 +586,7 @@ class Trainer:
             if not built:
                 self.build_steps(spe)
                 built = True
-            captured = dict(train_step.captures)
+            captured = trace.Since()
             state = self.init_state(s)
             state = self._maybe_patch_templates(state, train_ds, s)
             data = self._to_device(train_ds)
@@ -614,11 +613,10 @@ class Trainer:
                 # the host, unless no candidate comes after it
                 leader = state_payload(state) if s < base_seed + n - 1 \
                     else None
-            graphs = {k: v - captured[k]
-                      for k, v in train_step.captures.items()}
             _say(f"[scae_tpu_torch] seed probe {s}: val_rec_ll={score:.2f} "
                   f"({probe_epochs} epochs; CUDA graphs captured: "
-                  f"{graphs['train']} train, {graphs['eval']} eval)")
+                  f"{captured['scan.captures.train']} train, "
+                  f"{captured['scan.captures.eval']} eval)")
         # on a mesh every process scored the candidates with the mesh's
         # global eval: a process that chose otherwise is a fault
         best = mesh_lib.agree(min(results)[1], "the seed probe's winner")

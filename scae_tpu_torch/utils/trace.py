@@ -14,7 +14,11 @@ resolves. Device spans are never recorded inside a graph capture, and no
 span runs inside a graph replay: a replay runs no Python.
 
 Counters (``count``, ``add_seconds``, ``timed``) are always on; they sit
-on cold paths only: kernel builds, exports, captures.
+on cold paths only: kernel builds, exports, captures, and the kernels'
+launches (``LAUNCHES`` + a kernel's id, counted by
+``kernels/_common.py::launch``), which run only where a step or a call is
+eager or captured, never in a replay. ``Since`` reads them as their
+growth since it was made.
 
 ``summary()`` reduces the records by span name; the records stay until
 ``reset()``. Nothing is written out: the profiler's trace is the
@@ -143,11 +147,31 @@ def timed(name: str):
         add_seconds(name, time.perf_counter() - t0)
 
 
+# + a kernel's id (K1, K2+K3, K4f, K4b, K5f, K5b, K6, V1f, V1b, P1, P2):
+# its launch counter
+LAUNCHES = "kernels.launches."
+
+
 def counters() -> dict:
     """A copy of every counter, with ``trace.dropped``: spans not kept
     past ``MAX_RECORDS``."""
     with _lock:
         return {**_counters, "trace.dropped": _dropped}
+
+
+class Since:
+    """The counters read as their growth since this object was made."""
+
+    def __init__(self):
+        self.start = counters()
+
+    def __getitem__(self, name: str):
+        """How much the counter ``name`` grew (0 where it never counted)."""
+        return counters().get(name, 0) - self.start.get(name, 0)
+
+    def launches(self, *kernels: str) -> tuple:
+        """How many times each of ``kernels`` was launched."""
+        return tuple(self[LAUNCHES + k] for k in kernels)
 
 
 def reset():

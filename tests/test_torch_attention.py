@@ -24,7 +24,8 @@ from scae_tpu.models import set_transformer as j_st
 from scae_tpu.ops.attention import qkv_attention as j_attention
 from scae_tpu_torch.kernels import attention as k6
 from scae_tpu_torch.models import set_transformer as t_st
-from scae_tpu_torch.ops.attention import AttentionFunction, qkv_attention
+from scae_tpu_torch.ops.attention import qkv_attention
+from scae_tpu_torch.utils import trace
 from scae_tpu_torch.utils.from_flax import load_flax_params
 
 torch.set_num_threads(1)
@@ -90,11 +91,11 @@ def test_use_pallas_matches_jax(B, N, M, dk, dv, presence):
                            has_aux=True)(*[jnp.asarray(a) for a in arrays])
 
     leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
-    k6.launches = 0
+    counted = trace.Since()
     got = qkv_attention(*leaves[:3], leaves[3] if presence else None,
                         use_pallas=True)
     (got * torch.from_numpy(cot)).sum().backward()
-    assert k6.launches == 0          # CPU tensors take the plain version
+    assert counted.launches("K6") == (0,)  # CPU tensors take the plain one
     close(got.detach().numpy(), np.asarray(want), "value")
     for name, leaf, g in zip("qkvp", leaves, grads):
         if name == "p" and presence in SCORED:
@@ -121,7 +122,7 @@ def test_all_absent_set_gives_uniform_weights():
 def test_function_returns_no_gradient_where_none_is_asked():
     q, k, v, p = [torch.from_numpy(a) for a in inputs(2, 3, 4, 5, 6, "soft")]
     q.requires_grad_()
-    out = AttentionFunction.apply(q, k, v, p)
+    out = torch.ops.scae_tpu_torch.attention_fwd(q, k, v, p)
     out.sum().backward()
     assert q.grad is not None and q.grad.shape == q.shape
     assert k.grad is None and p.grad is None

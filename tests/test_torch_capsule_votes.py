@@ -48,6 +48,7 @@ from scae_tpu_torch.ops.geometry import (
     geometric_transform,
 )
 from scae_tpu_torch.ops.math_ops import l2_loss, log_safe
+from scae_tpu_torch.utils import trace
 
 SHAPES = {"mnist40": (32, 40), "cifar10": (32, 64)}    # (O, V)
 VARIANTS = {
@@ -693,26 +694,26 @@ def test_kernels_give_both_layouts_the_same_bits(cuda):
 @pytest.mark.gpu
 def test_kernels_count_launches(cuda):
     args, (B, O, V) = card_args(cuda, "mnist40", "banks", None, B=4)
-    cv.launches = cv.bwd_launches = 0
+    counted = trace.Since()
     leaves = [a.detach().requires_grad_() for a in args[:6]]
     outs = cv.capsule_votes(*leaves, *args[6:])
-    assert (cv.launches, cv.bwd_launches) == (1, 0)
+    assert counted.launches("V1f", "V1b") == (1, 0)
     outs[1].sum().backward()
-    assert (cv.launches, cv.bwd_launches) == (1, 1)
+    assert counted.launches("V1f", "V1b") == (1, 1)
     cv.capsule_votes_plain(*args)
     cv.capsule_votes(*(a.cpu() if isinstance(a, torch.Tensor) else a
                        for a in args))
-    assert (cv.launches, cv.bwd_launches) == (1, 1)
+    assert counted.launches("V1f", "V1b") == (1, 1)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", sorted(REFUSALS))
 def test_kernels_refuse_what_they_do_not_take(cuda, kind):
     args = bad(kind, cuda)
-    cv.launches = 0
+    counted = trace.Since()
     with pytest.raises(REFUSALS[kind]):
         cv.capsule_votes(*args)
-    assert cv.launches == 0
+    assert counted.launches("V1f") == (0,)
 
 
 @pytest.mark.gpu
@@ -778,14 +779,14 @@ def test_captured_flagship_steps_and_serving_run_through_the_kernels(
     idxs = np.stack([rng.permutation(64)[:16] for _ in range(6)])
     scan = ts.make_train_scan(make_augment_fn(40, 6), cuda)
     eval_scan = ts.make_eval_scan(model, canvas=40, device=cuda)
-    cv.launches = cv.bwd_launches = 0
+    counted = trace.Since()
     scan(state, data, idxs[:2])
-    assert (cv.launches, cv.bwd_launches) == (WARMUP_STEPS + 1,) * 2
-    cv.launches = 0
+    assert counted.launches("V1f", "V1b") == (WARMUP_STEPS + 1,) * 2
+    counted = trace.Since()
     eval_scan(data, idxs[:2])
-    assert cv.launches == WARMUP_STEPS + 1
+    assert counted.launches("V1f") == (WARMUP_STEPS + 1,)
     torch.cuda.synchronize()
-    cv.launches = cv.bwd_launches = 0
+    counted = trace.Since()
     chunk = idxs[2:6]
     ran = kernel_records(lambda: scan(state, data, chunk),
                          {"V1f": len(chunk), "V1b": len(chunk)})
@@ -793,12 +794,12 @@ def test_captured_flagship_steps_and_serving_run_through_the_kernels(
     ran = kernel_records(lambda: eval_scan(data, chunk),
                          {"V1f": len(chunk), "V1b": 0})
     assert ran == {"V1f": len(chunk), "V1b": 0}
-    assert (cv.launches, cv.bwd_launches) == (0, 0)
+    assert counted.launches("V1f", "V1b") == (0, 0)
 
     infer = serve.make_infer_fn(model, device=cuda)
     x = torch.from_numpy(rng.rand(8, 1, 40, 40).astype(np.float32)).to(cuda)
     infer(x)                         # the warm-up call and the capture
-    assert cv.launches == WARMUP_STEPS + 1
+    assert counted.launches("V1f") == (WARMUP_STEPS + 1,)
     ran = kernel_records(lambda: infer(x), {"V1f": 1, "V1b": 0})
     assert ran == {"V1f": 1, "V1b": 0}
     serve.export_serving(model, image_shape=(1, 40, 40), batch_size=8,

@@ -29,6 +29,7 @@ from scae_tpu.ops.decoder_ll import fused_decoder_ll as j_fused
 from scae_tpu.ops.geometry import geometric_transform
 from scae_tpu.ops.pallas_decoder_ll_gather import pallas_decoder_ll_gather
 from scae_tpu_torch.kernels import decoder_ll_gather as k1
+from scae_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -122,10 +123,10 @@ def test_plain_matches_xla_path_other_scalars(bg_value, bg_mix, scale):
 
 def test_plain_never_counts_a_launch():
     arrays = make_inputs((1, 4, 1, 5, 5, 8, 8))
-    k1.launches = 0
+    counted = trace.Since()
     k1.decoder_ll_gather(*torch_args(arrays), (8, 8))
     k1.decoder_ll_gather_plain(*torch_args(arrays), (8, 8))
-    assert k1.launches == 0
+    assert counted.launches("K1") == (0,)
 
 
 def test_shared_memory_size():
@@ -254,7 +255,8 @@ def test_function_plumbing(plain_launches, alpha_batched):
     arrays = make_inputs(shape, seed=8, alpha_batched=alpha_batched)
     mask = [1, 1, 1, 1, 1, 1, 0, 0]
     ours = leaves(arrays, mask)
-    ll, num, den = k1.DecoderLLGather.apply(*ours, (9, 10))
+    ll, num, den = k1.DecoderLLFunction.apply(k1._launch, k1._bwd_launch,
+                                              *ours, (9, 10))
     assert not num.requires_grad and not den.requires_grad
     ll.sum().backward()
     ref = leaves(arrays, mask)
@@ -277,7 +279,8 @@ def test_function_returns_only_the_gradients_asked_for(plain_launches):
     arrays = make_inputs(shape, seed=9)
     mask = [0, 0, 1, 0, 0, 0, 0, 1]
     ours = leaves(arrays, mask)
-    ll, _, _ = k1.DecoderLLGather.apply(*ours, (8, 8))
+    ll, _, _ = k1.DecoderLLFunction.apply(k1._launch, k1._bwd_launch, *ours,
+                                          (8, 8))
     g = torch.from_numpy(upstream(shape))
     grads = torch.autograd.grad(ll, [ours[2], ours[7]], g)
     ctx_grads = k1.decoder_ll_gather_bwd_plain(g, None, None, *ours, (8, 8))
@@ -286,7 +289,8 @@ def test_function_returns_only_the_gradients_asked_for(plain_launches):
     assert plain_launches[0]["target_grad"] is True
     # nothing asked for: the backward launches nothing
     none = leaves(arrays, [0] * 8)
-    ll, _, _ = k1.DecoderLLGather.apply(*none, (8, 8))
+    ll, _, _ = k1.DecoderLLFunction.apply(k1._launch, k1._bwd_launch, *none,
+                                          (8, 8))
     assert not ll.requires_grad
     assert len(plain_launches) == 1
 

@@ -35,6 +35,7 @@ from scae_tpu.ops.decoder_ll import fused_decoder_ll as j_fused
 from scae_tpu_torch.kernels import decoder_ll_banded as k5
 from scae_tpu_torch.kernels import decoder_ll_dense as k4
 from scae_tpu_torch.kernels._common import SMEM_LIMIT
+from scae_tpu_torch.utils import trace
 
 # the package scae_tpu.ops exports a function of the module's name
 j_banded = importlib.import_module("scae_tpu.ops.pallas_decoder_ll_banded")
@@ -223,14 +224,14 @@ def test_plain_matches_interpret_mode_pallas_kernel(shape):
 
 
 def test_function_plumbing_on_cpu():
-    """Through DecoderLLBanded on CPU tensors: no launch counted, (ll, num,
+    """Through DecoderLLFunction on CPU tensors: no launch counted, (ll, num,
     den) with num and den outside the graph, a gradient for each input
     that asks, in its own shape, and none for the target."""
     shape = (3, 10, 2, 5, 5, 16, 16)
     arrays = make_inputs(shape, seed=5)
     leaves = [torch.from_numpy(np.array(a)).requires_grad_(i != 7)
               for i, a in enumerate(arrays)]
-    k5.launches = k5.bwd_launches = 0
+    counted = trace.Since()
     ll, num, den = k5.decoder_ll_banded(*leaves, (16, 16))
     assert ll.shape == (3, 2, 16, 16) and num.shape == (3, 2, 256)
     assert den.shape == (3, 1, 256)
@@ -241,13 +242,13 @@ def test_function_plumbing_on_cpu():
     for name, leaf in zip(GRAD_NAMES[:7], leaves):
         assert leaf.grad is not None and leaf.grad.shape == leaf.shape, name
     assert leaves[7].grad is None
-    assert (k5.launches, k5.bwd_launches) == (0, 0)
+    assert counted.launches("K5f", "K5b") == (0, 0)
 
 
 def test_windows_computed_once_per_step(monkeypatch):
-    """DecoderLLBanded computes the windows once, in its forward, and its
-    backward takes those same windows; a caller's windows are used as
-    given."""
+    """decoder_ll_banded computes the windows once, before the Function's
+    forward, and its backward takes those same windows; a caller's windows
+    are used as given."""
     shape = (2, 8, 1, 5, 5, 24, 24)
     arrays = make_inputs(shape, seed=6)
     calls = []

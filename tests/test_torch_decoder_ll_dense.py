@@ -33,6 +33,7 @@ from scae_tpu.ops.pallas_decoder_ll import pallas_decoder_ll
 from scae_tpu_torch.kernels import decoder_ll_dense as k4
 from scae_tpu_torch.kernels._common import SMEM_LIMIT
 from scae_tpu_torch.ops import decoder_ll as t_dll
+from scae_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -193,7 +194,7 @@ def test_plain_forward_returns_the_lse_terms():
 
 
 def test_function_plumbing_on_cpu():
-    """Through DecoderLLDense on CPU tensors: the gradients of the plain
+    """Through DecoderLLFunction on CPU tensors: the gradients of the plain
     backward, each in its input's shape (alpha's own batch, the scalars'
     own shapes), None where none is asked for, and no launch counted."""
     shape = (3, 4, 2, 5, 5, 9, 10)
@@ -201,7 +202,7 @@ def test_function_plumbing_on_cpu():
     mask = [1, 1, 1, 1, 1, 1, 1, 0]
     leaves = [torch.from_numpy(np.array(a)).requires_grad_(bool(m))
               for a, m in zip(arrays, mask)]
-    k4.launches = k4.bwd_launches = 0
+    counted = trace.Since()
     ll, num, den = k4.decoder_ll_dense(*leaves, (9, 10))
     assert not num.requires_grad and not den.requires_grad
     g = torch.from_numpy(cotangent(shape))
@@ -213,7 +214,7 @@ def test_function_plumbing_on_cpu():
         assert leaf.grad.shape == leaf.shape, name
         torch.testing.assert_close(leaf.grad, w.reshape(leaf.shape), rtol=0,
                                    atol=0)
-    assert (k4.launches, k4.bwd_launches) == (0, 0)
+    assert counted.launches("K4f", "K4b") == (0, 0)
 
 
 def arrays_t(arrays):

@@ -36,6 +36,7 @@ from scae_tpu_torch.kernels import decoder_ll_dense as k4
 from scae_tpu_torch.kernels import decoder_ll_gather as k1
 from scae_tpu_torch.kernels import probe as kp
 from scae_tpu_torch.ops.geometry import geometric_transform
+from scae_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.gpu
 
@@ -116,16 +117,6 @@ def test_kernel_matches_plain_other_scalars(cuda, bg_value, bg_mix, scale):
     assert max_err(got, want) < TOL
 
 
-def test_kernel_counts_launches(cuda):
-    inputs = make_inputs((2, 8, 1, 5, 5, 16, 16))
-    k1.launches = 0
-    run(k1.decoder_ll_gather, inputs, cuda, (16, 16))
-    run(k1.decoder_ll_gather, inputs, cuda, (16, 16))
-    assert k1.launches == 2
-    run(k1.decoder_ll_gather_plain, inputs, cuda, (16, 16))
-    assert k1.launches == 2
-
-
 def test_kernel_rejects_what_it_does_not_take(cuda):
     inputs = {k: v.to(cuda) for k, v in
               make_inputs((2, 8, 1, 5, 5, 16, 16)).items()}
@@ -140,20 +131,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="presence is on cpu"):
         call(k1.decoder_ll_gather, bad, (16, 16))
     grad = dict(inputs, templates=inputs["templates"].requires_grad_())
-    k1.bwd_launches = 0
+    counted = trace.Since()
     call(k1.decoder_ll_gather, grad, (16, 16))[0].sum().backward()
-    assert k1.bwd_launches == 1
+    assert counted.launches("K2+K3") == (1,)
     assert bool(torch.isfinite(grad["templates"].grad).all())
     big = make_inputs((1, 64, 4, 16, 16, 16, 16))
     with pytest.raises(ValueError, match="shared memory"):
         run(k1.decoder_ll_gather, big, cuda, (16, 16))
-
-
-@pytest.mark.parametrize("source", [k1.SOURCE, k1.BWD_SOURCE])
-def test_kernel_build_reports_registers(cuda, source):
-    info = k1.build_info(source)
-    assert info.path.endswith(".so")
-    assert "registers" in info.log or info.cached
 
 
 def test_base_grid_is_the_same_on_the_card(cuda):
@@ -250,17 +234,6 @@ def test_function_matches_plain_autograd(cuda):
         assert float((a - b).abs().max()) <= BWD_TOL * scale, name
 
 
-def test_bwd_kernel_counts_launches(cuda):
-    g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
-    _, num, den = k1.decoder_ll_gather(*args)
-    k1.bwd_launches = 0
-    k1.decoder_ll_gather_bwd(g, num, den, *args)
-    k1.decoder_ll_gather_bwd(g, num, den, *args, target_grad=False)
-    assert k1.bwd_launches == 2
-    k1.decoder_ll_gather_bwd_plain(g, num, den, *args)
-    assert k1.bwd_launches == 2
-
-
 def test_bwd_kernel_rejects_what_it_does_not_take(cuda):
     g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
     _, num, den = k1.decoder_ll_gather(*args)
@@ -288,9 +261,9 @@ def test_flagship_eval_step_runs_through_kernel(cuda):
     rng = np.random.RandomState(0)
     images = rng.randint(0, 256, (16, 28, 28)).astype(np.uint8)
     labels = rng.randint(0, 10, (16,))
-    k1.launches = 0
+    counted = trace.Since()
     metrics = step(images, labels)
-    assert k1.launches == 1
+    assert counted.launches("K1") == (1,)
     for name, v in metrics.items():
         assert np.isfinite(float(v)), name
 
@@ -312,10 +285,10 @@ def test_flagship_train_step_runs_through_kernels(cuda):
     rng = np.random.RandomState(0)
     images = rng.randint(0, 256, (16, 28, 28)).astype(np.uint8)
     labels = rng.randint(0, 10, (16,))
-    k1.launches = k1.bwd_launches = 0
+    counted = trace.Since()
     metrics = step(images, labels)
     torch.cuda.synchronize()
-    assert (k1.launches, k1.bwd_launches) == (1, 1)
+    assert counted.launches("K1", "K2+K3") == (1, 1)
     assert state.step == 1
     for name, v in metrics.items():
         assert np.isfinite(float(v)), name
@@ -514,18 +487,6 @@ def test_dense_function_matches_plain_autograd(cuda):
         assert float((a.cpu() - b).abs().max()) <= BWD_TOL * scale, name
 
 
-def test_dense_kernels_count_launches(cuda):
-    g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
-    k4.launches = k4.bwd_launches = 0
-    _, num, den = k4.decoder_ll_dense_fwd(*args)
-    k4.decoder_ll_dense_bwd(g, num, den, *args)
-    k4.decoder_ll_dense_bwd(g, num, den, *args, target_grad=False)
-    assert (k4.launches, k4.bwd_launches) == (1, 2)
-    k4.decoder_ll_dense_plain(*args)
-    k4.decoder_ll_dense_bwd_plain(g, num, den, *args)
-    assert (k4.launches, k4.bwd_launches) == (1, 2)
-
-
 def test_dense_kernels_reject_what_they_do_not_take(cuda):
     g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
     bad = list(args)
@@ -538,13 +499,6 @@ def test_dense_kernels_reject_what_they_do_not_take(cuda):
     big = make_inputs((1, 2, 4, 120, 120, 8, 8))
     with pytest.raises(ValueError, match="shared memory"):
         run(k4.decoder_ll_dense_fwd, big, cuda, (8, 8))
-
-
-@pytest.mark.parametrize("source", [k4.SOURCE, k4.BWD_SOURCE])
-def test_dense_kernel_build_reports_registers(cuda, source):
-    info = k4.build_info(source)
-    assert info.path.endswith(".so")
-    assert "registers" in info.log or info.cached
 
 
 def test_flagship_pallas_train_step_runs_through_dense_kernels(cuda):
@@ -566,12 +520,12 @@ def test_flagship_pallas_train_step_runs_through_dense_kernels(cuda):
     rng = np.random.RandomState(0)
     images = rng.randint(0, 256, (16, 28, 28)).astype(np.uint8)
     labels = rng.randint(0, 10, (16,))
-    k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
+    counted = trace.Since()
     metrics = step(images, labels)
     make_raw_eval_step(model, canvas=40, device=cuda)(images, labels)
     torch.cuda.synchronize()
-    assert (k4.launches, k4.bwd_launches) == (2, 1)
-    assert (k1.launches, k1.bwd_launches) == (0, 0)
+    assert counted.launches("K4f", "K4b") == (2, 1)
+    assert counted.launches("K1", "K2+K3") == (0, 0)
     for name, v in metrics.items():
         assert np.isfinite(float(v)), name
 
@@ -658,18 +612,6 @@ def test_banded_function_matches_dense_autograd(cuda):
         assert float((a - b).abs().max()) <= BWD_TOL * scale, name
 
 
-def test_banded_kernels_count_launches(cuda):
-    g, args = banded_args((2, 8, 1, 5, 5, 16, 16), 0.6, False, None, cuda)
-    k5.launches = k5.bwd_launches = 0
-    _, num, den = k5.decoder_ll_banded_fwd(*args)
-    k5.decoder_ll_banded_bwd(g, num, den, *args)
-    k5.decoder_ll_banded_bwd(g, num, den, *args, target_grad=False)
-    assert (k5.launches, k5.bwd_launches) == (1, 2)
-    k5.decoder_ll_banded_plain(*args)
-    k5.decoder_ll_banded_bwd_plain(g, num, den, *args)
-    assert (k5.launches, k5.bwd_launches) == (1, 2)
-
-
 def test_banded_kernels_reject_what_they_do_not_take(cuda):
     g, args = banded_args((2, 8, 1, 5, 5, 16, 16), 0.6, False, None, cuda)
     bad = list(args)
@@ -684,13 +626,6 @@ def test_banded_kernels_reject_what_they_do_not_take(cuda):
     _, args = banded_args((1, 8, 1, 5, 5, 2, 600), 0.6, False, None, cuda)
     with pytest.raises(ValueError, match="band of 600 pixels"):
         k5.decoder_ll_banded_fwd(*args)
-
-
-@pytest.mark.parametrize("source", [k5.SOURCE, k5.BWD_SOURCE])
-def test_banded_kernel_build_reports_registers(cuda, source):
-    info = k5.build_info(source)
-    assert info.path.endswith(".so")
-    assert "registers" in info.log or info.cached
 
 
 @pytest.mark.parametrize("C", [1, 3])
@@ -851,12 +786,9 @@ def test_attention_function_matches_plain_autograd(cuda, presence):
         assert float((a - b).abs().max()) < tol, name
 
 
-def test_attention_kernel_counts_launches_and_rejects(cuda):
+def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     args = [x.to(cuda) for x in attention_inputs(2, 3, 4, 8, 8)]
-    k6.launches = 0
-    k6.attention(*args)
-    k6.attention_plain(*args)
-    assert k6.launches == 1
+    counted = trace.Since()
     with pytest.raises(ValueError, match="contiguous"):
         k6.attention(args[0].transpose(1, 2).contiguous().transpose(1, 2),
                      *args[1:])
@@ -865,12 +797,7 @@ def test_attention_kernel_counts_launches_and_rejects(cuda):
     big = [x.to(cuda) for x in attention_inputs(1, 64, 64, 512, 512)]
     with pytest.raises(ValueError, match="shared memory"):
         k6.attention(*big)
-
-
-def test_attention_kernel_build_reports_registers(cuda):
-    info = k6.build_info()
-    assert info.path.endswith(".so")
-    assert "registers" in info.log or info.cached
+    assert counted.launches("K6") == (0,)
 
 
 def test_flagship_banded_train_step_runs_through_k5_and_k6(cuda):
@@ -893,16 +820,14 @@ def test_flagship_banded_train_step_runs_through_k5_and_k6(cuda):
     rng = np.random.RandomState(0)
     images = rng.randint(0, 256, (16, 28, 28)).astype(np.uint8)
     labels = rng.randint(0, 10, (16,))
-    k5.launches = k5.bwd_launches = k6.launches = 0
-    k4.launches = k4.bwd_launches = k1.launches = k1.bwd_launches = 0
+    counted = trace.Since()
     metrics = step(images, labels)
     torch.cuda.synchronize()
-    assert (k5.launches, k5.bwd_launches, k6.launches) == (1, 1, 4)
+    assert counted.launches("K5f", "K5b", "K6") == (1, 1, 4)
     make_raw_eval_step(model, canvas=40, device=cuda)(images, labels)
     torch.cuda.synchronize()
-    assert (k5.launches, k5.bwd_launches, k6.launches) == (2, 1, 8)
-    assert (k1.launches, k1.bwd_launches, k4.launches, k4.bwd_launches) \
-        == (0, 0, 0, 0)
+    assert counted.launches("K5f", "K5b", "K6") == (2, 1, 8)
+    assert counted.launches("K1", "K2+K3", "K4f", "K4b") == (0, 0, 0, 0)
     for name, v in metrics.items():
         assert np.isfinite(float(v)), name
 
@@ -949,16 +874,12 @@ def test_matmul_probe_tiles_match_plain(cuda, tile, kc, M, K, N, offset):
     assert float((got - kp.matmul_probe_plain(a, b)).abs().max()) < TOL
 
 
-def test_probes_count_launches_and_reject(cuda):
+def test_probes_reject_what_they_do_not_take(cuda):
     from scae_tpu_torch.kernels import _build
     from scae_tpu_torch.kernels._common import raise_on
 
     x = torch.ones(8, 128, device=cuda)
-    kp.affine_launches = kp.matmul_launches = 0
-    kp.affine_probe(x)
-    kp.matmul_probe(x, x.t().contiguous())
-    kp.affine_probe_plain(x)
-    assert (kp.affine_launches, kp.matmul_launches) == (1, 1)
+    counted = trace.Since()
     with pytest.raises(TypeError, match="float32"):
         kp.affine_probe(x.double())
     with pytest.raises(ValueError, match="contiguous"):
@@ -975,21 +896,121 @@ def test_probes_count_launches_and_reject(cuda):
     assert rc != 0
     with pytest.raises(RuntimeError, match="launch failed"):
         raise_on(rc, err, "P1 (affine probe)")
-    assert (kp.affine_launches, kp.matmul_launches) == (1, 1)
+    assert counted.launches("P1", "P2") == (0, 0)
 
 
 def test_probe_entry_point_runs_the_probes(cuda, capsys):
     from scae_tpu_torch.tools import probe as probe_tool
 
-    kp.affine_launches = kp.matmul_launches = 0
+    counted = trace.Since()
     assert probe_tool.main(device=cuda) == 0
     out = capsys.readouterr().out
     assert "probe ok: True" in out and "probe matmul ok: True" in out
-    assert (kp.affine_launches, kp.matmul_launches) == (1, 1)
+    assert counted.launches("P1", "P2") == (1, 1)
 
 
-def test_probe_kernel_build_reports_registers(cuda):
-    info = kp.build_info()
+# ------------------------------------------------- counts and builds
+
+def _gather_fwd_case(cuda):
+    inputs = make_inputs((2, 8, 1, 5, 5, 16, 16))
+
+    def launch():
+        run(k1.decoder_ll_gather, inputs, cuda, (16, 16))
+        run(k1.decoder_ll_gather, inputs, cuda, (16, 16))
+
+    return launch, lambda _: run(k1.decoder_ll_gather_plain, inputs, cuda,
+                                 (16, 16))
+
+
+def _gather_bwd_case(cuda):
+    g, args = bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)
+    _, num, den = k1.decoder_ll_gather(*args)
+
+    def launch():
+        k1.decoder_ll_gather_bwd(g, num, den, *args)
+        k1.decoder_ll_gather_bwd(g, num, den, *args, target_grad=False)
+
+    return launch, lambda _: k1.decoder_ll_gather_bwd_plain(g, num, den,
+                                                            *args)
+
+
+def _route_case(module, route, g, args):
+    """One forward and two backward launches of a route (``dense`` or
+    ``banded``), then its plain forward and backward."""
+    fwd, bwd = (getattr(module, f"decoder_ll_{route}_{half}")
+                for half in ("fwd", "bwd"))
+
+    def launch():
+        _, num, den = fwd(*args)
+        bwd(g, num, den, *args)
+        bwd(g, num, den, *args, target_grad=False)
+        return num, den
+
+    def plain(lse):
+        getattr(module, f"decoder_ll_{route}_plain")(*args)
+        getattr(module, f"decoder_ll_{route}_bwd_plain")(g, *lse, *args)
+
+    return launch, plain
+
+
+def _attention_case(cuda):
+    args = [x.to(cuda) for x in attention_inputs(2, 3, 4, 8, 8)]
+    return lambda: k6.attention(*args), lambda _: k6.attention_plain(*args)
+
+
+def _probes_case(cuda):
+    x = torch.ones(8, 128, device=cuda)
+
+    def launch():
+        kp.affine_probe(x)
+        kp.matmul_probe(x, x.t().contiguous())
+
+    return launch, lambda _: kp.affine_probe_plain(x)
+
+
+# per case: the kernels counted, (launch, plain) for the card, and the
+# launches counted after the launch, which the plain versions leave as
+# they are
+LAUNCH_CASES = {
+    "K1": (("K1",), _gather_fwd_case, (2,)),
+    "K2+K3": (("K2+K3",), _gather_bwd_case, (2,)),
+    "K4f+K4b": (("K4f", "K4b"), lambda cuda: _route_case(
+        k4, "dense", *bwd_args(make_inputs((2, 8, 1, 5, 5, 16, 16)), cuda)),
+        (1, 2)),
+    "K5f+K5b": (("K5f", "K5b"), lambda cuda: _route_case(
+        k5, "banded", *banded_args((2, 8, 1, 5, 5, 16, 16), 0.6, False,
+                                   None, cuda)), (1, 2)),
+    "K6": (("K6",), _attention_case, (1,)),
+    "P1+P2": (("P1", "P2"), _probes_case, (1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_CASES))
+def test_kernels_count_launches(cuda, case):
+    """A wrapper counts each launch of its kernel (``utils/trace.py``);
+    the plain versions count nothing."""
+    kernels, make, want = LAUNCH_CASES[case]
+    launch, plain = make(cuda)
+    counted = trace.Since()
+    out = launch()
+    assert counted.launches(*kernels) == want
+    plain(out)
+    assert counted.launches(*kernels) == want
+
+
+# per kernel: its module and the source its ``build_info`` takes (None:
+# the module builds one library)
+BUILDS = {"K1": (k1, k1.SOURCE), "K2+K3": (k1, k1.BWD_SOURCE),
+          "K4f": (k4, k4.SOURCE), "K4b": (k4, k4.BWD_SOURCE),
+          "K5f": (k5, k5.SOURCE), "K5b": (k5, k5.BWD_SOURCE),
+          "K6": (k6, None), "P1+P2": (kp, None)}
+
+
+@pytest.mark.parametrize("kernel", sorted(BUILDS))
+def test_kernel_build_reports_registers(cuda, kernel):
+    module, source = BUILDS[kernel]
+    info = module.build_info() if source is None else \
+        module.build_info(source)
     assert info.path.endswith(".so")
     assert "registers" in info.log or info.cached
 
@@ -1017,9 +1038,7 @@ def test_trainer_cli_runs_through_kernels(cuda, tmp_path, monkeypatch):
             "model.ocae_encoder_set_transformer_params.dim_out=16",
             "model.ocae_decoder_capsule_params.dim_caps=8",
             "model.ocae_decoder_capsule_params.hidden_sizes=[16]"]
-    k1.launches = k1.bwd_launches = 0
-    k4.launches = k4.bwd_launches = k5.launches = k5.bwd_launches = 0
-    k6.launches = 0
+    counted = trace.Since()
     from scae_tpu_torch.parallel.graphs import WARMUP_STEPS
 
     run = {}
@@ -1029,10 +1048,10 @@ def test_trainer_cli_runs_through_kernels(cuda, tmp_path, monkeypatch):
     assert run["state"].step == 4
     assert ran == dict(dict.fromkeys(KERNEL_NAMES, 0), K1=4 + 1,
                        **{"K2+K3": 4})
-    assert (k1.launches, k1.bwd_launches) == (WARMUP_STEPS + 1 + 1,
-                                              WARMUP_STEPS + 1)
-    assert (k4.launches, k4.bwd_launches, k5.launches, k5.bwd_launches,
-            k6.launches) == (0, 0, 0, 0, 0)
+    assert counted.launches("K1", "K2+K3") == (WARMUP_STEPS + 1 + 1,
+                                               WARMUP_STEPS + 1)
+    assert counted.launches("K4f", "K4b", "K5f", "K5b", "K6") == \
+        (0, 0, 0, 0, 0)
     metrics = cli.main(argv + ["mode=test"])
     assert np.isfinite(metrics["test_loss"])
     assert any(k.startswith("test_class") for k in metrics)
@@ -1070,15 +1089,11 @@ def deterministic(cuda):
     torch.backends.cudnn.deterministic = before
 
 
-def graph_counts():
-    return {"K1": k1.launches, "K2+K3": k1.bwd_launches, "K4f": k4.launches,
-            "K4b": k4.bwd_launches, "K5f": k5.launches,
-            "K5b": k5.bwd_launches, "K6": k6.launches}
-
-
-def zero_graph_counts():
-    k1.launches = k1.bwd_launches = k4.launches = k4.bwd_launches = 0
-    k5.launches = k5.bwd_launches = k6.launches = 0
+def graph_counts(counted):
+    """The likelihood and attention kernels' launches since ``counted``
+    (a ``trace.Since``)."""
+    names = ("K1", "K2+K3", "K4f", "K4b", "K5f", "K5b", "K6")
+    return dict(zip(names, counted.launches(*names)))
 
 
 # the kernels' names in the profiler's records
@@ -1177,11 +1192,11 @@ def test_graph_scan_equals_eager_steps(deterministic, path):
     scan(graph, data, idxs[:w])
     eager_rows(eager, data, idxs[:w], augment, cuda)
     per_step = GRAPH_PATHS[path][2]
-    zero_graph_counts()
+    counted = trace.Since()
     _, got = scan(graph, data, idxs[w:w + 4])
     torch.cuda.synchronize()
-    assert graph_counts() == {k: per_step.get(k, 0)
-                              for k in graph_counts()}
+    assert graph_counts(counted) == {k: per_step.get(k, 0)
+                                     for k in graph_counts(counted)}
     want = eager_rows(eager, data, idxs[w:w + 4], augment, cuda)
     assert graph.step == eager.step == w + 4
     assert all(v.shape == (4,) for v in got.values())
@@ -1308,7 +1323,7 @@ def test_graph_scans_count_launches_per_replay(cuda):
     torch.cuda.synchronize()
     none = dict.fromkeys(KERNEL_NAMES, 0)
     for chunk in (idxs[2:6], idxs[6:11]):
-        zero_graph_counts()
+        counted = trace.Since()
         ran = kernel_records(lambda: scan(state, data, chunk),
                              dict(none, K1=len(chunk), **{
                                  "K2+K3": len(chunk)}))
@@ -1317,7 +1332,7 @@ def test_graph_scans_count_launches_per_replay(cuda):
         ran = kernel_records(lambda: got.update(eval_scan(data, chunk)),
                              dict(none, K1=len(chunk)))
         assert ran == dict(none, K1=len(chunk))
-        assert graph_counts() == none
+        assert graph_counts(counted) == none
         for j, idx in enumerate(chunk):
             with cudnn_search():     # as the eval scan's capture
                 want = eval_step(data, idx)
@@ -1494,20 +1509,22 @@ def test_serving_graph_equals_eager_call(deterministic, tmp_path, flag,
 
     _, surfaces = serving_surfaces(deterministic, tmp_path, flag)
     call = surfaces[surface]
+    captured = trace.Since()
     for b in (8, 5):
         x = serving_input(deterministic, b, seed=b)
-        zero_graph_counts()
+        counted = trace.Since()
         got = call(x)
-        assert k6.launches == (4 * (WARMUP_STEPS + 1) if flag else 0)
-        zero_graph_counts()
+        assert counted.launches("K6") == (4 * (WARMUP_STEPS + 1) if flag
+                                          else 0,)
+        counted = trace.Since()
         again = call(x)
-        assert k6.launches == 0
+        assert counted.launches("K6") == (0,)
         want = call.eager(x)
         assert sorted(got) == sorted(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
             assert torch.equal(again[k], want[k]), k
-    assert call.graphs.captures == 2
+    assert captured["graphs.captures"] == 2
     ran = kernel_records(lambda: call(x), {"K6": 4 if flag else 0})
     assert ran["K6"] == (4 if flag else 0)
 
@@ -1519,19 +1536,20 @@ def test_serving_graph_captures_again_for_replaced_tensors(deterministic,
     model, surfaces = serving_surfaces(deterministic, tmp_path, False)
     infer = surfaces["live"]
     x = serving_input(deterministic, 8)
+    captured = trace.Since()
     before = infer(x)
     weight = model.prior_classifier.weight
     with torch.no_grad():
         weight.mul_(2.0)
     in_place = infer(x)
-    assert infer.graphs.captures == 1
+    assert captured["graphs.captures"] == 1
     assert not torch.equal(in_place["prior_cls_prob"],
                            before["prior_cls_prob"])
     assert torch.equal(in_place["prior_cls_prob"],
                        infer.eager(x)["prior_cls_prob"])
     model.prior_classifier.weight = torch.nn.Parameter(weight.detach() / 2)
     replaced = infer(x)
-    assert infer.graphs.captures == 2
+    assert captured["graphs.captures"] == 2
     for k in before:
         assert torch.equal(replaced[k], before[k]), k
 
@@ -1566,7 +1584,6 @@ def test_serving_replay_span_reads_the_replays_stream_time(cuda):
     closed loop's call finds it, in the same profiled window."""
     from scae_tpu_torch import serve
     from scae_tpu_torch.factory import make_scae
-    from scae_tpu_torch.utils import trace
 
     model = make_scae(dict(GRAPH_MODEL, pcae_decoder_params=dict(
         fused_impl="xla")), device=cuda, seed=0)
@@ -1605,7 +1622,6 @@ def test_scan_spans_count_the_rows_and_time_the_stream(cuda):
     captures add to ``scan.capture_s``."""
     from scae_tpu_torch.parallel import train_step as ts
     from scae_tpu_torch.train.loop import make_augment_fn
-    from scae_tpu_torch.utils import trace
 
     data, idxs = graph_data(cuda)
     state = graph_state(cuda, "gather")
@@ -1641,7 +1657,6 @@ def test_captures_under_a_recording_profiler(deterministic):
     from scae_tpu_torch import serve
     from scae_tpu_torch.parallel import train_step as ts
     from scae_tpu_torch.train.loop import make_augment_fn
-    from scae_tpu_torch.utils import trace
 
     cuda = deterministic
     augment = make_augment_fn(canvas=24, max_shift=2)
@@ -1659,7 +1674,7 @@ def test_captures_under_a_recording_profiler(deterministic):
     assert found["scan.train"]["items"] == 4
     assert found["scan.replay"]["calls"] == 4 - ts.WARMUP_STEPS
     assert found["graphs.capture"]["calls"] == 1
-    assert infer.graphs.captures == 1
+    assert trace.counters()["graphs.captures"] == 1
     assert trace.counters()["graphs.capture_s"] > 0
     want_served = infer.eager(x)
     for k in want_served:

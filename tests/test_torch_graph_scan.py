@@ -38,13 +38,13 @@ from scae_tpu import optim as j_optim
 from scae_tpu_torch import optim as t_optim
 from scae_tpu_torch.config import load_config
 from scae_tpu_torch.factory import make_scae
-from scae_tpu_torch.kernels import decoder_ll_gather as k1
 from scae_tpu_torch.ops.geometry import affine_to_matrix
 from scae_tpu_torch.ops.math_ops import as_scalar
 from scae_tpu_torch.parallel import graphs
 from scae_tpu_torch.parallel import train_step as ts
 from scae_tpu_torch.train import loop
 from scae_tpu_torch.train.data import draw_translation
+from scae_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 SHAPES = [(3, 4), (5,), ()]
@@ -361,23 +361,22 @@ def test_step_graph_counts_launches_only_at_capture(fake_capture,
     """A wrapper counts where it launches: once when the capture calls it
     (into the graph); a replay calls no wrapper and adds no count. The
     generators are registered and the pool is passed on."""
-    monkeypatch.setattr(k1, "launches", 10)
-    monkeypatch.setattr(k1, "bwd_launches", 20)
+    counted = trace.Since()
 
     def step():  # what the wrappers of a gather train step add
-        k1.launches += 1
-        k1.bwd_launches += 1
+        trace.count(trace.LAUNCHES + "K1")
+        trace.count(trace.LAUNCHES + "K2+K3")
         return torch.zeros(3)
 
     gen, pool = torch.Generator(), object()
     graph = graphs.StepGraph(step, [gen], pool)
-    assert (k1.launches, k1.bwd_launches) == (11, 21)
+    assert counted.launches("K1", "K2+K3") == (1, 1)
     assert graph.graph.generators == [gen]
     assert fake_capture["pools"] == [pool]
     for _ in range(3):
         out = graph.replay()
     assert out is graph.out and graph.graph.replays == 3
-    assert (k1.launches, k1.bwd_launches) == (11, 21)
+    assert counted.launches("K1", "K2+K3") == (1, 1)
 
     def failing():
         raise RuntimeError("capture failed")

@@ -68,6 +68,36 @@ def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
     assert f"imported {len(modules)}" in out.stdout
 
 
+def test_calling_the_ops_imports_no_dynamo():
+    """The ops that exported programs call by name, called once on CPU
+    tensors, import no ``torch._dynamo`` that ``import
+    scae_tpu_torch.kernels`` had not loaded: a ``torch.library.custom_op``
+    would import it at its first call, seconds of every process's
+    set-up."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        import scae_tpu_torch.kernels
+        from scae_tpu_torch.kernels import attention, capsule_votes
+        loaded = "torch._dynamo" in sys.modules
+        B, N, M, O, V = 2, 3, 5, 3, 4
+        attention.attention(torch.randn(B, N, 4), torch.randn(B, M, 4),
+                            torch.randn(B, M, 6), torch.rand(B, M))
+        capsule_votes.capsule_votes(
+            torch.randn(B, O, 8 * V + 7), torch.randn(1, O, V, 6),
+            torch.randn(1, O, 1, 6), torch.randn(1, O, 1),
+            torch.randn(1, O, V), torch.randn(1, O, V), None, None, None,
+            False, True, True, None, 0.0)
+        print("dynamo", loaded, "torch._dynamo" in sys.modules)
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded, after = out.stdout.split()[-2:]
+    assert after == "False" or loaded == "True", out.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     """Where torch finds no CUDA device the smoke run exits non-zero and
     prints no result line."""

@@ -23,6 +23,7 @@ from jax.experimental import pallas as pl
 
 from scae_tpu_torch.kernels import probe as kp
 from scae_tpu_torch.tools import probe as probe_tool
+from scae_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 PROBE = os.path.join(os.path.dirname(os.path.dirname(
@@ -77,13 +78,13 @@ def test_probe_inputs_are_the_jax_probes():
 
 
 def test_entry_point_on_the_cpu(capsys):
-    kp.affine_launches = kp.matmul_launches = 0
+    counted = trace.Since()
     assert probe_tool.main(device="cpu") == 0
     out = capsys.readouterr().out
     assert "device: cpu" in out
     assert "probe ok: True" in out and "probe matmul ok: True" in out
     # the CPU runs the plain versions: no kernel is built or counted
-    assert (kp.affine_launches, kp.matmul_launches) == (0, 0)
+    assert counted.launches("P1", "P2") == (0, 0)
 
 
 def test_entry_point_reports_a_failed_check(monkeypatch, capsys):

@@ -254,13 +254,46 @@ def test_attention_op_passes_opcheck(shape):
     q, k, v = (torch.from_numpy(rng.randn(*s).astype(np.float32))
                for s in ((B, N, d_k), (B, M, d_k), (B, M, d_v)))
     presence = torch.from_numpy(rng.rand(B, M).astype(np.float32))
-    torch.library.opcheck(k6.attention_fwd, (q, k, v, presence))
+    torch.library.opcheck(torch.ops.scae_tpu_torch.attention_fwd.default,
+                          (q, k, v, presence))
     got = torch.ops.scae_tpu_torch.attention_fwd(q, k, v, presence)
     assert torch.equal(got, k6.attention_plain(q, k, v, presence))
     with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
         fake = torch.ops.scae_tpu_torch.attention_fwd(
             *(mode.from_tensor(t) for t in (q, k, v, presence)))
     assert fake.shape == (B, N, d_v) and fake.dtype == torch.float32
+
+
+# the ops' schemas as exported programs record them: an artifact names its
+# ops and their arguments, so another schema would not load it
+OP_SCHEMAS = {
+    "attention_fwd": "scae_tpu_torch::attention_fwd(Tensor queries, Tensor "
+                     "keys, Tensor values, Tensor presence) -> Tensor",
+    "capsule_votes_fwd": (
+        "scae_tpu_torch::capsule_votes_fwd(Tensor all_param, Tensor "
+        "cpr_static, Tensor caps_bias_0, Tensor caps_bias_1, Tensor "
+        "caps_bias_2, Tensor caps_bias_3, Tensor? caps_exist, Tensor? "
+        "noise_caps, Tensor? noise_vote, bool similarity_transform, bool "
+        "allow_deformations, bool learn_vote_scale, str? noise_type, float "
+        "noise_scale) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)"),
+    "capsule_votes_bwd": (
+        "scae_tpu_torch::capsule_votes_bwd(Tensor all_param, Tensor "
+        "cpr_static, Tensor caps_bias_0, Tensor caps_bias_1, Tensor "
+        "caps_bias_2, Tensor caps_bias_3, Tensor? caps_exist, Tensor? "
+        "noise_caps, Tensor? noise_vote, Tensor? g_vote, Tensor? g_scale, "
+        "Tensor? g_vote_presence, Tensor? g_presence_logit_per_caps, "
+        "Tensor? g_presence_logit_per_vote, Tensor? g_cpr_dynamic_reg_loss, "
+        "bool similarity_transform, bool allow_deformations, bool "
+        "learn_vote_scale, str? noise_type, float noise_scale) -> Tensor[]"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OP_SCHEMAS))
+def test_op_schema_is_pinned(name):
+    """Each op that an exported program calls by name keeps its schema, so
+    that artifacts exported earlier still load."""
+    op = getattr(torch.ops.scae_tpu_torch, name).default
+    assert str(op._schema) == OP_SCHEMAS[name]
 
 
 def test_attention_flag_exports_the_op(models, tmp_path):

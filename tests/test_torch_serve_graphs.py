@@ -97,6 +97,7 @@ def test_one_capture_per_shape_in_one_pool(eager_graphs):
         calls.append(tuple(x.shape))
         return fn(x)
 
+    captured = trace.Since()
     g = graphs.CallGraphs(counted, model, torch.device("cpu"))
     with torch.inference_mode():
         for b in (4, 3, 4, 3, 4):
@@ -104,7 +105,7 @@ def test_one_capture_per_shape_in_one_pool(eager_graphs):
     # per shape: the warm-up calls and the capture, then one call a replay
     per = graphs.WARMUP_STEPS + 1
     assert calls[:per] == [(4, 1, 24, 24)] * per
-    assert g.captures == 2 and len(eager_graphs) == 2
+    assert captured["graphs.captures"] == 2 and len(eager_graphs) == 2
     assert sorted(g.graphs) == [((3, 1, 24, 24), torch.float32),
                                 ((4, 1, 24, 24), torch.float32)]
     assert len({id(e.pool) for e in eager_graphs}) == 1
@@ -112,12 +113,13 @@ def test_one_capture_per_shape_in_one_pool(eager_graphs):
 
 
 def test_the_input_dtype_is_part_of_the_key(eager_graphs):
+    captured = trace.Since()
     g = graphs.CallGraphs(lambda x: {"y": x * 2}, None, torch.device("cpu"))
     x = torch.arange(4.0)
     assert_same(g(x), {"y": x * 2})
     assert_same(g(x.double()), {"y": x.double() * 2})
     assert_same(g(x + 1), {"y": (x + 1) * 2})
-    assert g.captures == 2
+    assert captured["graphs.captures"] == 2
 
 
 def test_calls_return_fresh_tensors(eager_graphs):
@@ -139,6 +141,7 @@ def test_a_replaced_tensor_captures_anew(eager_graphs):
     """A parameter written in place keeps the graphs; one replaced by a new
     tensor drops them all (and their pool) and captures again."""
     model = small_model()
+    captured = trace.Since()
     g = graphs.CallGraphs(forward(model), model,
                           torch.device("cpu"))
     x = images(4)
@@ -149,14 +152,14 @@ def test_a_replaced_tensor_captures_anew(eager_graphs):
         model.prior_classifier.weight.mul_(2.0)
     with torch.inference_mode():
         in_place = g(x)
-    assert g.captures == 2
+    assert captured["graphs.captures"] == 2
     assert_same(in_place, forward(model)(x))
     model.prior_classifier.weight = torch.nn.Parameter(
         model.prior_classifier.weight.detach() / 2)
     with torch.inference_mode():
         again = g(x)
-    assert g.captures == 3 and list(g.graphs) == [((4, 1, 24, 24),
-                                                   torch.float32)]
+    assert captured["graphs.captures"] == 3
+    assert list(g.graphs) == [((4, 1, 24, 24), torch.float32)]
     assert eager_graphs[2].pool is not eager_graphs[0].pool
     assert_same(again, forward(model)(x))
 
@@ -237,6 +240,7 @@ def test_each_replaced_slot_recaptures_once(eager_graphs, replace, kind):
     walk, one recapture, and the calls return the module's outputs as it
     now stands."""
     module = reads(kind)
+    captured = trace.Since()
     g = graphs.CallGraphs(module, module, torch.device("cpu"))
     x = torch.rand(3, 4)
     with torch.inference_mode():
@@ -247,7 +251,7 @@ def test_each_replaced_slot_recaptures_once(eager_graphs, replace, kind):
     with torch.inference_mode():
         got = [g(x), g(x)]
         want = module(x)
-    assert g.captures == 2 and len(eager_graphs) == 2
+    assert captured["graphs.captures"] == 2 and len(eager_graphs) == 2
     assert counted("graphs.rekeys") == rekeys + 1
     assert counted("graphs.recaptures") == recaptures + 1
     for out in got:
@@ -257,6 +261,7 @@ def test_each_replaced_slot_recaptures_once(eager_graphs, replace, kind):
 @pytest.mark.parametrize("write", ["mul_", "load_state_dict"])
 def test_an_in_place_write_keeps_the_graphs(eager_graphs, write):
     model = small_model()
+    captured = trace.Since()
     g = graphs.CallGraphs(forward(model), model, torch.device("cpu"))
     x = images(4)
     with torch.inference_mode():
@@ -271,7 +276,7 @@ def test_an_in_place_write_keeps_the_graphs(eager_graphs, write):
     with torch.inference_mode():
         got = g(x)
         want = forward(model)(x)
-    assert g.captures == 1
+    assert captured["graphs.captures"] == 1
     assert counted("graphs.rekeys") == rekeys
     assert counted("graphs.recaptures") == recaptures
     assert_same(got, want)
@@ -284,6 +289,7 @@ def test_calls_that_change_nothing_walk_the_model_once(eager_graphs,
     monkeypatch.setattr(graphs, "module_tensors",
                         lambda m: walks.append(m) or module_tensors(m))
     model = small_model()
+    captured = trace.Since()
     g = graphs.CallGraphs(forward(model), model, torch.device("cpu"))
     rekeys = counted("graphs.rekeys")
     with torch.inference_mode():
@@ -291,7 +297,7 @@ def test_calls_that_change_nothing_walk_the_model_once(eager_graphs,
             g(images(b, seed=b))
     assert walks == [model]
     assert counted("graphs.rekeys") == rekeys + 1
-    assert g.captures == 2
+    assert captured["graphs.captures"] == 2
 
 
 @pytest.fixture(scope="module")
@@ -311,13 +317,14 @@ def test_a_loaded_artifact_recaptures_for_a_replaced_tensor(
     returns the replaced program's outputs."""
     monkeypatch.setattr(serve, "_graphed", lambda fn, module, device,
                         mesh=None: graphs.CallGraphs(fn, module, device))
+    captured = trace.Since()
     served = serve.load_serving(artifact)
     assert served.graphs.module is served._call
     x = images(4)
     with torch.inference_mode():
         served(x)
         served(x)
-    assert served.graphs.captures == 1
+    assert captured["graphs.captures"] == 1
     name, param = next(iter(served._call.named_parameters()))
     owner, _, leaf = name.rpartition(".")
     setattr(served._call.get_submodule(owner), leaf,
@@ -325,7 +332,7 @@ def test_a_loaded_artifact_recaptures_for_a_replaced_tensor(
     recaptures = counted("graphs.recaptures")
     with torch.inference_mode():
         got = served(x)
-    assert served.graphs.captures == 2
+    assert captured["graphs.captures"] == 2
     assert counted("graphs.recaptures") == recaptures + 1
     assert_same(got, served.eager(x))
 
