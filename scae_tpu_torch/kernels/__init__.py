@@ -6,8 +6,13 @@ CUDA stream through ``_common.launch``, which counts the launch
 the plain PyTorch version of the same function, kept in the same module.
 ``_common.py`` says how a kernel meets PyTorch. Importing this package
 registers every op an exported program may call by name
-(``scae_tpu_torch::attention_fwd``, ``capsule_votes_fwd`` and
-``capsule_votes_bwd``); it builds nothing.
+(``scae_tpu_torch::attention_fwd``, ``capsule_votes_fwd``,
+``capsule_votes_bwd``, ``capsule_likelihood_fwd`` and
+``capsule_likelihood_bwd``); it builds nothing.
 """
 
-from scae_tpu_torch.kernels import attention, capsule_votes  # noqa: F401
+from scae_tpu_torch.kernels import (  # noqa: F401
+    attention,
+    capsule_likelihood,
+    capsule_votes,
+)

@@ -3,10 +3,10 @@ and launch helpers the kernel wrappers share.
 
 A kernel meets PyTorch one of two ways:
 
-  * an op that an exported program calls by name (K6, V1f, V1b) is defined
-    with ``define_op`` in the package's one ``torch.library`` fragment
-    (``LIB``), with its CUDA launch, its plain version for CPU tensors, its
-    fake and, where it has one, its backward;
+  * an op that an exported program calls by name (K6, V1f, V1b, L1f, L1b)
+    is defined with ``define_op`` in the package's one ``torch.library``
+    fragment (``LIB``), with its CUDA launch, its plain version for CPU
+    tensors, its fake and, where it has one, its backward;
   * every other kernel is called by its wrapper, and the three
     decoder-likelihood routes (gather K1 / K2+K3, dense K4f / K4b, banded
     K5f / K5b) take autograd through the one ``DecoderLLFunction``.

@@ -13,7 +13,10 @@ a given parent transform or presence takes the plain version.
 When not deterministic, capsule dropout and presence-logit noise draw from
 an explicit ``torch.Generator``; the eval and serving path is
 deterministic. capsule_likelihood: Gaussian vote pdf, dummy component at
-log(0.01), posterior mixing, hard winner by argmax + gather, soft winner.
+log(0.01), posterior mixing, hard winner by argmax + gather, soft winner;
+it is the custom op ``scae_tpu_torch::capsule_likelihood_fwd``
+(``kernels/capsule_likelihood.py``: the CUDA kernels L1f and L1b on the
+card, the plain version on the CPU).
 Sparsity losses: l2, entropy and kl.
 
 Under a mesh (``parallel/mesh.py``) the random draws are the global
@@ -29,6 +32,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from scae_tpu_torch.kernels import capsule_likelihood as capsule_likelihood_op
 from scae_tpu_torch.kernels import capsule_votes
 from scae_tpu_torch.models.layers import StackedMLP
 from scae_tpu_torch.models.results import (
@@ -36,16 +40,11 @@ from scae_tpu_torch.models.results import (
     CapsuleLikelihoodResult,
     ObjectDecoderResult,
 )
-from scae_tpu_torch.ops.gmm import normal_log_prob
 from scae_tpu_torch.ops.math_ops import (
     cross_entropy_safe,
-    log_safe,
     normalize,
 )
 from scae_tpu_torch.parallel import mesh
-
-_LOG_001 = math.log(0.01)  # dummy log-prob / mixing logit constant
-
 
 class CapsuleLayer(nn.Module):
     """Predicts per-object-capsule candidate part poses ("votes")."""
@@ -177,62 +176,16 @@ class CapsuleLayer(nn.Module):
 
 def capsule_likelihood(vote, scale, vote_presence, dummy_vote, x,
                        presence=None) -> CapsuleLikelihoodResult:
-    """Capsule mixture likelihood + winner routing.
+    """Capsule mixture likelihood + winner routing, through the op
+    ``scae_tpu_torch::capsule_likelihood_fwd`` (the kernels L1f and L1b on
+    the card, the plain version on the CPU).
 
     vote (B, O, M, P), scale (B, O, M), vote_presence (B, O, M),
     dummy_vote (1, 1, M, P), x (B, M, P) target part poses, presence
     (B, M) or None.
     """
-    B, n_points, dim_in = x.shape
-    vote_log_prob = torch.sum(
-        normal_log_prob(x[:, None], vote, scale[..., None]), dim=-1)
-    const = torch.full((B, 1, n_points), _LOG_001, dtype=x.dtype,
-                       device=x.device)
-    vote_log_prob = torch.cat([vote_log_prob, const], dim=1)   # (B, O+1, M)
-    mixing_logit = torch.cat([log_safe(vote_presence), const], dim=1)
-    mixing_log_prob = mixing_logit - torch.logsumexp(mixing_logit, dim=1,
-                                                     keepdim=True)
-    vote_presence_binary = (mixing_logit[:, :-1]
-                            > mixing_logit[:, -1:]).to(x.dtype)
-
-    posterior_logits = mixing_logit + vote_log_prob
-    mixture_log_prob_per_point = torch.logsumexp(posterior_logits, dim=1)
-    if presence is not None:
-        mixture_log_prob_per_point = mixture_log_prob_per_point * presence
-    log_prob = torch.mean(torch.sum(mixture_log_prob_per_point, dim=1))
-
-    # hard winner: argmax over the real capsules only
-    winning_idx = torch.argmax(posterior_logits[:, :-1], dim=1)  # (B, M)
-    winner = torch.gather(
-        vote, 1, winning_idx[:, None, :, None].expand(B, 1, n_points, dim_in)
-    ).squeeze(1)
-    winner_presence = torch.gather(vote_presence, 1,
-                                   winning_idx[:, None, :]).squeeze(1)
-    # the reference's quirk, kept as the JAX package keeps it; never read
-    is_from_capsule = torch.div(winning_idx, n_points, rounding_mode="floor")
-
-    posterior_mixing_prob = torch.softmax(posterior_logits, dim=1)
-    votes_full = torch.cat(
-        [vote, dummy_vote.expand(B, 1, n_points, dim_in)], dim=1)
-    vote_presence_full = torch.cat(
-        [vote_presence, torch.zeros_like(vote_presence[:, :1])], dim=1)
-    soft_winner = torch.sum(posterior_mixing_prob[..., None] * votes_full,
-                            dim=1)
-    soft_winner_presence = torch.sum(
-        posterior_mixing_prob * vote_presence_full, dim=1)
-
-    return CapsuleLikelihoodResult(
-        log_prob=log_prob,
-        vote_presence_binary=vote_presence_binary,
-        winner=winner,
-        winner_presence=winner_presence,
-        soft_winner=soft_winner,
-        soft_winner_presence=soft_winner_presence,
-        posterior_mixing_prob=posterior_mixing_prob[:, :-1],
-        mixing_log_prob=mixing_log_prob,
-        mixing_logit=mixing_logit,
-        is_from_capsule=is_from_capsule,
-    )
+    return CapsuleLikelihoodResult(*capsule_likelihood_op.capsule_likelihood(
+        vote, scale, vote_presence, dummy_vote, x, presence))
 
 
 class CapsuleObjectDecoder(nn.Module):

@@ -40,6 +40,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from scae_tpu_torch.kernels import capsule_likelihood as cl
 from scae_tpu_torch.kernels import capsule_votes as cv
 from scae_tpu_torch.models.object_decoder import CapsuleLayer
 from scae_tpu_torch.ops.geometry import (
@@ -563,7 +564,7 @@ def test_a_cpu_artifact_calls_the_op(tmp_path):
     serve.export_serving(model, image_shape=params["image_shape"],
                          batch_size=3, out_dir=str(tmp_path), device="cpu")
     served = serve.load_serving(str(tmp_path))
-    assert served.manifest["custom_ops"] == [cv.OP]
+    assert served.manifest["custom_ops"] == [cl.OP, cv.OP]
     calls = [n for n in served.program.graph.nodes
              if n.target is torch.ops.scae_tpu_torch.capsule_votes_fwd.default]
     assert len(calls) == 1
@@ -805,7 +806,7 @@ def test_captured_flagship_steps_and_serving_run_through_the_kernels(
     serve.export_serving(model, image_shape=(1, 40, 40), batch_size=8,
                          out_dir=str(tmp_path), device=cuda)
     served = serve.load_serving(str(tmp_path))
-    assert served.manifest["custom_ops"] == [cv.OP]
+    assert served.manifest["custom_ops"] == [cl.OP, cv.OP]
     got = served(x)
     ran = kernel_records(lambda: served(x), {"V1f": 1, "V1b": 0})
     assert ran == {"V1f": 1, "V1b": 0}

@@ -33,6 +33,7 @@ def test_port_imports_without_jax_flax_yaml_or_scae_tpu():
     for name in ("kernels.decoder_ll_gather", "kernels.decoder_ll_dense",
                  "kernels.decoder_ll_banded", "kernels.attention",
                  "kernels.probe", "kernels.capsule_votes",
+                 "kernels.capsule_likelihood",
                  "ops.decoder_ll", "ops.attention",
                  "config", "train.checkpoint", "train.metrics", "train.cli",
                  "tools.probe", "serve", "tools.export_model",
@@ -78,7 +79,8 @@ def test_calling_the_ops_imports_no_dynamo():
         import sys
         import torch
         import scae_tpu_torch.kernels
-        from scae_tpu_torch.kernels import attention, capsule_votes
+        from scae_tpu_torch.kernels import (
+            attention, capsule_likelihood, capsule_votes)
         loaded = "torch._dynamo" in sys.modules
         B, N, M, O, V = 2, 3, 5, 3, 4
         attention.attention(torch.randn(B, N, 4), torch.randn(B, M, 4),
@@ -88,6 +90,11 @@ def test_calling_the_ops_imports_no_dynamo():
             torch.randn(1, O, 1, 6), torch.randn(1, O, 1),
             torch.randn(1, O, V), torch.randn(1, O, V), None, None, None,
             False, True, True, None, 0.0)
+        vote = torch.randn(B, O, M, 6, requires_grad=True)
+        out = capsule_likelihood.capsule_likelihood(
+            vote, torch.rand(B, O, M) + 0.5, torch.rand(B, O, M),
+            torch.randn(1, 1, M, 6), torch.randn(B, M, 6), torch.rand(B, M))
+        out[0].backward()
         print("dynamo", loaded, "torch._dynamo" in sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

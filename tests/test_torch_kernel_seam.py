@@ -14,6 +14,7 @@ import torch
 
 from scae_tpu_torch.kernels import _build
 from scae_tpu_torch.kernels import attention as k6
+from scae_tpu_torch.kernels import capsule_likelihood as cl
 from scae_tpu_torch.kernels import capsule_votes as cv
 from scae_tpu_torch.kernels import decoder_ll_banded as k5
 from scae_tpu_torch.kernels import decoder_ll_dense as k4
@@ -87,6 +88,21 @@ def votes_bwd():
     return cv._launch_bwd(*args[:9], *outs, *args[9:])
 
 
+def capsule_likelihood_args(B=2, O=3, M=4):
+    rng = np.random.RandomState(2)
+    t = lambda *s: torch.from_numpy(rng.rand(*s).astype(np.float32))  # noqa
+    vote = t(B, O, M, 3, 3)[..., :-1, :].reshape(B, O, M, 6)
+    return vote, t(B, O, M) + 0.5, t(B, O, M), t(1, 1, M, 6), t(B, M, 6), \
+        t(B, M)
+
+
+def likelihood_bwd():
+    args = capsule_likelihood_args()
+    outs = cl._launch_fwd(*args)
+    grads = [torch.ones_like(outs[i]) for i in (0, 2, 3, 4, 5, 6, 7, 8)]
+    return cl._launch_bwd(*args, *grads, list(cl.INPUTS))
+
+
 # per kernel: its launcher's symbol and a call that launches it once
 CASES = {
     "K1": ("scae_decoder_ll_gather_fwd",
@@ -102,6 +118,9 @@ CASES = {
         torch.rand(2, 5))),
     "V1f": ("scae_capsule_votes_fwd", lambda: cv._launch_fwd(*votes_args())),
     "V1b": ("scae_capsule_votes_bwd", votes_bwd),
+    "L1f": ("scae_capsule_likelihood_fwd",
+            lambda: cl._launch_fwd(*capsule_likelihood_args())),
+    "L1b": ("scae_capsule_likelihood_bwd", likelihood_bwd),
     "P2": ("scae_probe_matmul", lambda: kp._matmul_launch(
         torch.rand(4, 8), torch.rand(8, 6), kp.matmul_plan(4, 8, 6))),
 }

@@ -48,6 +48,7 @@ from scae_tpu.factory import make_scae as j_make_scae
 from scae_tpu_torch import serve as t_serve
 from scae_tpu_torch.factory import make_scae as t_make_scae
 from scae_tpu_torch.kernels import attention as k6
+from scae_tpu_torch.kernels import capsule_likelihood as cl
 from scae_tpu_torch.kernels import capsule_votes as cv
 from scae_tpu_torch.optim import make_optimizer
 from scae_tpu_torch.parallel import mesh as t_mesh
@@ -158,7 +159,7 @@ def test_manifest_records_contract(exported_dir):
     assert m["outputs"] == sorted(m["outputs"])
     assert m["model_config"]["n_part_caps"] == 16
     assert served.input_shape == (BATCH, 1, 28, 28)
-    assert m["device"] == "cpu" and m["custom_ops"] == [cv.OP]
+    assert m["device"] == "cpu" and m["custom_ops"] == [cl.OP, cv.OP]
     assert m["polymorphic_batch"] is False and m["batch_axis"] is None
     assert m["with_reconstruction"] is True
     assert m["torch_version"] == torch.__version__
@@ -285,6 +286,19 @@ OP_SCHEMAS = {
         "Tensor? g_presence_logit_per_vote, Tensor? g_cpr_dynamic_reg_loss, "
         "bool similarity_transform, bool allow_deformations, bool "
         "learn_vote_scale, str? noise_type, float noise_scale) -> Tensor[]"),
+    "capsule_likelihood_fwd": (
+        "scae_tpu_torch::capsule_likelihood_fwd(Tensor vote, Tensor scale, "
+        "Tensor vote_presence, Tensor dummy_vote, Tensor x, Tensor? "
+        "presence) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, "
+        "Tensor, Tensor, Tensor, Tensor)"),
+    "capsule_likelihood_bwd": (
+        "scae_tpu_torch::capsule_likelihood_bwd(Tensor vote, Tensor scale, "
+        "Tensor vote_presence, Tensor dummy_vote, Tensor x, Tensor? "
+        "presence, Tensor? g_log_prob, Tensor? g_winner, Tensor? "
+        "g_winner_presence, Tensor? g_soft_winner, Tensor? "
+        "g_soft_winner_presence, Tensor? g_posterior_mixing_prob, Tensor? "
+        "g_mixing_log_prob, Tensor? g_mixing_logit, str[] wanted) -> "
+        "Tensor[]"),
 }
 
 
@@ -305,7 +319,7 @@ def test_attention_flag_exports_the_op(models, tmp_path):
                            batch_size=None, out_dir=str(tmp_path),
                            device="cpu", polymorphic_batch=True)
     served = t_serve.load_serving(str(tmp_path))
-    assert served.manifest["custom_ops"] == [k6.OP, cv.OP]
+    assert served.manifest["custom_ops"] == [k6.OP, cl.OP, cv.OP]
     calls = [n for n in served.program.graph.nodes
              if n.target is torch.ops.scae_tpu_torch.attention_fwd.default]
     assert len(calls) == 4          # three set-attention blocks, the final
