@@ -121,13 +121,125 @@ def shift(t):
 def test_a_step_that_leaves_the_state_unchanged_is_caught():
     checks, _ = tiny.run("train", fault=state_unchanged)
     assert not harness.is_correct(checks), checks
-    assert dict((n, v) for n, v, _ in checks)["change_gap"] == 1.0
+    got = dict((n, v) for n, v, _ in checks)
+    assert got["change_gap"] == 1.0 and got["state_gap"] == 1.0
 
 
 def test_half_the_batch_left_out_is_caught(monkeypatch):
     checks, _ = tiny.run("train",
                          fault=lambda job: half_batch(job, monkeypatch))
     assert not harness.is_correct(checks), checks
+
+
+def on_update(job, change):
+    """Calls ``change(call, opt, grads)`` at each of the optimizer's
+    updates (call 1 is the first checked step) before the update runs; a
+    list it returns replaces the gradients."""
+    opt = job.state.optimizer
+    real, calls = opt._updates, []
+
+    def updates(grads, branch, numbers):
+        calls.append(None)
+        grads = change(len(calls), opt, grads) or grads
+        return real(grads, branch, numbers)
+
+    opt._updates = updates
+
+
+def dropped(job):
+    def change(call, opt, grads):
+        if call == 2:
+            torch._foreach_zero_(opt.nu)
+            torch._foreach_zero_(opt.trace)
+    on_update(job, change)
+
+
+def stale(job):
+    kept = {}
+
+    def change(call, opt, grads):
+        if call == 2:
+            kept["state"] = [t.clone() for t in opt.nu + opt.trace]
+        if call == 3:
+            torch._foreach_copy_(opt.nu + opt.trace, kept["state"])
+    on_update(job, change)
+
+
+def on_updates(job, change):
+    """The optimizer's updates go through ``change(updates, index)``,
+    ``index`` being the position of a set transformer's weight
+    (48 x 16 in the tiny cell)."""
+    opt = job.state.optimizer
+    real = opt._updates
+    names = [n for n, _ in job.model.named_parameters()]
+    index = names.index("obj_encoder.sab_1.mab.mqkv.qkv_projector.weight")
+
+    def updates(grads, branch, numbers):
+        return change(list(real(grads, branch, numbers)), index)
+
+    opt._updates = updates
+
+
+def sign_flipped(job):
+    on_updates(job, lambda upd, index: [-u for u in upd])
+
+
+def transposed(job):
+    """One leaf's update written as its transpose would lie in memory."""
+    def change(upd, index):
+        upd[index] = upd[index].t().reshape(upd[index].shape)
+        return upd
+    on_updates(job, change)
+
+
+@pytest.mark.parametrize("fault", [sign_flipped, transposed])
+def test_an_update_of_the_wrong_sign_or_layout_is_caught(fault):
+    """Every norm that the other numbers compare stays as it is under
+    such a fault, in the first step at least; the state does not."""
+    checks, run = tiny.run("train", fault=fault)
+    assert not harness.is_correct(checks), checks
+    got = dict((n, v) for n, v, _ in checks)
+    assert got["state_gap"] > 10 * run.limits["state_gap"], checks
+
+
+def moved_start(job):
+    with torch.no_grad():
+        next(job.model.parameters()).view(-1)[0] += 1e-6
+
+
+@pytest.mark.parametrize("fault", [dropped, stale])
+def test_optimizer_state_not_carried_between_checked_steps_is_caught(
+        fault):
+    checks, _ = tiny.run("train", fault=fault)
+    assert not harness.is_correct(checks), checks
+
+
+def test_a_start_off_the_seeds_weights_is_caught():
+    checks, _ = tiny.run("train", fault=moved_start)
+    assert not harness.is_correct(checks), checks
+    assert dict((n, v) for n, v, _ in checks)["start_gap"] > 0
+
+
+def test_a_rounding_change_to_the_first_gradient_fails_no_later_number():
+    jobs = []
+
+    def keep(job):
+        jobs.append(job)
+
+    def scaled(job):
+        keep(job)
+        on_update(job, lambda call, opt, grads: [g * (1 + 1e-6)
+                                                 for g in grads]
+                  if call == 1 else None)
+
+    sound, _ = tiny.run("train", fault=keep)
+    checks, _ = tiny.run("train", fault=scaled)
+    assert harness.is_correct(checks), checks
+    a, b = (j.program["states"][1]["params"] for j in jobs)
+    assert any(not torch.equal(a[n], b[n]) for n in a)
+    # every later number reads as the sound run's, to rounding
+    for (n, v, lim), (_, w, _) in zip(checks, sound):
+        assert v <= lim and abs(v - w) <= 0.1 * lim, (n, v, w)
 
 
 @pytest.mark.parametrize("which", ["online", "bulk"])

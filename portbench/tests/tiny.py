@@ -21,8 +21,9 @@ MODEL = dict(image_shape=[1, 24, 24], n_classes=10, n_part_caps=8,
 TRAFFIC = {
     "train": (dict(kind="train_job", batch_size=16, log_every_steps=4,
                    checked_steps=3),
-              dict(loss_gap=1e-3, grad_gap=2e-4, replay_grad_gap=2e-4,
-                   change_gap=4e-3, eval_gap=5e-5)),
+              dict(start_gap=0.0, loss_gap=1e-3, grad_gap=2e-4,
+                   replay_grad_gap=2e-4, change_gap=4e-3, state_gap=1e-2,
+                   eval_gap=5e-5)),
     "online": (dict(kind="serve_open_loop", sizes=[1, 8], shares=[0.75, 0.25],
                     profile_seconds=0.5, sample=5, rate_per_s=40),
                dict(out_gap=5e-6)),

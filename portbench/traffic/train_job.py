@@ -14,15 +14,28 @@ Set-up builds one training state (the model with the run's weights, the
 optimizer), and drives it from the seed through the job's first steps
 with the window's own scan and data, one scan call a step for
 ``checked_steps`` steps: the first runs eagerly (the scan's warm-up), the
-others replay the graph that the window replays. RMSprop's nu after each
-of the first two steps and the parameters after the last are kept, so
-the gradients of the eager step and of the first replay are both read
-as the optimizer got them: g^2 = (nu_after - decay nu_before) /
-(1 - decay). Then the eval scan at those parameters (its losses are
-kept), then the rest of the first chunk. The window takes the same state
-on from there.
-The reference then follows the checked steps from the same weights and
-rows (``reference/train.py``), and ``compare.train`` decides.
+others replay the graph that the window replays. Before each of them and
+after the last, the program's state is copied to the host: the
+parameters and the optimizer's (its step count, RMSprop's nu and the
+momentum trace). Then the eval scan at the last parameters (its losses
+are kept), then the rest of the first chunk. The window takes the same
+state on from there.
+
+The check follows the program one step at a time from its own state
+(``follow``): each checked step k is taken by the reference from the
+program's state k, with the same rows and seeds, and held to the
+program's state k + 1: the loss, the gradient as the optimizer got it
+(g^2 = (nu_after - decay nu_before) / (1 - decay)), the parameters'
+change, and the state itself, element by element (the parameters, nu
+and the trace), which the norms alone cannot hold: an update of the
+wrong sign, or written to the wrong elements of a leaf, keeps every
+norm. The evals are the reference's at the program's last parameters.
+The start, the program's state 0, is held to the seed's weights and a
+fresh optimizer exactly. A whole trajectory of the reference beside the
+program's would compare two runs that rounding has pulled apart since
+step 0: RMSprop's eps of 1e-2/B^2 turns a gradient's rounding into a full
+step, and cuDNN's choice of algorithms, made once a process, sets the
+rounding. ``compare.train`` decides.
 
 Parameters: batch_size, log_every_steps, checked_steps.
 """
@@ -95,26 +108,33 @@ class Job:
             run.fault(self)
 
         rows = self.rows(0)
-        losses, nus = [], []
+        self.names = [n for n, _ in self.model.named_parameters()]
+        losses, states = [], []
         with run.phase("train_captures"):
             for step in range(self.checked):
+                states.append(self.snapshot())
                 _, m = self.scan(self.state, self.data["train"],
                                  rows[step:step + 1])
                 losses.append(m["loss"])
-                if step < 2:
-                    nus.append([t.detach().clone() for t in optimizer.nu])
-            params = [p.detach().clone() for p in self.model.parameters()]
+            states.append(self.snapshot())
         with run.phase("eval_capture"):
             ev = self.eval_scan(self.data["val"], self.val_idx)
-        self.program = {
-            "losses": torch.cat(losses).tolist(),
-            "nus": nus, "params": params,
-            "names": [n for n, _ in self.model.named_parameters()],
-            "eval_losses": ev["loss"].tolist(),
-        }
+        self.program = {"losses": torch.cat(losses).tolist(),
+                        "states": states,
+                        "eval_losses": ev["loss"].tolist()}
         _, m = self.scan(self.state, self.data["train"],
                          rows[self.checked:self.log_every])
         loop._finish_read(loop._start_read(m))
+
+    def snapshot(self):
+        """The program's training state on the host, by leaf name: the
+        parameters, and the optimizer's step count, nu and trace."""
+        opt = self.state.optimizer.state_dict()
+        return {"params": {n: p.detach().to("cpu", copy=True) for n, p in
+                           zip(self.names, self.model.parameters())},
+                "count": opt["count"],
+                "nu": dict(zip(self.names, opt["nu"])),
+                "trace": dict(zip(self.names, opt["trace"]))}
 
     def rows(self, epoch):
         return data_lib.epoch_rows(self.run.seed, epoch,
@@ -216,72 +236,141 @@ class Job:
         if self.run.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    def program_readings(self):
-        """The program's numbers from what set-up kept: the losses, the
-        first two steps' gradient norms (from RMSprop's nu before and
-        after each), the change norms after the checked steps, the eval
-        losses."""
-        p = self.program
-        w0 = self.initial_weights()
-        nus = [[torch.zeros_like(t) for t in p["nus"][0]], *p["nus"]]
-        return {
-            "losses": p["losses"],
-            "grad_norms": [{n: grad_norm(before, after)
-                            for n, before, after in zip(p["names"], *pair)}
-                           for pair in zip(nus, nus[1:])],
-            "change_norms": {n: float((q - w0[n]).double().norm())
-                             for n, q in zip(p["names"], p["params"])},
-            "eval_losses": p["eval_losses"],
-        }
-
     def initial_weights(self):
         return weights.draw_for(self.run.config["model"], self.run.seed,
                                 self.run.device)
 
-    def reference_readings(self, half_batch=False, tf32=False):
-        """The reference's numbers over the same weights, rows and seeds
-        (``half_batch``, ``tf32``: the fault and the control that the
-        comparison must catch, the reference put in the program's place;
-        the half batch holds in the evals too)."""
-        run, cfg = self.run, self.run.config
-        model = Model(cfg["model"]).to(run.device)
-        w0 = self.initial_weights()
-        model.load_state_dict(w0)
-        names = [n for n, _ in model.named_parameters()]
+    def readings(self, record):
+        """The numbers of a record of the checked steps (the program's, or
+        the half-batch stand-in's): the start's largest departure from
+        the seed's weights and a fresh optimizer; the losses; each step's
+        gradient norms as the optimizer got them (from nu before and
+        after) and the parameters' change norms, by leaf; the eval
+        losses."""
+        states = record["states"]
+        first, w0 = states[0], self.initial_weights()
+        start = max([float((p - w0[n].cpu()).abs().max())
+                     for n, p in first["params"].items()]
+                    + [float(t.abs().max()) for t in
+                       (*first["nu"].values(), *first["trace"].values())]
+                    + [abs(first["count"])])
+        pairs = list(zip(states, states[1:]))
+        return {
+            "start": start,
+            "losses": record["losses"],
+            "grads": [{n: grad_norm(a["nu"][n], b["nu"][n]) for n in a["nu"]}
+                      for a, b in pairs],
+            "changes": [{n: float((b["params"][n].double()
+                                   - a["params"][n].double()).norm())
+                         for n in a["params"]} for a, b in pairs],
+            "eval_losses": record["eval_losses"],
+        }
+
+    def _reference(self):
+        """The reference model with the seed's weights, its RMSprop fresh,
+        and its leaves' names."""
+        cfg = self.run.config
+        model = Model(cfg["model"]).to(self.run.device)
+        model.load_state_dict(self.initial_weights())
         opt = cfg["optimizer"]
         rms = ref_train.RMSprop(
             model.parameters(), opt["learning_rate"],
             1e-2 / self.B ** 2, opt["momentum"], opt["lr_decay_per_epoch"],
             self.spe)
-        rows = self.rows(0)
+        return model, rms, [n for n, _ in model.named_parameters()]
+
+    def _step(self, model, rms, step, half_batch=False):
+        idx = torch.as_tensor(self.rows(0)[step], device=self.run.device)
         train = self.data["train"]
-        losses, grad_norms = [], []
-        with math_mode(tf32):
+        return ref_train.train_step(
+            model, rms, train["image"].index_select(0, idx),
+            train["label"].index_select(0, idx), self.run.seed, step,
+            self.canvas, self.max_shift, half_batch=half_batch)
+
+    def _evals(self, model, half_batch=False):
+        val, out = self.data["val"], []
+        for b in range(self.n_val_batches):
+            rows_b = self.val_idx[b][:self.B // 2] if half_batch \
+                else self.val_idx[b]
+            idx = torch.as_tensor(rows_b, device=self.run.device)
+            out.append(ref_train.eval_losses(
+                model, val["image"].index_select(0, idx),
+                val["label"].index_select(0, idx), self.canvas))
+        return out
+
+    def follow(self, record):
+        """The reference's numbers of each checked step, taken from the
+        state that ``record`` holds before it, with the step's rows and
+        seeds: the loss, the gradient norms and the parameters' change
+        norms by leaf, and, by part of the state and by leaf, how far the
+        reference moved the state (``moves``) and how far the record's
+        next state lies from the reference's (``misses``); then the eval
+        losses at the record's last parameters."""
+        model, rms, names = self._reference()
+        out = {"losses": [], "grads": [], "changes": [], "moves": [],
+               "misses": []}
+        states = record["states"]
+        with math_mode():
+            for step, (state, after) in enumerate(zip(states, states[1:])):
+                load_state(model, rms, names, state)
+                values, grads = self._step(model, rms, step)
+                ref = state_of(model, rms, names)
+                out["losses"].append(values["loss"])
+                out["grads"].append({n: float(g.double().norm())
+                                     for n, g in zip(names, grads)})
+                moves = {k: distances(ref[k], state[k]) for k in PARTS}
+                out["changes"].append(moves["params"])
+                out["moves"].append(moves)
+                out["misses"].append({k: distances(after[k], ref[k])
+                                      for k in PARTS})
+            load_state(model, rms, names, states[-1])
+            out["eval_losses"] = self._evals(model)
+        return out
+
+    def half_batch_record(self):
+        """A record as set-up keeps the program's, made by the reference in
+        the program's place with each step, and each eval, on the first
+        half of its batch: a fault the check must catch."""
+        model, rms, names = self._reference()
+        losses, states = [], []
+        with math_mode():
             for step in range(self.checked):
-                idx = torch.as_tensor(rows[step], device=run.device)
-                values, grads = ref_train.train_step(
-                    model, rms, train["image"].index_select(0, idx),
-                    train["label"].index_select(0, idx), run.seed, step,
-                    self.canvas, self.max_shift, half_batch=half_batch)
+                states.append(state_of(model, rms, names))
+                values, _ = self._step(model, rms, step, half_batch=True)
                 losses.append(values["loss"])
-                if step < 2:
-                    grad_norms.append({n: float(g.double().norm())
-                                       for n, g in zip(names, grads)})
-            change = {n: float((p.detach() - w0[n]).double().norm())
-                      for n, p in zip(names, model.parameters())}
-            val = self.data["val"]
-            eval_losses = []
-            for b in range(self.n_val_batches):
-                rows_b = self.val_idx[b][:self.B // 2] if half_batch \
-                    else self.val_idx[b]
-                idx = torch.as_tensor(rows_b, device=run.device)
-                eval_losses.append(ref_train.eval_losses(
-                    model, val["image"].index_select(0, idx),
-                    val["label"].index_select(0, idx), self.canvas))
-        return {"losses": losses, "grad_norms": grad_norms,
-                "change_norms": change, "eval_losses": eval_losses}
+            states.append(state_of(model, rms, names))
+            evals = self._evals(model, half_batch=True)
+        return {"losses": losses, "states": states, "eval_losses": evals}
 
     def check(self):
-        return compare.train(self.program_readings(),
-                             self.reference_readings(), self.run.limits)
+        return compare.train(self.readings(self.program),
+                             self.follow(self.program), self.run.limits)
 
+
+PARTS = ("params", "nu", "trace")    # a state's tensors, by leaf
+
+
+def distances(a, b):
+    """{leaf: ||a - b||} of two {leaf: tensor} maps, in float64."""
+    return {n: float((a[n].double() - b[n].double()).norm()) for n in a}
+
+
+def state_of(model, rms, names):
+    """The reference's training state on the host, as ``Job.snapshot``
+    keeps the program's."""
+    def host(ts):
+        return {n: t.detach().to("cpu", copy=True) for n, t in zip(names, ts)}
+    return {"params": host(model.parameters()), "count": rms.count,
+            "nu": host(rms.nu), "trace": host(rms.trace)}
+
+
+@torch.no_grad()
+def load_state(model, rms, names, state):
+    """The reference model and RMSprop put in the training state
+    ``state`` (as ``Job.snapshot`` keeps it)."""
+    for n, p in zip(names, model.parameters()):
+        p.copy_(state["params"][n])
+    dev = rms.params[0].device
+    rms.nu = [state["nu"][n].to(dev, copy=True) for n in names]
+    rms.trace = [state["trace"][n].to(dev, copy=True) for n in names]
+    rms.count = state["count"]
